@@ -1,0 +1,164 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``csrc/`` are compiled for Hopper (``sm_90a``) into one
+shared library with a plain C interface, loaded with ``ctypes``.  Each
+source gets its own ``nvcc -c`` and all of them run at once; one more
+``nvcc -shared`` links the objects.  The build happens at first use, from
+the sources in the repository only, into ``kernels/_build/`` (listed in
+``.gitignore``), named by a digest of the sources and flags so an edited
+source is rebuilt and an unchanged one is loaded as it is.
+
+Every C function returns ``cudaGetLastError()`` after its launch;
+``check`` raises on anything but 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import List, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("common.cu", "rmsnorm.cu", "swiglu.cu", "flash_attention.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# dtype codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_c = ctypes
+_P = _c.c_void_p
+_SIGNATURES = {
+    "repro_cuda_error_string": (_c.c_char_p, [_c.c_int]),
+    "rmsnorm_fwd": (_c.c_int, [_P, _P, _P, _c.c_longlong, _c.c_int,
+                               _c.c_float, _c.c_int, _P]),
+    "swiglu_fwd": (_c.c_int, [_P, _P, _P, _c.c_longlong, _c.c_int,
+                              _c.c_int, _P]),
+    "flash_attention_fwd": (_c.c_int, [_P, _P, _P, _P] + [_c.c_int] * 6
+                            + [_c.c_longlong] * 9
+                            + [_c.c_int, _c.c_int, _c.c_float, _c.c_float,
+                               _c.c_int, _P]),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+ptxas_log: str = ""                     # nvcc/ptxas output of that build
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.is_file():
+        return str(default)
+    raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin: "
+                       "the CUDA kernels cannot be built")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds: List[List[str]]) -> List[str]:
+    """Run the commands at once; raise on the first that fails.  Every
+    process started is waited for (or killed) before returning."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs: List[str] = []
+    try:
+        for cmd, p in zip(cmds, procs):
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                                   f"{' '.join(cmd)}\n{out}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def build() -> Path:
+    """Compile the library if it is not built yet; return its path."""
+    global ptxas_log
+    so = BUILD_DIR / f"libreprokernels-{_digest()}.so"
+    if so.exists():
+        return so
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR, prefix="tmp-"))
+    try:
+        objs = [tmp / (Path(s).stem + ".o") for s in SOURCES]
+        outs = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c",
+                          str(CSRC / s), "-o", str(o)]
+                         for s, o in zip(SOURCES, objs)])
+        _run_all([[nvcc, "-shared", "-o", str(tmp / so.name),
+                   *map(str, objs)]])
+        os.replace(tmp / so.name, so)   # atomic: readers never see a partial
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ptxas_log = "\n".join(outs)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _lib = lib
+    return _lib
+
+
+def check(err: int, kernel: str) -> None:
+    if err != 0:
+        msg = library().repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    try:
+        return DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(f"unsupported dtype {t.dtype}; the kernels take "
+                        f"{sorted(map(str, DTYPE_CODES))}") from None
+
+
+def require_cuda(*tensors: torch.Tensor) -> torch.device:
+    """All tensors on the current CUDA device; return it."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel called with a tensor on {dev}")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"tensor on {dev} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    return dev
+
+
+def stream_handle(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream

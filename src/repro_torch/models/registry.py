@@ -1,0 +1,88 @@
+"""Architecture registry (port of ``repro/models/registry.py``).
+
+Only ``llama3-8b`` is ported; every other arch id of the JAX registry
+raises ``NotImplementedError`` naming its ROADMAP item.
+
+Unified batch dict keys: ``tokens`` (B, S) int.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Callable
+
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.utils.device import DeviceLike
+
+ARCH_IDS = (
+    "llama3-8b", "qwen3-14b", "nemotron-4-15b", "h2o-danube-3-4b",
+    "falcon-mamba-7b", "phi-3-vision-4.2b", "mixtral-8x7b",
+    "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b", "whisper-tiny",
+)
+PORTED = ("llama3-8b",)
+# ROADMAP.md queue A item of each arch not ported yet
+_TODO = {"qwen3-14b": 1, "nemotron-4-15b": 1, "h2o-danube-3-4b": 1}
+
+
+def check_last_logits(logits, batch: int, vocab: int,
+                      where: str = "prefill"):
+    """Serving contract: ``prefill`` and ``decode_step`` return
+    LAST-position logits of shape (B, V), never the full-sequence (B, S, V)
+    that ``forward`` returns (the sampler would argmax over vocab at every
+    position and emit position 0's token)."""
+    shape = tuple(getattr(logits, "shape", ()))
+    if shape != (batch, vocab):
+        raise ValueError(
+            f"{where} logits must be last-position (batch, vocab) = "
+            f"{(batch, vocab)}, got {shape} — full-sequence (B, S, V) "
+            f"logits violate the registry serving contract")
+    return logits
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchBundle:
+    cfg: ModelConfig
+    init: Callable[..., Any]          # (cfg, seed=, device=) -> params
+    forward: Callable[..., Any]       # (params, batch, cfg) -> (logits, aux)
+    # serving contract (check_last_logits): both return (B, V) logits of
+    # the LAST position only
+    prefill: Callable[..., Any]       # (params, batch, cfg, max_len)
+    decode_step: Callable[..., Any]   # (params, token, cache, cfg)
+
+    def init_cache(self, batch: int, max_len: int,
+                   device: DeviceLike = None):
+        return transformer.init_cache(self.cfg, batch, max_len, device)
+
+
+def _lm_forward(params, batch, cfg):
+    return transformer.lm_forward(params, batch["tokens"], cfg)
+
+
+def _lm_prefill(params, batch, cfg, max_len):
+    return transformer.lm_prefill(params, batch["tokens"], cfg, max_len)
+
+
+def bundle_for(cfg: ModelConfig) -> ArchBundle:
+    transformer.check_supported(cfg)
+    return ArchBundle(cfg, transformer.init_lm, _lm_forward, _lm_prefill,
+                      transformer.lm_decode_step)
+
+
+def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:
+    if arch not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    if arch not in PORTED:
+        raise NotImplementedError(
+            f"{arch} is not ported yet (ROADMAP.md queue A, item "
+            f"{_TODO.get(arch, 9)})")
+    mod = importlib.import_module(
+        "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
+    cfg = mod.SMOKE if smoke else mod.CONFIG
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+def get_bundle(arch: str, smoke: bool = False, **overrides) -> ArchBundle:
+    return bundle_for(get_config(arch, smoke=smoke, **overrides))

@@ -1,0 +1,143 @@
+"""Decoder-only LM, uniform attention stack (port of
+``repro/models/transformer.py``, dense family).
+
+Public entry points:
+  init_lm(cfg, seed=, device=)                   -> params
+  lm_forward(params, tokens, cfg)                -> (logits, aux_loss)
+  init_cache(cfg, batch, max_len, device=)       -> cache
+  lm_prefill(params, tokens, cfg, max_len)       -> (last_logits, cache)
+  lm_decode_step(params, token, cache, cfg)      -> (logits, cache)
+
+Blocks are stacked on a leading layer dim as in the JAX package; its
+``lax.scan`` over layers is a Python loop over views of the stacks.  The
+unembed returns fp32 logits: a bf16 matmul rounds them to bf16 first,
+where JAX accumulates straight into fp32.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (_he, attention, decode_attention,
+                                       init_attention, init_kv_cache,
+                                       init_mlp, init_rmsnorm, mlp, rmsnorm)
+from repro_torch.utils.device import DeviceLike, resolve_device
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The slice serves the uniform dense attention stack only."""
+    if cfg.family != "dense" or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet "
+            "(ROADMAP.md queue A, item 9)")
+
+
+# ------------------------------------------------------------------ init ---
+def init_lm(cfg: ModelConfig, *, seed: int = 0,
+            device: DeviceLike = None) -> dict:
+    """He-initialized parameters from a seeded generator on the device."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    D, L = cfg.d_model, cfg.num_layers
+    params: Dict[str, Any] = {
+        "embed": _he(gen, (cfg.vocab_size, D), cfg.pdtype, cfg.vocab_size),
+        "final_norm": init_rmsnorm(D, cfg.pdtype, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = _he(gen, (D, cfg.vocab_size), cfg.pdtype, D)
+    params["blocks"] = {
+        "ln1": init_rmsnorm(D, cfg.pdtype, dev, L),
+        "attn": init_attention(gen, cfg, L),
+        "ln2": init_rmsnorm(D, cfg.pdtype, dev, L),
+        "mlp": init_mlp(gen, cfg, L),
+    }
+    return params
+
+
+def layer(blocks: dict, i: int) -> dict:
+    """Views of layer ``i`` of the stacked blocks."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
+
+
+# --------------------------------------------------------------- forward ---
+def _embed(params: dict, tokens: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    tokens = torch.as_tensor(tokens, device=params["embed"].device)
+    return params["embed"][tokens.long()].to(cfg.adtype)
+
+
+def _unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return (x @ w).float()
+
+
+def _block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+           return_kv: bool = False):
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    o, k, v = attention(p["attn"], h, cfg, return_kv=True)
+    x = x + o
+    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    return (x, k, v) if return_kv else x
+
+
+def lm_forward(params: dict, tokens, cfg: ModelConfig):
+    """tokens: (B,S) int -> (logits (B,S,V) fp32, aux_loss)."""
+    check_supported(cfg)
+    x = _embed(params, tokens, cfg)
+    for i in range(cfg.num_layers):
+        x = _block(layer(params["blocks"], i), x, cfg)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _unembed(params, x, cfg), aux
+
+
+# --------------------------------------------------------------- prefill ---
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = None) -> dict:
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return {"pos": torch.zeros((), dtype=torch.int64, device=dev),
+            "kv": init_kv_cache(cfg, batch, max_len, cfg.num_layers, dev)}
+
+
+def lm_prefill(params: dict, tokens, cfg: ModelConfig, max_len: int):
+    """Forward + cache construction.  Returns (last-token logits (B,V)
+    fp32, cache).  The cache holds the last ``min(S, max_len)`` positions
+    at its front, as in the JAX package."""
+    dev = params["embed"].device
+    x = _embed(params, tokens, cfg)
+    B, S = x.shape[0], x.shape[1]
+    cache = init_cache(cfg, B, max_len, dev)
+    keep = min(S, max_len)
+    ck, cv = cache["kv"]["k"], cache["kv"]["v"]
+    for i in range(cfg.num_layers):
+        x, k, v = _block(layer(params["blocks"], i), x, cfg, return_kv=True)
+        ck[i, :, :keep] = k[:, S - keep:]
+        cv[i, :, :keep] = v[:, S - keep:]
+    # the final norm is per row: normalize only the row the logits need
+    x = rmsnorm(params["final_norm"], x[:, -1:].contiguous(), cfg.norm_eps)
+    cache["pos"].fill_(S)
+    return _unembed(params, x, cfg)[:, 0], cache
+
+
+# ----------------------------------------------------------- decode step ---
+def lm_decode_step(params: dict, token, cache: dict, cfg: ModelConfig):
+    """token: (B,1) int; cache from init_cache/lm_prefill, with ``pos``
+    scalar or (B,).  Returns (logits (B,V) fp32, cache): unlike JAX the
+    cache is updated in place and the same dict is returned."""
+    pos = cache["pos"]
+    x = _embed(params, token, cfg)
+    ck, cv = cache["kv"]["k"], cache["kv"]["v"]
+    for i in range(cfg.num_layers):
+        p = layer(params["blocks"], i)
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        x = x + decode_attention(p["attn"], h, ck[i], cv[i], pos, cfg)
+        x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    cache["pos"] = pos + 1
+    return _unembed(params, x, cfg)[:, 0], cache

@@ -5,17 +5,22 @@
 
 Phases, each raising on failure so the script exits non-zero:
   1. card     nvidia-smi name and power limit, torch's device name
-  2. build    the three Hopper kernels from ``src/repro_torch/kernels/csrc``
+  2. build    the four Hopper kernels from ``src/repro_torch/kernels/csrc``
   3. kernels  each kernel against its plain PyTorch version on the card at
-              the serving path's shapes (bf16 tol 2e-2, fp32 tol 2e-5),
-              timed beside the plain version and one library call
-  4. model    llama3-8b SMOKE in fp32: the kernels on the card against the
-              plain versions on the CPU through forward/prefill/decode
-  5. serve    llama3-8b at full width (bf16, seeded random weights) through
-              ServeEngine(max_batch=8, max_len=2048) on a 16-request trace;
-              every kernel's launch count equals its expected count, first
-              tokens equal decode_sequential's, logits are finite
-Then one JSON line with every kernel, the card line, and the last line
+              the serving paths' shapes (bf16 tol 2e-2, fp32 tol 2e-5, the
+              selective scan 2e-4 in y and its last state), timed beside
+              the plain version and one library call where there is one
+  4. model    llama3-8b and falcon-mamba-7b SMOKE in fp32: the kernels on
+              the card against the plain versions on the CPU through
+              forward/prefill/the cache/decode
+  5. serve    llama3-8b, then falcon-mamba-7b, at full width and depth
+              (bf16, seeded random weights) through ServeEngine(max_batch=8,
+              max_len=2048) on the same 16-request trace; every kernel's
+              launch count equals its expected count for that path, first
+              tokens equal decode_sequential's, logits are finite; each path
+              reports its own peak memory
+Then one JSON line with every kernel (launches summed over both serve
+runs), the card line, and the last line
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
 check and timing there as JSON.  Imports nothing of JAX.
 """
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -38,8 +44,15 @@ PEAKS = {  # marker: (bytes/s, bf16 tensor FLOP/s, fp32 FLOP/s)
     "H100 NVL": (3.9e12, 835e12, 60e12),
     "H100": (3.35e12, 989e12, 67e12),        # SXM
 }
+# An SM issues 16 special-function results (exp2, rcp, ...) per clock
+# against 128 fp32 FMAs (256 FLOP), so their peak is fp32 FLOP/s / 16.
+SFU_PER_FP32_FLOP = 1 / 16
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 FP32_TOL = dict(rtol=2e-5, atol=2e-5)
+# the selective scan: an fp32 sum over up to S decayed terms, added in
+# another order than the plain loop's (tests/test_kernels.py:102-103)
+SCAN_TOL = dict(rtol=2e-4, atol=2e-4)
+SERVE_ARCHS = ("llama3-8b", "falcon-mamba-7b")
 # model-level fp32 tolerance: two layers of matmuls summed in other orders
 # on the CPU and the card, then a 256-way unembed
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -105,6 +118,7 @@ def phase_kernels(torch, dev, name):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels import swiglu as sg
 
     bw, bf16_peak, fp32_peak = peaks(name)
@@ -161,6 +175,24 @@ def phase_kernels(torch, dev, name):
             if "masked" in label:
                 assert got[:, :Sq - Sk].abs().max().item() == 0.0
 
+    # ssm_scan, y and the last state: the prefill's shape (d_inner 8192,
+    # d_state 16, bf16 u, S up to 1000), a ragged S, fp32 u at batch 2
+    def scan_inputs(B, S, di, ds, u_dtype):
+        dt = F.softplus(randn(B, S, di, dtype=f32) - 1.0)
+        return (randn(B, S, di, dtype=u_dtype), dt,
+                randn(B, S, ds, dtype=f32), randn(B, S, ds, dtype=f32),
+                -torch.exp(randn(di, ds, dtype=f32) * 0.3))
+
+    for label, B, S, dt in (("B1 S1000", 1, 1000, bf),
+                            ("B1 S500 ragged", 1, 500, bf),
+                            ("B2 S300", 2, 300, f32)):
+        args = scan_inputs(B, S, 8192, 16, dt)
+        (y, h), (want_y, want_h) = ss.ssm_scan(*args), ref.ssm_scan(*args)
+        compare("ssm_scan", f"{label} di8192 ds16 u {dt} y", y, want_y,
+                SCAN_TOL)
+        compare("ssm_scan", f"{label} di8192 ds16 u {dt} h_last", h, want_h,
+                SCAN_TOL)
+
     # timings at the serving path's largest shapes, bf16
     x, s = randn(1000, 4096, dtype=bf), randn(4096, dtype=bf)
     g, u = randn(1000, 14336, dtype=bf), randn(1000, 14336, dtype=bf)
@@ -170,6 +202,9 @@ def phase_kernels(torch, dev, name):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's layout
     pairs = S * (S + 1) // 2          # visible (q, k) pairs, causal
     el = 2                            # bf16 bytes
+    di, ds = 8192, 16
+    scan = scan_inputs(1, S, di, ds, bf)
+    states = S * di * ds              # (t, d, n) state updates, one exp each
     rows = {
         "rmsnorm": dict(
             source="src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -179,7 +214,7 @@ def phase_kernels(torch, dev, name):
             plain=lambda: ref.rmsnorm(x, s, 1e-5),
             library=lambda: F.rms_norm(x, (4096,), s, 1e-5),
             bytes=2 * 1000 * 4096 * el + 4096 * el,
-            ops=(4 * 1000 * 4096, fp32_peak)),
+            ops=[(4 * 1000 * 4096, fp32_peak)]),
         "swiglu": dict(
             source="src/repro_torch/kernels/csrc/swiglu.cu",
             replaces="src/repro/kernels/swiglu.py:16",
@@ -188,7 +223,7 @@ def phase_kernels(torch, dev, name):
             plain=lambda: ref.swiglu(g, u, bf),
             library=None,
             bytes=3 * 1000 * 14336 * el,
-            ops=(8 * 1000 * 14336, fp32_peak)),
+            ops=[(8 * 1000 * 14336, fp32_peak)]),
         "flash_attention": dict(
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:91",
@@ -198,14 +233,27 @@ def phase_kernels(torch, dev, name):
             library=lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True),
             bytes=(2 * S * H * hd + 2 * S * Hk * hd) * el,
-            ops=(4 * pairs * hd * H, bf16_peak)),
+            ops=[(4 * pairs * hd * H, bf16_peak)]),
+        "ssm_scan": dict(
+            source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+            replaces="src/repro/kernels/ssm_scan.py:46",
+            shape="B1 S1000 di8192 ds16, u bf16, dt/B/C/A fp32",
+            fn=lambda: ss.ssm_scan(*scan),
+            plain=lambda: ref.ssm_scan(*scan),
+            library=None,
+            # u (bf16), dt and y (fp32) per (t, d); B, C per (t, n); A and
+            # the last state per (d, n)
+            bytes=S * di * (el + 4 + 4) + 2 * S * ds * 4 + 2 * di * ds * 4,
+            # 6 fp32 FLOP per state update (dt*A, decay*h, du*B, the add,
+            # h*C, the sum) and one exp on the special-function units
+            ops=[(6 * states + S * di, fp32_peak),
+                 (states, fp32_peak * SFU_PER_FP32_FLOP)]),
     }
     timed = {}
     for kname, r in rows.items():
-        ops, peak = r["ops"]
-        bytes_ms, ops_ms = r["bytes"] / bw * 1e3, ops / peak * 1e3
-        want = r["plain"]()
-        err = (r["fn"]().float() - want.float()).abs().max().item()
+        bytes_ms = r["bytes"] / bw * 1e3
+        ops_ms = max(n / peak for n, peak in r["ops"]) * 1e3
+        err = _max_err(r["fn"](), r["plain"]())
         timed[kname] = {
             "name": kname, "route": "cuda", "source": r["source"],
             "replaces": r["replaces"], "shape": r["shape"],
@@ -224,12 +272,19 @@ def phase_kernels(torch, dev, name):
     return checks, timed
 
 
+def _max_err(got, want) -> float:
+    """Max abs difference over a tensor or a tuple of tensors."""
+    if isinstance(got, tuple):
+        return max(_max_err(g, w) for g, w in zip(got, want))
+    return (got.float() - want.float()).abs().max().item()
+
+
 # ------------------------------------------------------------- phase 4 ---
-def phase_model(torch, dev):
+def phase_model(torch, dev, arch):
     """SMOKE fp32: kernels on the card vs plain versions on the CPU."""
     from repro_torch.models import registry
 
-    b = registry.get_bundle("llama3-8b", smoke=True)
+    b = registry.get_bundle(arch, smoke=True)
     cfg = b.cfg
     p_cpu = b.init(cfg, seed=0, device="cpu")
     p_gpu = _tree(p_cpu, lambda t: t.to(dev))
@@ -246,13 +301,14 @@ def phase_model(torch, dev):
             lg, cache = b.decode_step(p, tok, cache, cfg)
             steps.append(lg)
             tok = torch.argmax(lg, -1, keepdim=True)
-        out[tag] = [logits, last, cache["kv"]["k"], cache["kv"]["v"], *steps]
+        state = {k: v for k, v in cache.items() if k != "pos"}
+        out[tag] = [logits, last, *_leaves(state), *steps]
     for i, (a, g) in enumerate(zip(out["cpu"], out["gpu"])):
         torch.testing.assert_close(g.cpu(), a, **MODEL_TOL)
     err = max((g.cpu() - a).abs().max().item()
               for a, g in zip(out["cpu"], out["gpu"]))
-    log(f"[model] llama3-8b SMOKE fp32 card vs CPU: forward, prefill, kv "
-        f"cache, 4 decode steps max_abs_err {err:.3e} ok")
+    log(f"[model] {arch} SMOKE fp32 card vs CPU: forward, prefill, "
+        f"{'/'.join(state)} cache, 4 decode steps max_abs_err {err:.3e} ok")
     return err
 
 
@@ -263,18 +319,23 @@ def _tree(node, fn):
 
 
 # ------------------------------------------------------------- phase 5 ---
-def phase_serve(torch, dev, kernels):
+def phase_serve(torch, dev, kernels, arch):
     from repro_torch.models import registry
     from repro_torch.serve import ServeEngine, decode_sequential, scripted_trace
 
-    cfg = registry.get_config("llama3-8b")
+    # the previous path's weights and caches are gone: each path reports
+    # its own peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = registry.get_config(arch)
     base = registry.bundle_for(cfg)
     t0 = time.perf_counter()
     params = base.init(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"[serve] llama3-8b init {n_params / 1e9:.3f} B params on {dev} in "
+    log(f"[serve] {arch} init {n_params / 1e9:.3f} B params on {dev} in "
         f"{init_s:.1f} s")
 
     reqs = scripted_trace(16, vocab_size=cfg.vocab_size, seed=0,
@@ -296,9 +357,13 @@ def phase_serve(torch, dev, kernels):
         assert len(comps[r.rid].tokens) == r.max_new_tokens, r.rid
     steps = len(reqs) + report.decode_steps      # prefills + decode steps
     L = cfg.num_layers
-    expect = {"rmsnorm": (2 * L + 1) * steps, "swiglu": L * steps,
-              "flash_attention": L * len(reqs)}
-    log(f"[serve] launches {launches} expected {expect}")
+    if cfg.family == "ssm":   # {ln1, ssm} blocks; the scan in prefill only
+        expect = {"rmsnorm": (L + 1) * steps, "swiglu": 0,
+                  "flash_attention": 0, "ssm_scan": L * len(reqs)}
+    else:
+        expect = {"rmsnorm": (2 * L + 1) * steps, "swiglu": L * steps,
+                  "flash_attention": L * len(reqs), "ssm_scan": 0}
+    log(f"[serve] {arch} launches {launches} expected {expect}")
     assert launches == expect, (launches, expect)
 
     def finite(fn, where):
@@ -318,20 +383,22 @@ def phase_serve(torch, dev, kernels):
                 for a, b in zip(comps[r.rid].tokens[1:], seq[r.rid][1:]))
     n_dec = sum(len(comps[r.rid].tokens) - 1 for r in reqs)
     full_equal = sum(comps[r.rid].tokens == seq[r.rid] for r in reqs)
-    log(f"[serve] first tokens equal decode_sequential: {first_equal}; "
+    log(f"[serve] {arch} first tokens equal decode_sequential: "
+        f"{first_equal}; "
         f"decode tokens agreeing at their position: {agree}/{n_dec}; "
         f"streams fully equal: {full_equal}/{len(reqs)}")
     assert first_equal, "first tokens differ from decode_sequential"
 
     # the same statistics (mean, median, max over requests) as the CLI's
     summary = {
+        "arch": arch, "params": n_params,
         **report.to_dict(), "prefills": len(reqs), "wall_s": wall,
         "init_s": init_s, "launches": launches, "expected_launches": expect,
         "decode_agree": [agree, n_dec], "streams_equal": [full_equal,
                                                           len(reqs)],
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
     }
-    log(f"[serve] report {json.dumps(summary)}")
+    log(f"[serve] {arch} report {json.dumps(summary)}")
     return summary, launches
 
 
@@ -365,15 +432,19 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    from repro_torch.kernels import flash_attention, rmsnorm, swiglu
+    from repro_torch.kernels import flash_attention, rmsnorm, ssm_scan, swiglu
     kernels = {"rmsnorm": rmsnorm, "swiglu": swiglu,
-               "flash_attention": flash_attention}
+               "flash_attention": flash_attention, "ssm_scan": ssm_scan}
 
     smi, name = phase_card(torch)
     build_s = phase_build()
     checks, timed = phase_kernels(torch, dev, name)
-    model_err = phase_model(torch, dev)
-    serve, launches = phase_serve(torch, dev, kernels)
+    model_err = {arch: phase_model(torch, dev, arch) for arch in SERVE_ARCHS}
+    serve, launches = {}, dict.fromkeys(kernels, 0)
+    for arch in SERVE_ARCHS:
+        serve[arch], counts = phase_serve(torch, dev, kernels, arch)
+        for kname, n in counts.items():
+            launches[kname] += n
 
     worst = {}
     for c in checks:

@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("common.cu", "rmsnorm.cu", "swiglu.cu", "flash_attention.cu")
+SOURCES = ("common.cu", "rmsnorm.cu", "swiglu.cu", "flash_attention.cu",
+           "ssm_scan.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -47,6 +48,7 @@ _SIGNATURES = {
                             + [_c.c_longlong] * 9
                             + [_c.c_int, _c.c_int, _c.c_float, _c.c_float,
                                _c.c_int, _P]),
+    "ssm_scan_fwd": (_c.c_int, [_P] * 7 + [_c.c_int] * 5 + [_P]),
 }
 
 _lock = threading.Lock()

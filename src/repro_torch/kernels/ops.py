@@ -7,13 +7,14 @@ fallback from the kernel to the plain version.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssm_scan as _ss
 from repro_torch.kernels import swiglu as _sg
 
 
@@ -47,3 +48,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                    softcap=softcap)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap)
+
+
+def ssm_scan(u, dt, Bc, Cc, A) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y (B,S,di), h_last (B,di,ds)), both fp32."""
+    if _on_cpu(u):
+        return ref.ssm_scan(u, dt, Bc, Cc, A)
+    return _ss.ssm_scan(u, dt, Bc, Cc, A)

@@ -60,6 +60,23 @@ def rmsnorm(x, scale, eps: float = 1e-5) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def ssm_scan(u, dt, Bc, Cc, A):
+    """Mamba-1 selective scan, diagonal A, as a sequential loop over time
+    in fp32.  u, dt: (B,S,di); Bc, Cc: (B,S,ds); A: (di,ds).  Returns
+    (y (B,S,di), h_last (B,di,ds)): y is the JAX oracle's output (no D
+    skip, no gate), h_last the state after the last step (zeros at S=0)."""
+    uf, dtf, Bf, Cf, Af = (t.float() for t in (u, dt, Bc, Cc, A))
+    Bsz, S, di = u.shape
+    h = torch.zeros((Bsz, di, Af.shape[-1]), dtype=torch.float32,
+                    device=u.device)
+    y = torch.empty((Bsz, S, di), dtype=torch.float32, device=u.device)
+    for t in range(S):
+        decay = torch.exp(dtf[:, t, :, None] * Af)
+        h = decay * h + (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
+        y[:, t] = (h * Cf[:, t, None, :]).sum(-1)
+    return y, h
+
+
 def swiglu(g, u, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """silu(g) * u in fp32, cast to ``out_dtype`` (default g.dtype)."""
     return (F.silu(g.float()) * u.float()).to(out_dtype or g.dtype)

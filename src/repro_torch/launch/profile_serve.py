@@ -1,9 +1,10 @@
 """Where a serving step's time goes on the card, under torch.profiler.
 
-Profiles a few 1000-token prefills and a few batched decode steps of
-llama3-8b at full width.
+Profiles a few 1000-token prefills and a few batched decode steps of a
+ported arch (llama3-8b or falcon-mamba-7b) at full width and depth.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--out PATH]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        [--arch falcon-mamba-7b] [--out PATH]
 
 The shapes are those of ``chip_smoke.py``'s serve run: prompts of up to
 1000 tokens, ``max_batch=8``, ``max_len=2048``.  Each phase runs its
@@ -30,14 +31,16 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.models import registry
 from repro_torch.utils.device import resolve_device, synchronize
 
-ARCH = "llama3-8b"
-PROMPT_LEN = 1000
-BATCH = 8
-MAX_LEN = 2048
-PREFILL_REPS = 4
-DECODE_REPS = 8
+# per arch: the serve cell's shapes and the repetitions of each phase
+SHAPES = {
+    "llama3-8b": dict(prompt_len=1000, batch=8, max_len=2048,
+                      prefill_reps=4, decode_reps=8),
+    "falcon-mamba-7b": dict(prompt_len=1000, batch=8, max_len=2048,
+                            prefill_reps=4, decode_reps=8),
+}
 SEED = 0
-PORT_KERNELS = ("rmsnorm_", "swiglu_", "flash_fwd_")  # device symbol prefixes
+PORT_KERNELS = ("rmsnorm_", "swiglu_", "flash_fwd_",   # device symbol
+                "ssm_scan_")                           # prefixes
 
 
 def _device_us(evt) -> float:
@@ -73,24 +76,26 @@ def _summarize(prof, wall_s: float, reps: int, top: int = 8) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="llama3-8b", choices=sorted(SHAPES))
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    shp = SHAPES[args.arch]
+    plen, batch, max_len = shp["prompt_len"], shp["batch"], shp["max_len"]
 
     dev = resolve_device("cuda")
-    b = registry.get_bundle(ARCH)
+    b = registry.get_bundle(args.arch)
     cfg = b.cfg
     params = b.init(cfg, seed=SEED, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN), generator=gen,
+    prompt = torch.randint(0, cfg.vocab_size, (1, plen), generator=gen,
                            device=dev)
-    cache = b.init_cache(BATCH, MAX_LEN, dev)
-    cache["pos"] = torch.full((BATCH,), PROMPT_LEN, dtype=torch.int64,
-                              device=dev)
-    tok = torch.randint(0, cfg.vocab_size, (BATCH, 1), generator=gen,
+    cache = b.init_cache(batch, max_len, dev)
+    cache["pos"] = torch.full((batch,), plen, dtype=torch.int64, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen,
                         device=dev)
 
     def prefill():
-        return b.prefill(params, {"tokens": prompt}, cfg, MAX_LEN)
+        return b.prefill(params, {"tokens": prompt}, cfg, max_len)
 
     def decode():
         logits, _ = b.decode_step(params, tok, cache, cfg)
@@ -98,9 +103,9 @@ def main(argv=None):
         return logits
 
     out = {"arch": cfg.name, "device_name": torch.cuda.get_device_name(dev),
-           "prompt_len": PROMPT_LEN, "batch": BATCH, "max_len": MAX_LEN}
-    for phase, fn, reps in (("prefill", prefill, PREFILL_REPS),
-                            ("decode_step", decode, DECODE_REPS)):
+           "prompt_len": plen, "batch": batch, "max_len": max_len}
+    for phase, fn, reps in (("prefill", prefill, shp["prefill_reps"]),
+                            ("decode_step", decode, shp["decode_reps"])):
         fn()                       # warm up (allocator, cuBLAS handles)
         synchronize(dev)
         # busy and wall come from this one traced window

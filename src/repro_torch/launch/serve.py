@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+        --smoke --device cpu
 
 Serves a seeded mixed-length trace through ``ServeEngine`` with random
 weights made from ``--seed``, on ``--device`` (default ``cuda``; there is
@@ -16,13 +19,13 @@ import json
 
 import torch
 
-from repro_torch.kernels import flash_attention, rmsnorm, swiglu
+from repro_torch.kernels import flash_attention, rmsnorm, ssm_scan, swiglu
 from repro_torch.models import registry
 from repro_torch.serve import ServeEngine, scripted_trace
 from repro_torch.utils.device import resolve_device
 
 KERNELS = {"rmsnorm": rmsnorm, "swiglu": swiglu,
-           "flash_attention": flash_attention}
+           "flash_attention": flash_attention, "ssm_scan": ssm_scan}
 
 
 def _parse_lens(text: str):

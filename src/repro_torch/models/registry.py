@@ -1,7 +1,7 @@
 """Architecture registry (port of ``repro/models/registry.py``).
 
-Only ``llama3-8b`` is ported; every other arch id of the JAX registry
-raises ``NotImplementedError`` naming its ROADMAP item.
+``llama3-8b`` and ``falcon-mamba-7b`` are ported; every other arch id of
+the JAX registry raises ``NotImplementedError`` naming its ROADMAP item.
 
 Unified batch dict keys: ``tokens`` (B, S) int.
 """
@@ -20,7 +20,7 @@ ARCH_IDS = (
     "falcon-mamba-7b", "phi-3-vision-4.2b", "mixtral-8x7b",
     "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b", "whisper-tiny",
 )
-PORTED = ("llama3-8b",)
+PORTED = ("llama3-8b", "falcon-mamba-7b")
 # ROADMAP.md queue A item of each arch not ported yet
 _TODO = {"qwen3-14b": 1, "nemotron-4-15b": 1, "h2o-danube-3-4b": 1}
 

@@ -1,5 +1,5 @@
-"""Decoder-only LM, uniform attention stack (port of
-``repro/models/transformer.py``, dense family).
+"""Decoder-only LM, uniform stacks (port of ``repro/models/transformer.py``,
+dense and ssm families).
 
 Public entry points:
   init_lm(cfg, seed=, device=)                   -> params
@@ -9,7 +9,10 @@ Public entry points:
   lm_decode_step(params, token, cache, cfg)      -> (logits, cache)
 
 Blocks are stacked on a leading layer dim as in the JAX package; its
-``lax.scan`` over layers is a Python loop over views of the stacks.  The
+``lax.scan`` over layers is a Python loop over views of the stacks.  A
+dense block is ``{ln1, attn, ln2, mlp}`` and caches K/V; an ssm block
+(Mamba-1) is ``{ln1, ssm}`` and caches the scan state ``h`` and the conv
+tail, whose size does not grow with the sequence.  The
 unembed returns fp32 logits: a bf16 matmul rounds them to bf16 first,
 where JAX accumulates straight into fp32.
 """
@@ -19,6 +22,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.models import mamba
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_he, attention, decode_attention,
                                        init_attention, init_kv_cache,
@@ -27,8 +31,9 @@ from repro_torch.utils.device import DeviceLike, resolve_device
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The slice serves the uniform dense attention stack only."""
-    if cfg.family != "dense" or cfg.n_experts:
+    """The port serves the uniform dense attention stack and the uniform
+    Mamba-1 stack."""
+    if cfg.family not in ("dense", "ssm") or cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             "(ROADMAP.md queue A, item 9)")
@@ -49,6 +54,10 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
     }
     if not cfg.tie_embeddings:
         params["unembed"] = _he(gen, (D, cfg.vocab_size), cfg.pdtype, D)
+    if cfg.family == "ssm":
+        params["blocks"] = {"ln1": init_rmsnorm(D, cfg.pdtype, dev, L),
+                            "ssm": mamba.init_mamba(gen, cfg, L)}
+        return params
     params["blocks"] = {
         "ln1": init_rmsnorm(D, cfg.pdtype, dev, L),
         "attn": init_attention(gen, cfg, L),
@@ -85,12 +94,18 @@ def _block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return (x, k, v) if return_kv else x
 
 
+def _ssm_block(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    return x + mamba.mamba_block(p["ssm"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                 cfg)
+
+
 def lm_forward(params: dict, tokens, cfg: ModelConfig):
     """tokens: (B,S) int -> (logits (B,S,V) fp32, aux_loss)."""
     check_supported(cfg)
     x = _embed(params, tokens, cfg)
+    block = _ssm_block if cfg.family == "ssm" else _block
     for i in range(cfg.num_layers):
-        x = _block(layer(params["blocks"], i), x, cfg)
+        x = block(layer(params["blocks"], i), x, cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _unembed(params, x, cfg), aux
@@ -101,24 +116,40 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> dict:
     check_supported(cfg)
     dev = resolve_device(device)
-    return {"pos": torch.zeros((), dtype=torch.int64, device=dev),
-            "kv": init_kv_cache(cfg, batch, max_len, cfg.num_layers, dev)}
+    cache = {"pos": torch.zeros((), dtype=torch.int64, device=dev)}
+    if cfg.family == "ssm":   # fixed size: max_len does not apply
+        cache["ssm"] = mamba.init_mamba_state(cfg, batch, cfg.num_layers,
+                                              dev)
+    else:
+        cache["kv"] = init_kv_cache(cfg, batch, max_len, cfg.num_layers, dev)
+    return cache
 
 
 def lm_prefill(params: dict, tokens, cfg: ModelConfig, max_len: int):
     """Forward + cache construction.  Returns (last-token logits (B,V)
-    fp32, cache).  The cache holds the last ``min(S, max_len)`` positions
-    at its front, as in the JAX package."""
+    fp32, cache).  A KV cache holds the last ``min(S, max_len)`` positions
+    at its front, as in the JAX package; an ssm cache holds each layer's
+    scan state and conv tail after position S."""
     dev = params["embed"].device
     x = _embed(params, tokens, cfg)
     B, S = x.shape[0], x.shape[1]
     cache = init_cache(cfg, B, max_len, dev)
-    keep = min(S, max_len)
-    ck, cv = cache["kv"]["k"], cache["kv"]["v"]
-    for i in range(cfg.num_layers):
-        x, k, v = _block(layer(params["blocks"], i), x, cfg, return_kv=True)
-        ck[i, :, :keep] = k[:, S - keep:]
-        cv[i, :, :keep] = v[:, S - keep:]
+    if cfg.family == "ssm":
+        hs, cs = cache["ssm"]["h"], cache["ssm"]["conv"]
+        for i in range(cfg.num_layers):
+            p = layer(params["blocks"], i)
+            y, hs[i], cs[i] = mamba.mamba_block(
+                p["ssm"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
+                return_state=True)
+            x = x + y
+    else:
+        keep = min(S, max_len)
+        ck, cv = cache["kv"]["k"], cache["kv"]["v"]
+        for i in range(cfg.num_layers):
+            x, k, v = _block(layer(params["blocks"], i), x, cfg,
+                             return_kv=True)
+            ck[i, :, :keep] = k[:, S - keep:]
+            cv[i, :, :keep] = v[:, S - keep:]
     # the final norm is per row: normalize only the row the logits need
     x = rmsnorm(params["final_norm"], x[:, -1:].contiguous(), cfg.norm_eps)
     cache["pos"].fill_(S)
@@ -129,15 +160,24 @@ def lm_prefill(params: dict, tokens, cfg: ModelConfig, max_len: int):
 def lm_decode_step(params: dict, token, cache: dict, cfg: ModelConfig):
     """token: (B,1) int; cache from init_cache/lm_prefill, with ``pos``
     scalar or (B,).  Returns (logits (B,V) fp32, cache): unlike JAX the
-    cache is updated in place and the same dict is returned."""
+    cache is updated in place and the same dict is returned.  The ssm
+    recurrence does not read ``pos``; it advances all the same, so the
+    engine keeps one bookkeeping for both families."""
     pos = cache["pos"]
     x = _embed(params, token, cfg)
-    ck, cv = cache["kv"]["k"], cache["kv"]["v"]
-    for i in range(cfg.num_layers):
-        p = layer(params["blocks"], i)
-        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-        x = x + decode_attention(p["attn"], h, ck[i], cv[i], pos, cfg)
-        x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    if cfg.family == "ssm":
+        hs, cs = cache["ssm"]["h"], cache["ssm"]["conv"]
+        for i in range(cfg.num_layers):
+            p = layer(params["blocks"], i)
+            h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+            x = x + mamba.mamba_decode(p["ssm"], h, hs[i], cs[i], cfg)
+    else:
+        ck, cv = cache["kv"]["k"], cache["kv"]["v"]
+        for i in range(cfg.num_layers):
+            p = layer(params["blocks"], i)
+            h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+            x = x + decode_attention(p["attn"], h, ck[i], cv[i], pos, cfg)
+            x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     cache["pos"] = pos + 1
     return _unembed(params, x, cfg)[:, 0], cache

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import rmsnorm as trn  # noqa: E402
+from repro_torch.kernels import ssm_scan as tss  # noqa: E402
 from repro_torch.kernels import swiglu as tsg  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import convert, registry, transformer  # noqa: E402
@@ -112,6 +113,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.randn(1, 8, 2, 16)
     with pytest.raises(ValueError, match="CUDA kernel"):
         tfa.flash_attention(q, q, q)
+    u, bc = torch.randn(1, 8, 16), torch.randn(1, 8, 4)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tss.ssm_scan(u, u, bc, bc, torch.randn(16, 4))
 
 
 def test_cli_serves_on_cpu_when_asked(capsys):
@@ -120,4 +124,4 @@ def test_cli_serves_on_cpu_when_asked(capsys):
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["device"] == "cpu" and summary["requests"] == 3
     assert summary["kernel_launches"] == {
-        "rmsnorm": 0, "swiglu": 0, "flash_attention": 0}
+        "rmsnorm": 0, "swiglu": 0, "flash_attention": 0, "ssm_scan": 0}

@@ -137,6 +137,6 @@ def test_unported_options_raise():
         transformer.init_lm(
             treg.get_config("llama3-8b", smoke=True, family="moe"),
             device="cpu")
-    for arch in ("qwen3-14b", "mixtral-8x7b", "falcon-mamba-7b"):
+    for arch in ("qwen3-14b", "mixtral-8x7b", "recurrentgemma-9b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             treg.get_bundle(arch, smoke=True)

@@ -5,11 +5,16 @@
 
 Phases, each raising on failure so the script exits non-zero:
   1. card     nvidia-smi name and power limit, torch's device name
-  2. build    the four Hopper kernels from ``src/repro_torch/kernels/csrc``
+  2. build    the Hopper kernels from ``src/repro_torch/kernels/csrc``
   3. kernels  each kernel against its plain PyTorch version on the card at
-              the serving paths' shapes (bf16 tol 2e-2, fp32 tol 2e-5, the
+              the main paths' shapes (bf16 tol 2e-2, fp32 tol 2e-5, the
               selective scan 2e-4 in y and its last state), timed beside
-              the plain version and one library call where there is one
+              the plain version and one library call where there is one;
+              the training kernels (ring_step, ring_step_bwd, rmsnorm_bwd,
+              swiglu_bwd, the flash backward and its lse) at the training
+              shapes: the cp ring's, and B1 S4096 for the flash backward;
+              the ring's backward, fp32 accumulators from bf16 inputs on
+              both sides, at the fp32 tolerance
   4. model    llama3-8b and falcon-mamba-7b SMOKE in fp32: the kernels on
               the card against the plain versions on the CPU through
               forward/prefill/the cache/decode
@@ -19,8 +24,16 @@ Phases, each raising on failure so the script exits non-zero:
               launch count equals its expected count for that path, first
               tokens equal decode_sequential's, logits are finite; each path
               reports its own peak memory
-Then one JSON line with every kernel (launches summed over both serve
-runs), the card line, and the last line
+  6. train    llama3-8b SMOKE fp32, 3 Trainer steps on the card against 3 on
+              the CPU from one state, on the cp route (chunks 40/31/25) and
+              the reference route (losses within 1e-4); then llama3-8b at
+              full width and 4 layers (bf16, seed 0, seq 4096, batch 1): 3
+              steps of the cp route (cp 4, chunks 1383/1057/884/772), then 3
+              of the reference route, each with finite losses, exact launch
+              counts, its step times, tokens/s and peak memory; the two
+              step-0 losses agree within 2e-2
+Then one JSON line with every kernel (launches summed over the serve and
+train runs), the card line, and the last line
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
 check and timing there as JSON.  Imports nothing of JAX.
 """
@@ -30,6 +43,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -56,6 +70,14 @@ SERVE_ARCHS = ("llama3-8b", "falcon-mamba-7b")
 # model-level fp32 tolerance: two layers of matmuls summed in other orders
 # on the CPU and the card, then a 256-way unembed
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
+# the training slice: llama3-8b at full width, cut to 4 layers (its train
+# state, ~16 bytes a parameter, does not fit 80 GB at 32), one sequence of
+# 4096, the cp = 4 chunks of segmentation.cp_split(4096, 4, attn=1/4096,
+# lin=0.5) in the JAX package (hard-coded: nothing of JAX is imported)
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 3
+CP_CHUNKS = (1383, 1057, 884, 772)
+SMOKE_CP_CHUNKS = (40, 31, 25)
+TRAIN_LOSS_TOL = 2e-2   # cp vs reference step-0 loss, bf16
 
 
 def log(msg: str) -> None:
@@ -272,6 +294,307 @@ def phase_kernels(torch, dev, name):
     return checks, timed
 
 
+def _visible_pairs(chunks, step: int):
+    """Per rank, the (query, key) pairs ring step ``step`` shows, real rows
+    only (numpy; what this run's data needs of a hop)."""
+    import numpy as np
+    starts = np.concatenate([[0], np.cumsum(chunks)[:-1]])
+    cp, out = len(chunks), []
+    for r in range(cp):
+        src = (r - step) % cp
+        qpos = starts[r] + np.arange(chunks[r])
+        kpos = starts[src] + np.arange(chunks[src])
+        # keys at or before each query's position
+        out.append(int(np.searchsorted(kpos, qpos, side="right").sum()))
+    return out
+
+
+def phase_train_kernels(torch, dev, name):
+    """The training path's kernels on the card against their plain
+    versions, at the cp training shapes, then timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ring_attention as ra
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import swiglu as sg
+
+    bw, bf16_peak, fp32_peak = peaks(name)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    checks = []
+    bf, f32 = torch.bfloat16, torch.float32
+    tol = {bf: BF16_TOL, f32: FP32_TOL}
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def compare(kernel, label, got, want, tol_):
+        err = _max_err(got, want)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), **tol_)
+        checks.append({"kernel": kernel, "case": label, "max_abs_err": err})
+        log(f"[kernels] {kernel:15s} {label:42s} max_abs_err {err:.3e} ok")
+        return err
+
+    def empty_carry(R, B, C, H, hd):
+        return (torch.full((R, B, C, H, 1), ref.NEG_INF, device=dev),
+                torch.zeros((R, B, C, H, 1), device=dev),
+                torch.zeros((R, B, C, H, hd), device=dev))
+
+    def lse_of(l, m):
+        return torch.where(l > 0, m + torch.log(l), torch.inf)[..., 0]
+
+    # ring_step, every step of a cp = 4 ring at the slice's shape (bf16),
+    # the kernel and the plain fold from the same carry at each step
+    cp, C, B, H, Hk, hd = len(CP_CHUNKS), max(CP_CHUNKS), 1, 32, 8, 128
+    q = randn(cp, B, C, H, hd, dtype=bf)
+    k, v = randn(cp, B, C, Hk, hd, dtype=bf), randn(cp, B, C, Hk, hd,
+                                                    dtype=bf)
+    carry = empty_carry(cp, B, C, H, hd)
+    for step in range(cp):
+        hops = ra.ring_hops(CP_CHUNKS, step)
+        got = ra.ring_step(q, k, v, *carry, hops)
+        want = ref.ring_step(q, k, v, *carry, hops)
+        compare("ring_step", f"cp4 {CP_CHUNKS} step {step} bf16", got, want,
+                BF16_TOL)
+        carry = want
+    m_fin, l_fin, acc_fin = carry
+    # one hop in fp32: a ragged partial block over a warm carry, then a
+    # fully masked wrap hop, which must leave the carry as it was
+    qs, ks, vs = (randn(1, 2, 200, 8, 64, dtype=f32),
+                  randn(1, 2, 200, 2, 64, dtype=f32),
+                  randn(1, 2, 200, 2, 64, dtype=f32))
+    warm = ref.ring_step(qs, ks, vs, *empty_carry(1, 2, 200, 8, 64),
+                         [(300, 0, 300, 200)])
+    hop = [(300, 0, 130, 77)]
+    compare("ring_step", "one hop B2 C200 H8 Hk2 hd64 k_valid77 fp32",
+            ra.ring_step(qs, ks, vs, *warm, hop),
+            ref.ring_step(qs, ks, vs, *warm, hop), FP32_TOL)
+    masked = ra.ring_step(qs, ks, vs, *warm, [(300, 0, 500, 200)])
+    compare("ring_step", "fully masked hop keeps the carry fp32", masked,
+            warm, dict(rtol=1e-6, atol=1e-6))
+
+    # ring_step_bwd: the ring's backward at the slice's shape, all cp hops
+    # accumulated, from the final carry's logsumexp
+    o = (acc_fin / l_fin).to(bf)
+    lse = lse_of(l_fin, m_fin).contiguous()
+    do = randn(cp, B, C, H, hd, dtype=bf)
+    delta = (do.float() * o.float()).sum(-1)
+
+    def zeros_like_qkv():
+        return (torch.zeros(q.shape, device=dev),
+                torch.zeros(k.shape, device=dev),
+                torch.zeros(k.shape, device=dev))
+
+    got, want = zeros_like_qkv(), zeros_like_qkv()
+    for step in range(cp):
+        hops = ra.ring_hops(CP_CHUNKS, step)
+        ra.ring_step_bwd(q, k, v, do, lse, delta, *got, hops)
+        ref.ring_step_bwd(q, k, v, do, lse, delta, *want, hops)
+    # both sides accumulate in fp32 from the same bf16 inputs (upcast
+    # exactly): only the summation order differs, so the fp32 tolerance
+    # holds; the mean magnitudes say what that tolerance is set against
+    mags = ", ".join(f"{n} {w.abs().mean().item():.3e}"
+                     for n, w in zip(("dq", "dk", "dv"), want))
+    log(f"[kernels] ring_step_bwd cp4 mean |grad|: {mags}")
+    compare("ring_step_bwd", f"cp4 {CP_CHUNKS} 4 hops bf16 (dq,dk,dv)",
+            got, want, FP32_TOL)
+    # one hop in fp32 (dq summed by atomics: fp32 order only)
+    os_ = (warm[2] / warm[1]).contiguous()
+    lse_s = lse_of(warm[1], warm[0]).contiguous()
+    dos = randn(1, 2, 200, 8, 64, dtype=f32)
+    dls = (dos * os_).sum(-1)
+    g1 = (torch.zeros_like(qs), torch.zeros_like(ks), torch.zeros_like(ks))
+    w1 = (torch.zeros_like(qs), torch.zeros_like(ks), torch.zeros_like(ks))
+    hop = [(300, 0, 130, 200)]
+    ra.ring_step_bwd(qs, ks, vs, dos, lse_s, dls, *g1, hop)
+    ref.ring_step_bwd(qs, ks, vs, dos, lse_s, dls, *w1, hop)
+    compare("ring_step_bwd", "one hop B2 C200 H8 Hk2 hd64 fp32 (dq,dk,dv)",
+            g1, w1, FP32_TOL)
+
+    # the flash backward (FlashAttentionFn: flash forward with lse, then
+    # the one-rank ring_step_bwd) against autograd through the plain
+    # flash, and the lse against the plain one: at the reference route's
+    # shape (B1 S4096, bf16; these inputs are also the ones timed below)
+    # and on a small fp32 case
+    S = TRAIN_SEQ
+    flash_in = {}
+    for label, S_, dt in ((f"B1 S{S} H32 Hk8 hd128", S, bf),
+                          ("B1 S300 H8 Hk2 hd64", 300, f32)):
+        Hq, Hkv, d_ = (32, 8, 128) if S_ == S else (8, 2, 64)
+        qf = randn(1, S_, Hq, d_, dtype=dt).requires_grad_()
+        kf = randn(1, S_, Hkv, d_, dtype=dt).requires_grad_()
+        vf = randn(1, S_, Hkv, d_, dtype=dt).requires_grad_()
+        dof = randn(1, S_, Hq, d_, dtype=dt)
+        got = torch.autograd.grad(ops.flash_attention(qf, kf, vf), (qf, kf, vf),
+                                  dof)
+        want = torch.autograd.grad(ref.flash_attention(qf, kf, vf),
+                                   (qf, kf, vf), dof)
+        err = compare("ring_step_bwd", f"flash backward {label} {dt}", got,
+                      want, tol[dt])
+        del got, want
+        with torch.no_grad():
+            of, lse_k = fa.flash_attention(qf, kf, vf, return_lse=True)
+            _, lse_r = ref.flash_attention(qf, kf, vf, return_lse=True)
+        compare("flash_attention", f"lse {label} {dt}", (lse_k,), (lse_r,),
+                FP32_TOL)
+        if S_ == S:
+            flash_in = dict(q=qf.detach(), k=kf.detach(), v=vf.detach(),
+                            do=dof, o=of, lse=lse_k, err=err)
+
+    # rmsnorm_bwd and swiglu_bwd at the training shapes (4096 tokens)
+    x, sc, dy = (randn(TRAIN_SEQ, 4096, dtype=bf), randn(4096, dtype=bf),
+                 randn(TRAIN_SEQ, 4096, dtype=bf))
+    compare("rmsnorm_bwd", f"{TRAIN_SEQ}x4096 bf16 (dx,dscale)",
+            rn.rmsnorm_bwd(x, sc, dy, 1e-5), ref.rmsnorm_bwd(x, sc, dy, 1e-5),
+            BF16_TOL)
+    xs_, ss_, dys = (randn(37, 100, dtype=f32), randn(100, dtype=f32),
+                     randn(37, 100, dtype=f32))
+    compare("rmsnorm_bwd", "37x100 fp32 (dx,dscale)",
+            rn.rmsnorm_bwd(xs_, ss_, dys), ref.rmsnorm_bwd(xs_, ss_, dys),
+            FP32_TOL)
+    g, u, dh = (randn(TRAIN_SEQ, 14336, dtype=bf) for _ in range(3))
+    compare("swiglu_bwd", f"{TRAIN_SEQ}x14336 bf16 (dg,du)",
+            sg.swiglu_bwd(g, u, dh), ref.swiglu_bwd(g, u, dh), BF16_TOL)
+    gs_, us_ = randn(3, 5, 77, dtype=f32), randn(3, 5, 77, dtype=f32)
+    dhs = randn(3, 5, 77, dtype=bf)
+    compare("swiglu_bwd", "3x5x77 fp32, dh bf16 (dg,du)",
+            sg.swiglu_bwd(gs_, us_, dhs), ref.swiglu_bwd(gs_, us_, dhs),
+            FP32_TOL)
+
+    # ---- timings, bf16, at the training shapes
+    el, f4 = 2, 4
+    carry0 = empty_carry(cp, B, C, H, hd)
+    tables = [ra.ring_hops(CP_CHUNKS, s_) for s_ in range(cp)]
+    vis = [_visible_pairs(CP_CHUNKS, s_) for s_ in range(cp)]
+    carry_bytes = cp * B * C * H * (hd + 2) * f4 * 2      # read + write
+    ring_bytes = ring_ops = 0
+    for s_, per_rank in enumerate(vis):
+        ring_bytes += carry_bytes
+        for r, n in enumerate(per_rank):
+            if n:
+                src = tables[s_][r][1]
+                ring_bytes += (B * C * H * hd
+                               + 2 * B * CP_CHUNKS[src] * Hk * hd) * el
+                ring_ops += 4 * n * B * H * hd
+    pairs = S * (S + 1) // 2
+    # the checked S4096 inputs, with a leading rank axis of one
+    qf, kf, vf, dof, of, lsef = (flash_in[n][None] for n in
+                                 ("q", "k", "v", "do", "o", "lse"))
+    dlf = (dof.float() * of.float()).sum(-1)
+    flash_hop = [(0, 0, 0, S)]
+    bwd_acc = (torch.zeros(qf.shape, device=dev),
+               torch.zeros(kf.shape, device=dev),
+               torch.zeros(kf.shape, device=dev))
+    # SDPA's layout and autograd graph for its backward alone
+    qt, kt, vt = (t[0].transpose(1, 2).detach().requires_grad_()
+                  for t in (qf, kf, vf))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    do_t = dof[0].transpose(1, 2)
+    xr = x.detach().requires_grad_()
+    sr = sc.detach().requires_grad_()
+    rms_out = F.rms_norm(xr, (4096,), sr, 1e-5)
+
+    def ring_all(step_fn):
+        return lambda: [step_fn(q, k, v, *carry0, t) for t in tables]
+
+    rows = {
+        "ring_step": dict(
+            source="src/repro_torch/kernels/csrc/ring_attention.cu",
+            replaces="src/repro/kernels/ring_attention.py:169",
+            shape=f"cp4 chunks {'/'.join(map(str, CP_CHUNKS))} B1 H32 Hk8 "
+                  "hd128 bf16, fp32 carry; per launch, mean of the 4 steps",
+            fn=ring_all(ra.ring_step), plain=ring_all(ref.ring_step),
+            per_call=cp, library=None,
+            bytes=ring_bytes / cp, ops=[(ring_ops / cp, bf16_peak)],
+            err=max(c["max_abs_err"] for c in checks
+                    if c["kernel"] == "ring_step")),
+        "ring_step_bwd": dict(
+            source="src/repro_torch/kernels/csrc/ring_attention.cu",
+            replaces="src/repro/kernels/ring_attention.py:169 (its VJP; "
+                     "no TPU backward kernel)",
+            shape=f"one rank B1 S{S} H32 Hk8 hd128 causal bf16 (the flash "
+                  "backward), fp32 dq/dk/dv",
+            fn=lambda: ra.ring_step_bwd(qf, kf, vf, dof, lsef, dlf, *bwd_acc,
+                                        flash_hop),
+            plain=lambda: ref.ring_step_bwd(qf, kf, vf, dof, lsef, dlf,
+                                            *bwd_acc, flash_hop),
+            per_call=1,
+            library=lambda: torch.autograd.grad(
+                sdpa_out, (qt, kt, vt), do_t, retain_graph=True),
+            bytes=(2 * S * H * hd + 2 * S * Hk * hd) * el + 2 * S * H * f4
+            + 2 * (S * H * hd + 2 * S * Hk * hd) * f4,
+            ops=[(10 * pairs * H * hd, bf16_peak)],
+            err=flash_in["err"]),
+        "rmsnorm_bwd": dict(
+            source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm.py:19 (its VJP; no TPU "
+                     "backward kernel)",
+            shape=f"x, dy ({S}, 4096) bf16 -> dx bf16, dscale fp32",
+            fn=lambda: rn.rmsnorm_bwd(x, sc, dy, 1e-5),
+            plain=lambda: ref.rmsnorm_bwd(x, sc, dy, 1e-5), per_call=1,
+            library=lambda: torch.autograd.grad(rms_out, (xr, sr), dy,
+                                                retain_graph=True),
+            bytes=3 * S * 4096 * el + 4096 * (el + f4),
+            ops=[(10 * S * 4096, fp32_peak)],
+            err=max(c["max_abs_err"] for c in checks
+                    if c["kernel"] == "rmsnorm_bwd")),
+        "swiglu_bwd": dict(
+            source="src/repro_torch/kernels/csrc/swiglu.cu",
+            replaces="src/repro/kernels/swiglu.py:16 (its VJP; no TPU "
+                     "backward kernel)",
+            shape=f"g, u, dh ({S}, 14336) bf16 -> dg, du bf16",
+            fn=lambda: sg.swiglu_bwd(g, u, dh),
+            plain=lambda: ref.swiglu_bwd(g, u, dh), per_call=1, library=None,
+            bytes=5 * S * 14336 * el,
+            ops=[(12 * S * 14336, fp32_peak),
+                 (S * 14336, fp32_peak * SFU_PER_FP32_FLOP)],
+            err=max(c["max_abs_err"] for c in checks
+                    if c["kernel"] == "swiglu_bwd")),
+    }
+    timed = {}
+    for kname, r in rows.items():
+        bytes_ms = r["bytes"] / bw * 1e3
+        ops_ms = max(n / peak for n, peak in r["ops"]) * 1e3
+        n = r["per_call"]
+        timed[kname] = {
+            "name": kname, "route": "cuda", "source": r["source"],
+            "replaces": r["replaces"], "shape": r["shape"],
+            "max_abs_err": r["err"],
+            "ms": time_ms(torch, r["fn"]) / n,
+            "plain_ms": time_ms(torch, r["plain"], iters=3, warmup=1) / n,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": (time_ms(torch, r["library"])
+                           if r["library"] else None),
+        }
+        t = timed[kname]
+        log(f"[kernels] time {kname:15s} {r['shape']}: kernel {t['ms']:.4f} "
+            f"ms, plain {t['plain_ms']:.4f} ms, library {t['library_ms']} "
+            f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    # the cp ring's backward per launch at the slice's shape (no library
+    # call computes a ring hop's gradient)
+    bwd_bytes = bwd_ops = 0
+    for per_rank in vis:
+        bwd_bytes += (2 * cp * B * C * H * hd + 2 * cp * B * C * Hk * hd) * el
+        bwd_bytes += 2 * cp * B * C * H * f4
+        bwd_bytes += 2 * cp * B * C * (H + 2 * Hk) * hd * f4
+        bwd_ops += sum(10 * n_ * B * H * hd for n_ in per_rank)
+    acc3 = zeros_like_qkv()
+    cp_bwd_ms = time_ms(torch, lambda: [
+        ra.ring_step_bwd(q, k, v, do, lse, delta, *acc3, t)
+        for t in tables]) / cp
+    cp_bwd_bound = max(bwd_bytes / cp / bw, bwd_ops / cp / bf16_peak) * 1e3
+    extra = {"ring_step_bwd_cp4_per_launch_ms": cp_bwd_ms,
+             "ring_step_bwd_cp4_bound_ms": cp_bwd_bound}
+    log(f"[kernels] time ring_step_bwd    cp4 {CP_CHUNKS} bf16 per launch: "
+        f"kernel {cp_bwd_ms:.4f} ms, bound {cp_bwd_bound:.4f} ms")
+    return checks, timed, extra
+
+
 def _max_err(got, want) -> float:
     """Max abs difference over a tensor or a tuple of tensors."""
     if isinstance(got, tuple):
@@ -319,7 +642,8 @@ def _tree(node, fn):
 
 
 # ------------------------------------------------------------- phase 5 ---
-def phase_serve(torch, dev, kernels, arch):
+def phase_serve(torch, dev, arch):
+    from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.serve import ServeEngine, decode_sequential, scripted_trace
 
@@ -344,12 +668,11 @@ def phase_serve(torch, dev, kernels, arch):
     # the timed engine runs the plain bundle; the logits are checked for
     # finiteness on the untimed decode_sequential pass below
     eng = ServeEngine(base, params, max_batch=8, max_len=2048, device=dev)
-    for mod in kernels.values():
-        mod.launches = 0
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     report = eng.run(reqs)
     wall = time.perf_counter() - t0
-    launches = {n: m.launches for n, m in kernels.items()}
+    launches = ops.launch_counts()
 
     comps = {c.rid: c for c in report.completions}
     assert sorted(comps) == [r.rid for r in reqs], "requests lost"
@@ -357,12 +680,12 @@ def phase_serve(torch, dev, kernels, arch):
         assert len(comps[r.rid].tokens) == r.max_new_tokens, r.rid
     steps = len(reqs) + report.decode_steps      # prefills + decode steps
     L = cfg.num_layers
+    expect = dict.fromkeys(launches, 0)
     if cfg.family == "ssm":   # {ln1, ssm} blocks; the scan in prefill only
-        expect = {"rmsnorm": (L + 1) * steps, "swiglu": 0,
-                  "flash_attention": 0, "ssm_scan": L * len(reqs)}
+        expect.update(rmsnorm=(L + 1) * steps, ssm_scan=L * len(reqs))
     else:
-        expect = {"rmsnorm": (2 * L + 1) * steps, "swiglu": L * steps,
-                  "flash_attention": L * len(reqs), "ssm_scan": 0}
+        expect.update(rmsnorm=(2 * L + 1) * steps, swiglu=L * steps,
+                      flash_attention=L * len(reqs))
     log(f"[serve] {arch} launches {launches} expected {expect}")
     assert launches == expect, (launches, expect)
 
@@ -402,6 +725,103 @@ def phase_serve(torch, dev, kernels, arch):
     return summary, launches
 
 
+def _cp_plan(chunks, global_batch: int, n_layers: int):
+    """A one-stage plan whose cp ring ranks take ``chunks``."""
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    cp = len(chunks)
+    return ParallelPlan(stages=(StagePlacement(0, n_layers, cp, 1, True),),
+                        micro_bs=1, global_batch=global_batch,
+                        seq_len=sum(chunks), cp=cp, cp_chunks=tuple(chunks))
+
+
+# ------------------------------------------------------------- phase 6 ---
+def phase_train_parity(torch, dev):
+    """SMOKE fp32: 3 Trainer steps with the kernels on the card against 3
+    with the plain versions on the CPU, from one state, on both routes."""
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    b = registry.get_bundle("llama3-8b", smoke=True)
+    state = init_train_state(b, seed=0, device="cpu")
+    cfg = TrainerConfig(global_batch=2, seq_len=sum(SMOKE_CP_CHUNKS))
+    opt = AdamWConfig(lr=1e-2, warmup_steps=2)
+    out = {}
+    for route, plan in (("cp", _cp_plan(SMOKE_CP_CHUNKS, 2,
+                                        b.cfg.num_layers)),
+                        ("reference", None)):
+        losses = {}
+        for d in ("cpu", dev):
+            t = Trainer(b, cfg, plan=plan, opt_cfg=opt, state=state,
+                        device=d)
+            assert t._cp_active() == (route == "cp")
+            losses[str(d)] = t.run(TRAIN_STEPS)["losses"]
+        cpu, gpu = losses["cpu"], losses[str(dev)]
+        err = max(abs(a - g) for a, g in zip(cpu, gpu))
+        torch.testing.assert_close(torch.tensor(gpu), torch.tensor(cpu),
+                                   **MODEL_TOL)
+        log(f"[train] SMOKE fp32 {route} route, card vs CPU losses "
+            f"{gpu} / {cpu}: max diff {err:.3e} ok")
+        out[route] = {"card": gpu, "cpu": cpu, "max_abs_err": err}
+    return out
+
+
+def phase_train(torch, dev, route: str):
+    """llama3-8b at full width, TRAIN_LAYERS layers, bf16: TRAIN_STEPS
+    steps of one route with exact launch counts; its own peak memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    b = registry.get_bundle("llama3-8b", num_layers=TRAIN_LAYERS)
+    plan = _cp_plan(CP_CHUNKS, 1, TRAIN_LAYERS) if route == "cp" else None
+    t0 = time.perf_counter()
+    t = Trainer(b, TrainerConfig(global_batch=1, seq_len=TRAIN_SEQ),
+                plan=plan, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    assert t._cp_active() == (route == "cp")
+    n_params = sum(x.numel() for x in tree_leaves(t.state["params"]))
+    state_gb = torch.cuda.memory_allocated(dev) / 1e9
+    log(f"[train] {route} route: llama3-8b {TRAIN_LAYERS} layers, "
+        f"{n_params / 1e9:.3f} B params, train state {state_gb:.2f} GB, "
+        f"init {init_s:.1f} s")
+    ops.reset_launch_counts()
+    out = t.run(TRAIN_STEPS)
+    launches = ops.launch_counts()
+    L, cp, n = TRAIN_LAYERS, len(CP_CHUNKS), TRAIN_STEPS
+    expect = dict.fromkeys(launches, 0)
+    expect.update(rmsnorm=(2 * L + 1) * n, rmsnorm_bwd=(2 * L + 1) * n,
+                  swiglu=L * n, swiglu_bwd=L * n)
+    if route == "cp":
+        expect.update(ring_step=L * cp * n, ring_step_bwd=L * cp * n)
+    else:
+        expect.update(flash_attention=L * n, ring_step_bwd=L * n)
+    losses = out["losses"]
+    log(f"[train] {route} route losses {losses} step_s {out['step_s']}")
+    log(f"[train] {route} launches {launches} expected {expect}")
+    assert all(map(math.isfinite, losses)), losses
+    assert launches == expect, (launches, expect)
+    steady = out["step_s"][1:]
+    summary = {
+        "route": route, "layers": L, "seq": TRAIN_SEQ, "global_batch": 1,
+        "params": n_params, "losses": losses, "step_s": out["step_s"],
+        "tok_s_steady": TRAIN_SEQ * len(steady) / sum(steady),
+        "init_s": init_s, "state_gb": state_gb,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "launches": launches, "expected_launches": expect,
+        "plan": plan.describe() if plan else None,
+    }
+    log(f"[train] {route} report {json.dumps(summary)}")
+    del t
+    return summary, launches
+
+
 def _leaves(node):
     if isinstance(node, dict):
         for v in node.values():
@@ -432,19 +852,31 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    from repro_torch.kernels import flash_attention, rmsnorm, ssm_scan, swiglu
-    kernels = {"rmsnorm": rmsnorm, "swiglu": swiglu,
-               "flash_attention": flash_attention, "ssm_scan": ssm_scan}
+    from repro_torch.kernels.ops import LAUNCH_COUNTERS
 
     smi, name = phase_card(torch)
     build_s = phase_build()
     checks, timed = phase_kernels(torch, dev, name)
+    train_checks, train_timed, train_extra = phase_train_kernels(
+        torch, dev, name)
+    checks += train_checks
+    timed.update(train_timed)
     model_err = {arch: phase_model(torch, dev, arch) for arch in SERVE_ARCHS}
-    serve, launches = {}, dict.fromkeys(kernels, 0)
+    serve, launches = {}, dict.fromkeys(LAUNCH_COUNTERS, 0)
     for arch in SERVE_ARCHS:
-        serve[arch], counts = phase_serve(torch, dev, kernels, arch)
+        serve[arch], counts = phase_serve(torch, dev, arch)
         for kname, n in counts.items():
             launches[kname] += n
+    train_parity = phase_train_parity(torch, dev)
+    train = {}
+    for route in ("cp", "reference"):
+        train[route], counts = phase_train(torch, dev, route)
+        for kname, n in counts.items():
+            launches[kname] += n
+    l_cp, l_ref = train["cp"]["losses"][0], train["reference"]["losses"][0]
+    log(f"[train] step-0 loss cp {l_cp} vs reference {l_ref}: "
+        f"diff {abs(l_cp - l_ref):.3e} (tol {TRAIN_LOSS_TOL})")
+    assert abs(l_cp - l_ref) < TRAIN_LOSS_TOL, (l_cp, l_ref)
 
     worst = {}
     for c in checks:
@@ -460,8 +892,10 @@ def main(argv=None) -> int:
                "library_ms": t["library_ms"]})
     report = {"card": smi, "device_name": name, "build_s": build_s,
               "checks": checks, "worst_err_by_kernel": worst,
-              "timed": timed, "model_max_abs_err": model_err,
-              "serve": serve}
+              "timed": timed, "timed_extra": train_extra,
+              "model_max_abs_err": model_err, "serve": serve,
+              "train_parity": train_parity, "train": train,
+              "launches": launches}
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("common.cu", "rmsnorm.cu", "swiglu.cu", "flash_attention.cu",
-           "ssm_scan.cu")
+           "ssm_scan.cu", "ring_attention.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,13 +42,23 @@ _SIGNATURES = {
     "repro_cuda_error_string": (_c.c_char_p, [_c.c_int]),
     "rmsnorm_fwd": (_c.c_int, [_P, _P, _P, _c.c_longlong, _c.c_int,
                                _c.c_float, _c.c_int, _P]),
+    "rmsnorm_bwd": (_c.c_int, [_P] * 6 + [_c.c_longlong, _c.c_int, _c.c_int,
+                                          _c.c_float, _c.c_int, _P]),
     "swiglu_fwd": (_c.c_int, [_P, _P, _P, _c.c_longlong, _c.c_int,
                               _c.c_int, _P]),
-    "flash_attention_fwd": (_c.c_int, [_P, _P, _P, _P] + [_c.c_int] * 6
+    "swiglu_bwd": (_c.c_int, [_P] * 5 + [_c.c_longlong, _c.c_int, _c.c_int,
+                                         _P]),
+    "flash_attention_fwd": (_c.c_int, [_P] * 5 + [_c.c_int] * 6
                             + [_c.c_longlong] * 9
                             + [_c.c_int, _c.c_int, _c.c_float, _c.c_float,
                                _c.c_int, _P]),
     "ssm_scan_fwd": (_c.c_int, [_P] * 7 + [_c.c_int] * 5 + [_P]),
+    "ring_step_fwd": (_c.c_int, [_P] * 9 + [_c.c_int] * 8
+                      + [_c.POINTER(_c.c_int), _c.c_int, _c.c_float,
+                         _c.c_int, _P]),
+    "ring_step_bwd": (_c.c_int, [_P] * 9 + [_c.c_int] * 8
+                      + [_c.POINTER(_c.c_int), _c.c_int, _c.c_float,
+                         _c.c_int, _P]),
 }
 
 _lock = threading.Lock()
@@ -146,6 +156,18 @@ def dtype_code(t: torch.Tensor) -> int:
     except KeyError:
         raise TypeError(f"unsupported dtype {t.dtype}; the kernels take "
                         f"{sorted(map(str, DTYPE_CODES))}") from None
+
+
+def forbid_grad(kernel: str, use: str, *tensors: torch.Tensor) -> None:
+    """A wrapper's outputs have no ``grad_fn``.  Refuse inputs that need a
+    gradient while autograd records, instead of cutting the graph without
+    a word; inside an autograd function (whose forward and backward run
+    with grad mode off) the call is allowed.  ``use`` says what to do
+    instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad and the kernel's output would "
+            f"carry no gradient ({use})")
 
 
 def require_cuda(*tensors: torch.Tensor) -> torch.device:

@@ -5,6 +5,10 @@
 // softcap, GQA (kv head = h / (H/Hk), K/V never repeated), positions
 // aligned at the END when Sq != Sk, q/k/v read as (B,S,H,hd) through their
 // strides (no transposes).  A query row with no visible key writes 0.
+// When asked, it also writes each row's logsumexp lse = m + log(l), fp32
+// (B, Sq, H) (+inf for a row with no visible key), from the m and l it
+// holds in registers: the backward (ring_attention.cu::ring_step_bwd with
+// one rank) recomputes P = exp(s - lse) from it.
 //
 // On the TPU the kv blocks were a sequential grid dimension carrying m/l/acc
 // in VMEM scratch.  Here one thread block owns a (b, h, 64-row q tile) and a
@@ -40,6 +44,7 @@ struct FlashParams {
   const void* k;
   const void* v;
   void* o;
+  float* lse;     // nullptr: not written
   int B, Sq, Sk, H, Hk;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -214,6 +219,9 @@ flash_fwd_kernel(const FlashParams p) {
 #pragma unroll
     for (int j = 0; j < kOutCols; ++j)
       orow[tx + 8 * j] = from_f32<T>(acc[i][j] * inv);
+    if (p.lse != nullptr && tx == 0)
+      p.lse[((long long)b * p.Sq + qi) * p.H + h] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
@@ -243,9 +251,11 @@ cudaError_t dispatch_hd(const FlashParams& p, int hd, cudaStream_t stream) {
 }  // namespace
 
 // q: (B,Sq,H,hd), k/v: (B,Sk,Hk,hd) with unit stride on hd and the given
-// element strides for b, s, h; o: contiguous (B,Sq,H,hd) of q's dtype.
+// element strides for b, s, h; o: contiguous (B,Sq,H,hd) of q's dtype;
+// lse: contiguous fp32 (B,Sq,H) or nullptr.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int Sq,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int Sq,
     int Sk, int H, int Hk, int hd, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, int causal, int window,
@@ -253,9 +263,11 @@ extern "C" int flash_attention_fwd(
   if (B <= 0 || Sq <= 0 || Sk < 0 || H <= 0 || Hk <= 0 || H % Hk != 0 ||
       B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
-  const FlashParams p{q,    k,    v,    o,    B,    Sq,     Sk,      H,
-                      Hk,   q_sb, q_ss, q_sh, k_sb, k_ss,   k_sh,    v_sb,
-                      v_ss, v_sh, causal, window, softcap, sm_scale};
+  const FlashParams p{q,    k,    v,    o,    static_cast<float*>(lse),
+                      B,    Sq,   Sk,   H,    Hk,
+                      q_sb, q_ss, q_sh, k_sb, k_ss,
+                      k_sh, v_sb, v_ss, v_sh, causal,
+                      window, softcap, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case REPRO_F32: return dispatch_hd<float>(p, hd, s);

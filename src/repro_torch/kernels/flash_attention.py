@@ -7,8 +7,11 @@ score and value products), not bytes.  One thread block per (b, h, 64-row
 q tile) loops over the kv tiles inside the causal/window band with fp32
 m/l/acc in registers, so the score matrix never reaches device memory.
 This first version multiplies with fp32 FMAs on the CUDA cores, not the
-tensor cores (see PERF.md for its distance from the bound).  Plain
-version: ``kernels/ref.py::flash_attention``.
+tensor cores (see PERF.md for its distance from the bound).  Asked for
+it, the kernel also writes each row's logsumexp, which the backward
+(``kernels/ops.py::FlashAttentionFn``, through the one-rank
+``ring_step_bwd``) needs.  Plain version: ``kernels/ref.py::
+flash_attention``.
 """
 from __future__ import annotations
 
@@ -25,10 +28,14 @@ launches = 0   # kernel launches since the last reset
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
+                    softcap: Optional[float] = None,
+                    return_lse: bool = False):
     """q: (B,Sq,H,hd); k/v: (B,Sk,Hk,hd), any strides with unit stride on
-    hd.  Returns a contiguous (B,Sq,H,hd) tensor of q's dtype."""
+    hd.  Returns a contiguous (B,Sq,H,hd) tensor of q's dtype, and with
+    ``return_lse`` also the rows' logsumexp, fp32 (B,Sq,H)."""
     global launches
+    build.forbid_grad("flash_attention", "call kernels.ops.flash_attention",
+                      q, k, v)
     dev = build.require_cuda(q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -54,11 +61,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if max(B, H) > 65535 or max(Sq, Sk) >= 2 ** 31:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the launch grid")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if B == 0 or Sq == 0:
-        return out
+        return (out, lse) if return_lse else out
     err = build.library().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Sk, H, Hk, hd,
+        lse.data_ptr() if return_lse else None, B, Sq, Sk, H, Hk, hd,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
@@ -66,4 +75,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         1.0 / math.sqrt(hd), code, build.stream_handle(dev))
     build.check(err, "flash_attention")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

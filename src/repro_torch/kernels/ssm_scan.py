@@ -27,6 +27,8 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
     fp32, any strides (copied to contiguous where they are not).  Returns
     y (B,S,di) and the last state h (B,di,ds), both fp32."""
     global launches
+    build.forbid_grad("ssm_scan", "the selective scan has no backward yet: "
+                      "ROADMAP.md queue A, item 9", u, dt, Bc, Cc, A)
     dev = build.require_cuda(u, dt, Bc, Cc, A)
     if u.dim() != 3 or dt.shape != u.shape:
         raise ValueError(f"u {tuple(u.shape)} and dt {tuple(dt.shape)}: "

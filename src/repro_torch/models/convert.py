@@ -1,11 +1,14 @@
-"""JAX parameter tree -> the port's tensors.
+"""JAX parameter tree or train state -> the port's tensors.
 
 The layouts are the same on both sides (weights ``(in, out)``, blocks
 stacked on a leading layer dim), so conversion is the identity on shapes.
 Leaves arrive as numpy arrays (``np.asarray`` of a jax.Array); bf16 leaves
 are ml_dtypes bfloat16 arrays and cross over through a uint16 view, so
 neither jax nor ml_dtypes is imported here.  JAX's ``_stacked`` marker
-scalar is dropped.
+scalar is dropped wherever it sits (params and the optimizer's trees).  A
+whole train state ``{"params", "opt": {"master"?, "m", "v", "count"},
+"step"}`` converts the same way: its int32 scalars become 0-d int32
+tensors, so both frameworks can start from one state.
 """
 from __future__ import annotations
 
@@ -36,5 +39,6 @@ def _convert(node: Any, device: torch.device) -> Any:
 
 
 def from_jax(params: Any, device: DeviceLike = None) -> Any:
-    """Convert a JAX parameter tree (dicts/lists of arrays) to tensors."""
+    """Convert a JAX tree (dicts/lists of arrays: parameters or a whole
+    train state) to tensors."""
     return _convert(params, resolve_device(device))

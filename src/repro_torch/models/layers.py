@@ -5,8 +5,9 @@ weights ``(in, out)`` (``wq (D, H*hd)``, ``w_gate (D, F)``), attention
 tensors ``(B, S, H, hd)``, KV caches ``(L, B, S, Hk, hd)``.
 
 RMSNorm, the SwiGLU gate and prefill attention go through ``kernels.ops``
-(the Hopper kernels on the card, their plain versions on the CPU).  Cached
-decode attention is plain torch, as in the JAX package.
+(the Hopper kernels on the card, their plain versions on the CPU), whose
+autograd functions carry the backward kernels, so ``lm_forward`` trains.
+Cached decode attention is plain torch, as in the JAX package.
 
 Where bf16 rounds: a ``torch.matmul`` of bf16 operands accumulates in fp32
 and rounds its output to bf16 once, which is what the JAX code's
@@ -82,11 +83,14 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
 
 
 def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor):
-    B, S, _ = x.shape
+    """x: (..., S, D) -> q (..., S, H, hd), k/v (..., S, Hk, hd); ``pos``
+    broadcastable to x's leading dims and S (the cp route passes each
+    rank's global positions, (cp, 1, Cmax))."""
+    lead = x.shape[:-1]
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).view(B, S, H, hd)
-    k = (x @ p["wk"]).view(B, S, Hk, hd)
-    v = (x @ p["wv"]).view(B, S, Hk, hd)
+    q = (x @ p["wq"]).view(*lead, H, hd)
+    k = (x @ p["wk"]).view(*lead, Hk, hd)
+    v = (x @ p["wv"]).view(*lead, Hk, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)

@@ -4,6 +4,7 @@ dense and ssm families).
 Public entry points:
   init_lm(cfg, seed=, device=)                   -> params
   lm_forward(params, tokens, cfg)                -> (logits, aux_loss)
+  lm_features(params, tokens, cfg)               -> (features, w, aux_loss)
   init_cache(cfg, batch, max_len, device=)       -> cache
   lm_prefill(params, tokens, cfg, max_len)       -> (last_logits, cache)
   lm_decode_step(params, token, cache, cfg)      -> (logits, cache)
@@ -80,9 +81,12 @@ def _embed(params: dict, tokens: torch.Tensor,
     return params["embed"][tokens.long()].to(cfg.adtype)
 
 
+def _unembed_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
 def _unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return (x @ w).float()
+    return (x @ _unembed_weight(params, cfg)).float()
 
 
 def _block(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -99,8 +103,12 @@ def _ssm_block(p: dict, x: torch.Tensor, cfg: ModelConfig):
                                  cfg)
 
 
-def lm_forward(params: dict, tokens, cfg: ModelConfig):
-    """tokens: (B,S) int -> (logits (B,S,V) fp32, aux_loss)."""
+def lm_features(params: dict, tokens, cfg: ModelConfig):
+    """The forward WITHOUT the unembed: (features (B,S,D) after the final
+    norm, unembed weight (D,V), aux_loss), so a loss can run the head over
+    sequence chunks (``train.steps.make_loss_fn`` with ``cfg.loss_chunk``).
+    ``cfg.remat`` is not honoured over the blocks: the port keeps every
+    block's activations (each kernel then launches once per pass)."""
     check_supported(cfg)
     x = _embed(params, tokens, cfg)
     block = _ssm_block if cfg.family == "ssm" else _block
@@ -108,7 +116,13 @@ def lm_forward(params: dict, tokens, cfg: ModelConfig):
         x = block(layer(params["blocks"], i), x, cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _unembed(params, x, cfg), aux
+    return x, _unembed_weight(params, cfg), aux
+
+
+def lm_forward(params: dict, tokens, cfg: ModelConfig):
+    """tokens: (B,S) int -> (logits (B,S,V) fp32, aux_loss)."""
+    x, w, aux = lm_features(params, tokens, cfg)
+    return (x @ w).float(), aux
 
 
 # --------------------------------------------------------------- prefill ---

@@ -9,15 +9,18 @@ card and no JAX:
 Kernels are held against their plain versions on the same card inputs:
 bf16 at 2e-2, fp32 at 2e-5 (TF32 off for the fp32 references), the
 selective scan at 2e-4 in y and its last state (fp32 arithmetic for either
-u dtype; a sum over up to S decayed terms in another order).  The SMOKE
-models on the card are held against themselves on the CPU at 1e-4.
+u dtype; a sum over up to S decayed terms in another order).  The ring hop
+backward sums dq over key tiles with fp32 atomics; their order changes
+the last bits only, inside 2e-5.  The SMOKE models, and three SMOKE train
+steps on each route, on the card are held against the CPU at 1e-4.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
-from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ring_attention as tra  # noqa: E402
 from repro_torch.kernels import rmsnorm as trn  # noqa: E402
 from repro_torch.kernels import ssm_scan as tss  # noqa: E402
 from repro_torch.kernels import swiglu as tsg  # noqa: E402
@@ -222,3 +225,170 @@ def test_mamba_engine_on_card_matches_sequential(dev):
     assert (tsg.launches, tfa.launches) == counts[2:]
     want = decode_sequential(b, params, reqs, max_len=40, device=dev)
     assert {c.rid: c.tokens for c in rep.completions} == want
+
+
+# ------------------------------------------------------ training path ----
+def _carry(dev, R, B, C, H, hd):
+    return (torch.full((R, B, C, H, 1), ref.NEG_INF, device=dev),
+            torch.zeros((R, B, C, H, 1), device=dev),
+            torch.zeros((R, B, C, H, hd), device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hop", [(0, 0, 0, 100), (100, 0, 0, 100),
+                                 (0, 0, 100, 100), (130, 0, 60, 37)])
+def test_ring_step_kernel_one_hop(dev, dtype, hop):
+    """Self, past, wrap (fully masked) and ragged partial hops over a warm
+    carry, one rank."""
+    q = _randn(dev, 1, 2, 100, 8, 64, dtype=dtype)
+    k = _randn(dev, 1, 2, 100, 2, 64, dtype=dtype, seed=1)
+    v = _randn(dev, 1, 2, 100, 2, 64, dtype=dtype, seed=2)
+    warm = ref.ring_step(q, k, v, *_carry(dev, 1, 2, 100, 8, 64),
+                         [(hop[0], 0, hop[0], 100)])
+    n = tra.launches
+    got = tra.ring_step(q, k, v, *warm, [hop])
+    torch.cuda.synchronize()
+    assert tra.launches == n + 1
+    for g, w in zip(got, ref.ring_step(q, k, v, *warm, [hop])):
+        torch.testing.assert_close(g, w, **TOL[torch.float32])
+    if hop[2] > hop[0]:   # every key in the future: the carry passes
+        for g, w in zip(got, warm):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_kernels_over_a_ragged_ring(dev, dtype):
+    """Every step of a cp = 3 ring (chunks 70/51/33), forward carry and the
+    accumulated backward, against the plain folds."""
+    chunks = (70, 51, 33)
+    q = _randn(dev, 3, 2, 70, 4, 32, dtype=dtype)
+    k = _randn(dev, 3, 2, 70, 2, 32, dtype=dtype, seed=1)
+    v = _randn(dev, 3, 2, 70, 2, 32, dtype=dtype, seed=2)
+    carry = _carry(dev, 3, 2, 70, 4, 32)
+    for s in range(3):
+        hops = tra.ring_hops(chunks, s)
+        got = tra.ring_step(q, k, v, *carry, hops)
+        carry = ref.ring_step(q, k, v, *carry, hops)
+        for g, w in zip(got, carry):
+            torch.testing.assert_close(g, w, **TOL[torch.float32])
+    m, l, acc = carry
+    o = (acc / l).to(dtype)
+    lse = (m + torch.log(l))[..., 0].contiguous()
+    do = _randn(dev, 3, 2, 70, 4, 32, dtype=dtype, seed=3)
+    delta = (do.float() * o.float()).sum(-1)
+    acc_k = [torch.zeros(t.shape, device=dev) for t in (q, k, v)]
+    acc_r = [torch.zeros(t.shape, device=dev) for t in (q, k, v)]
+    n = tra.bwd_launches
+    for s in range(3):
+        hops = tra.ring_hops(chunks, s)
+        tra.ring_step_bwd(q, k, v, do, lse, delta, *acc_k, hops)
+        ref.ring_step_bwd(q, k, v, do, lse, delta, *acc_r, hops)
+    torch.cuda.synchronize()
+    assert tra.bwd_launches == n + 3
+    for g, w in zip(acc_k, acc_r):
+        torch.testing.assert_close(g, w, **TOL[torch.float32])
+
+
+def test_ring_step_bwd_refuses_repeated_sources(dev):
+    q = torch.zeros(2, 1, 8, 2, 16, device=dev)
+    lse = torch.zeros(2, 1, 8, 2, device=dev)
+    acc = [torch.zeros(q.shape, device=dev) for _ in range(3)]
+    with pytest.raises(ValueError, match="repeat"):
+        tra.ring_step_bwd(q, q, q, q, lse, lse, *acc,
+                          [(0, 0, 0, 8), (8, 0, 0, 8)])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,D", [(8, 4096), (37, 100), (300, 128),
+                                    (600, 256)])
+def test_rmsnorm_bwd_kernel(dev, dtype, rows, D):
+    x = _randn(dev, rows, D, dtype=dtype)
+    s = _randn(dev, D, dtype=dtype, seed=1)
+    dy = _randn(dev, rows, D, dtype=dtype, seed=2)
+    dx, ds = trn.rmsnorm_bwd(x, s, dy, 1e-5)
+    want_dx, want_ds = ref.rmsnorm_bwd(x, s, dy, 1e-5)
+    torch.testing.assert_close(dx, want_dx, **TOL[dtype])
+    torch.testing.assert_close(ds, want_ds, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dti,dto", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32),
+                                     (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("shape", [(8, 14336), (3, 5, 77)])
+def test_swiglu_bwd_kernel(dev, dti, dto, shape):
+    g = _randn(dev, *shape, dtype=dti)
+    u = _randn(dev, *shape, dtype=dti, seed=1)
+    dh = _randn(dev, *shape, dtype=dto, seed=2)
+    for got, want in zip(tsg.swiglu_bwd(g, u, dh), ref.swiglu_bwd(g, u, dh)):
+        torch.testing.assert_close(got, want, **TOL[dti])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk,hd,causal", [
+    (1, 128, 128, 4, 4, 64, True),
+    (2, 100, 100, 8, 2, 128, True),
+    (2, 40, 100, 4, 1, 32, True),        # queries at the end of the keys
+    (1, 77, 77, 4, 2, 64, False),
+])
+def test_flash_backward_on_card(dev, dtype, B, Sq, Sk, H, Hk, hd, causal):
+    """FlashAttentionFn (kernel forward with lse, one-rank hop backward)
+    against autograd through the plain flash; the lse against the plain
+    one."""
+    q = _randn(dev, B, Sq, H, hd, dtype=dtype).requires_grad_()
+    k = _randn(dev, B, Sk, Hk, hd, dtype=dtype, seed=1).requires_grad_()
+    v = _randn(dev, B, Sk, Hk, hd, dtype=dtype, seed=2).requires_grad_()
+    do = _randn(dev, B, Sq, H, hd, dtype=dtype, seed=3)
+    n = (tfa.launches, tra.bwd_launches)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, causal=causal),
+                              (q, k, v), do)
+    assert (tfa.launches, tra.bwd_launches) == (n[0] + 1, n[1] + 1)
+    want = torch.autograd.grad(ref.flash_attention(q, k, v, causal=causal),
+                               (q, k, v), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL[dtype])
+    with torch.no_grad():
+        _, lse = tfa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        _, want_lse = ref.flash_attention(q, k, v, causal=causal,
+                                          return_lse=True)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+def test_wrappers_refuse_inputs_that_need_grad_on_card(dev):
+    x = _randn(dev, 4, 64, dtype=torch.float32).requires_grad_()
+    with pytest.raises(RuntimeError, match="kernels.ops.rmsnorm"):
+        trn.rmsnorm(x, torch.ones(64, device=dev))
+    with pytest.raises(RuntimeError, match="kernels.ops.swiglu"):
+        tsg.swiglu(x, x)
+    u = _randn(dev, 1, 8, 16, dtype=torch.float32).requires_grad_()
+    bc = torch.zeros(1, 8, 4, device=dev)
+    with pytest.raises(RuntimeError, match="queue A, item 9"):
+        tss.ssm_scan(u, u.detach(), bc, bc, torch.zeros(16, 4, device=dev))
+    y = ops.rmsnorm(x, torch.ones(64, device=dev))   # the autograd path
+    assert y.grad_fn is not None
+
+
+@pytest.mark.parametrize("route", ["cp", "reference"])
+def test_smoke_trainer_on_card_matches_cpu(dev, route):
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    b = registry.get_bundle("llama3-8b", smoke=True)
+    state = init_train_state(b, seed=0, device="cpu")
+    plan = (ParallelPlan(stages=(StagePlacement(0, 2, 3, 1, True),),
+                         micro_bs=1, global_batch=2, seq_len=96, cp=3,
+                         cp_chunks=(40, 31, 25)) if route == "cp" else None)
+    losses = []
+    for d in ("cpu", dev):
+        t = Trainer(b, TrainerConfig(global_batch=2, seq_len=96), plan=plan,
+                    opt_cfg=AdamWConfig(lr=1e-2, warmup_steps=2),
+                    state=state, device=d)
+        ops.reset_launch_counts()
+        losses.append(t.run(3)["losses"])
+    counts = ops.launch_counts()
+    L = b.cfg.num_layers
+    assert counts["rmsnorm_bwd"] == 3 * (2 * L + 1)
+    assert counts["ring_step_bwd"] == 3 * L * (3 if route == "cp" else 1)
+    torch.testing.assert_close(torch.tensor(losses[1]),
+                               torch.tensor(losses[0]), **MODEL_TOL)

@@ -5,16 +5,23 @@
 
 Phases, each raising on failure so the script exits non-zero:
   1. card     nvidia-smi name and power limit, torch's device name
-  2. build    the Hopper kernels from ``src/repro_torch/kernels/csrc``
+  2. build    the Hopper kernels from ``src/repro_torch/kernels/csrc``;
+              nvcc -Xptxas -v's lines for the bf16 tensor-core kernels
+              (flash forward, ring_step_bwd), and their registers, spill
+              bytes, dynamic shared memory and resident blocks per SM as
+              the card reports them
   3. kernels  each kernel against its plain PyTorch version on the card at
               the main paths' shapes (bf16 tol 2e-2, fp32 tol 2e-5, the
               selective scan 2e-4 in y and its last state), timed beside
               the plain version and one library call where there is one;
-              the training kernels (ring_step, ring_step_bwd, rmsnorm_bwd,
-              swiglu_bwd, the flash backward and its lse) at the training
-              shapes: the cp ring's, and B1 S4096 for the flash backward;
-              the ring's backward, fp32 accumulators from bf16 inputs on
-              both sides, at the fp32 tolerance
+              the flash forward also at the reference training route's
+              B1 S4096, beside SDPA; the training kernels (ring_step,
+              ring_step_bwd, rmsnorm_bwd, swiglu_bwd, the flash backward
+              and its lse) at the training shapes: the cp ring's, and B1
+              S4096 for the flash backward.  bf16 attention (the tensor
+              cores take P and dS as bf16, the plain versions keep them in
+              fp32) is also held by each output's norm-relative error
+              (REL_TOL), read beside SDPA's and two controls'
   4. model    llama3-8b and falcon-mamba-7b SMOKE in fp32: the kernels on
               the card against the plain versions on the CPU through
               forward/prefill/the cache/decode
@@ -63,6 +70,13 @@ PEAKS = {  # marker: (bytes/s, bf16 tensor FLOP/s, fp32 FLOP/s)
 SFU_PER_FP32_FLOP = 1 / 16
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 FP32_TOL = dict(rtol=2e-5, atol=2e-5)
+# bf16 attention on the tensor cores takes P (and, backward, dS) as bf16
+# operands, as SDPA does, where the plain versions keep them in fp32.  An
+# elementwise 2e-2 is as large as a typical output there, so each output
+# tensor is also held by its norm: ||got - want|| / ||want|| <= REL_TOL.
+# Every run reads SDPA's error on the same inputs and two controls (the
+# plain version with one key tile, or one ring hop, left out) beside it.
+REL_TOL = 1e-2
 # the selective scan: an fp32 sum over up to S decayed terms, added in
 # another order than the plain loop's (tests/test_kernels.py:102-103)
 SCAN_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -89,6 +103,53 @@ def peaks(name: str):
         if marker in name:
             return vals
     raise RuntimeError(f"no published peaks for {name!r}")
+
+
+def _rel_err(got, want) -> float:
+    """||got - want|| / ||want||, the largest over a tuple of tensors."""
+    if isinstance(got, (tuple, list)):
+        return max(_rel_err(g, w) for g, w in zip(got, want))
+    g, w = got.double(), want.double()
+    return ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+
+
+def _reading(readings, kernel, case, what, got, want):
+    """Log and keep one norm-relative reading: the kernel's, SDPA's, or a
+    control's (a control must read above REL_TOL, or the check it sits
+    beside could not fail a wrong kernel)."""
+    r = _rel_err(got, want)
+    readings.append({"kernel": kernel, "case": case, "what": what,
+                     "rel_err": r})
+    log(f"[kernels] {kernel:15s} {case:42s} rel_err {what:30s} {r:.3e}")
+    if what.startswith("control"):
+        assert r > REL_TOL, (kernel, case, what, r)
+    return r
+
+
+def _without_key_tile(torch, ref, q, k, v, lo: int, hi: int):
+    """The plain fold of one rank (a leading rank axis of 1) over keys
+    [0, lo) and [hi, S): the causal forward with key tile [lo, hi) left
+    out, as (o, the fold's carry)."""
+    R, B, S, H, hd = q.shape
+    carry = (torch.full((R, B, S, H, 1), ref.NEG_INF, device=q.device),
+             torch.zeros((R, B, S, H, 1), device=q.device),
+             torch.zeros((R, B, S, H, hd), device=q.device))
+    for a, b in ((0, lo), (hi, S)):
+        carry = ref.ring_step(q, k[:, :, a:b], v[:, :, a:b], *carry,
+                              [(0, 0, a, b - a, S)])
+    return (carry[2] / carry[1]).to(q.dtype)
+
+
+def _bwd_without_key_tile(torch, ref, q, k, v, do, lse, delta, lo: int,
+                          hi: int):
+    """The plain backward of one rank with key tile [lo, hi) left out:
+    (dq, dk, dv), fp32, 0 in dk and dv on that tile."""
+    S = q.shape[2]
+    dq, dk, dv = (torch.zeros(t.shape, device=q.device) for t in (q, k, k))
+    for a, b in ((0, lo), (hi, S)):
+        ref.ring_step_bwd(q, k[:, :, a:b], v[:, :, a:b], do, lse, delta, dq,
+                          dk[:, :, a:b], dv[:, :, a:b], [(0, 0, a, b - a, S)])
+    return dq, dk, dv
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -121,16 +182,38 @@ def phase_card(torch):
 
 
 # ------------------------------------------------------------- phase 2 ---
+# the bf16 tensor-core kernels: C function reporting their attributes
+TC_KERNELS = {"flash_fwd_mma_kernel": "flash_attention_fwd_attrs",
+              "ring_bwd_mma_kernel": "ring_step_bwd_attrs"}
+
+
 def phase_build():
+    """Build; log ptxas' lines for the tensor-core kernels, and each one's
+    registers, spill bytes, dynamic shared memory and resident blocks per
+    SM at every head dim, from the card."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
     t0 = time.perf_counter()
     build.library()
     secs = time.perf_counter() - t0
     log(f"[build] {secs:.2f} s (nvcc {build.find_nvcc()})")
+    show = False
     for line in build.ptxas_log.splitlines():
-        if "Used" in line or "spill" in line:
+        if "Compiling entry function" in line:
+            show = any(k in line for k in TC_KERNELS)
+        if show and ("entry function" in line or "Used" in line
+                     or "spill" in line):
             log(f"[build]   {line.strip()}")
-    return secs
+    attrs = {}
+    for kernel, fn in TC_KERNELS.items():
+        for hd in HEAD_DIMS:
+            a = build.kernel_attrs(fn, hd)
+            attrs[f"{kernel} hd{hd}"] = a
+            log(f"[build]   {kernel} hd{hd} (bf16, as launched): "
+                f"{a['registers']} registers, {a['spill_bytes']} B local, "
+                f"{a['smem_bytes']} B dynamic shared, "
+                f"{a['blocks_per_sm']} blocks/SM")
+    return secs, {"attrs": attrs}
 
 
 # ------------------------------------------------------------- phase 3 ---
@@ -151,15 +234,22 @@ def phase_kernels(torch, dev, name):
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def compare(kernel, label, got, want, tol):
+    def compare(kernel, label, got, want, tol, rel=False):
         err = (got.float() - want.float()).abs().max().item()
         torch.testing.assert_close(got.float(), want.float(), **tol)
         checks.append({"kernel": kernel, "case": label, "max_abs_err": err})
-        log(f"[kernels] {kernel:15s} {label:42s} max_abs_err {err:.3e} ok")
+        msg = ""
+        if rel:
+            r = checks[-1]["rel_err"] = _rel_err(got, want)
+            msg = f", rel_err {r:.3e} (limit {REL_TOL})"
+            assert r <= REL_TOL, (kernel, label, r)
+        log(f"[kernels] {kernel:15s} {label:42s} max_abs_err {err:.3e}"
+            f"{msg} ok")
         return err
 
     bf, f32 = torch.bfloat16, torch.float32
     tol = {bf: BF16_TOL, f32: FP32_TOL}
+    readings = []
 
     # rmsnorm: decode (8 rows) and prefill (1000 rows) at D=4096; D=128 is
     # the one-warp-per-row path (qk_norm width)
@@ -193,9 +283,47 @@ def phase_kernels(torch, dev, name):
                                                          dtype=dt)
             got = fa.flash_attention(q, k, v, causal=True, **kw)
             want = ref.flash_attention(q, k, v, causal=True, **kw)
-            compare("flash_attention", f"{label} {dt}", got, want, tol[dt])
+            compare("flash_attention", f"{label} {dt}", got, want, tol[dt],
+                    rel=dt == bf)
             if "masked" in label:
                 assert got[:, :Sq - Sk].abs().max().item() == 0.0
+    # the reference training route's forward: B1 S4096, checked, then
+    # timed beside SDPA (a row of its own; the kernel line keeps S1000).
+    # Beside the kernel's error: SDPA's, and that of the plain version with
+    # key tile 32 (keys 2048-2111) left out of every row that sees it
+    S, H, Hk, hd = TRAIN_SEQ, 32, 8, 128
+    q = randn(1, S, H, hd, dtype=bf)
+    k, v = randn(1, S, Hk, hd, dtype=bf), randn(1, S, Hk, hd, dtype=bf)
+    case = f"B1 S{S} H32 Hk8 hd128 causal {bf}"
+    want = ref.flash_attention(q, k, v)
+    err = compare("flash_attention", case, fa.flash_attention(q, k, v),
+                  want, BF16_TOL, rel=True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    _reading(readings, "flash_attention", case, "SDPA",
+             F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2),
+             want)
+    _reading(readings, "flash_attention", case, "control: key tile 32 out",
+             _without_key_tile(torch, ref, q[None], k[None], v[None], 2048,
+                               2112)[0], want)
+    del want
+    pairs = S * (S + 1) // 2
+    bytes_ms = (2 * S * H * hd + 2 * S * Hk * hd) * 2 / bw * 1e3
+    ops_ms = 4 * pairs * hd * H / bf16_peak * 1e3
+    fwd4096 = {
+        "shape": f"B1 S{S} H32 Hk8 hd128 causal bf16", "max_abs_err": err,
+        "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v)),
+        "plain_ms": time_ms(torch, lambda: ref.flash_attention(q, k, v),
+                            iters=3, warmup=1),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))}
+    log(f"[kernels] time flash_attention  {fwd4096['shape']}: kernel "
+        f"{fwd4096['ms']:.4f} ms, plain {fwd4096['plain_ms']:.4f} ms, "
+        f"library {fwd4096['library_ms']:.4f} ms, bound "
+        f"{fwd4096['bound_ms']:.4f} ms ({fwd4096['bound_by']})")
+    del q, k, v, qt, kt, vt
 
     # ssm_scan, y and the last state: the prefill's shape (d_inner 8192,
     # d_state 16, bf16 u, S up to 1000), a ragged S, fp32 u at batch 2
@@ -291,7 +419,8 @@ def phase_kernels(torch, dev, name):
         log(f"[kernels] time {kname:15s} {r['shape']}: kernel {t['ms']:.4f} "
             f"ms, plain {t['plain_ms']:.4f} ms, library {t['library_ms']} "
             f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
-    return checks, timed
+    return checks, timed, {"flash_attention_S4096": fwd4096,
+                           "rel_readings": readings}
 
 
 def _visible_pairs(chunks, step: int):
@@ -330,12 +459,20 @@ def phase_train_kernels(torch, dev, name):
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def compare(kernel, label, got, want, tol_):
+    readings = []
+
+    def compare(kernel, label, got, want, tol_, rel=False):
         err = _max_err(got, want)
         for g, w in zip(got, want):
             torch.testing.assert_close(g.float(), w.float(), **tol_)
         checks.append({"kernel": kernel, "case": label, "max_abs_err": err})
-        log(f"[kernels] {kernel:15s} {label:42s} max_abs_err {err:.3e} ok")
+        msg = ""
+        if rel:   # each tensor's own norm-relative error, the largest
+            r = checks[-1]["rel_err"] = _rel_err(got, want)
+            msg = f", rel_err {r:.3e} (limit {REL_TOL})"
+            assert r <= REL_TOL, (kernel, label, r)
+        log(f"[kernels] {kernel:15s} {label:42s} max_abs_err {err:.3e}"
+            f"{msg} ok")
         return err
 
     def empty_carry(R, B, C, H, hd):
@@ -367,20 +504,24 @@ def phase_train_kernels(torch, dev, name):
                   randn(1, 2, 200, 2, 64, dtype=f32),
                   randn(1, 2, 200, 2, 64, dtype=f32))
     warm = ref.ring_step(qs, ks, vs, *empty_carry(1, 2, 200, 8, 64),
-                         [(300, 0, 300, 200)])
-    hop = [(300, 0, 130, 77)]
+                         [(300, 0, 300, 200, 200)])
+    hop = [(300, 0, 130, 77, 200)]
     compare("ring_step", "one hop B2 C200 H8 Hk2 hd64 k_valid77 fp32",
             ra.ring_step(qs, ks, vs, *warm, hop),
             ref.ring_step(qs, ks, vs, *warm, hop), FP32_TOL)
-    masked = ra.ring_step(qs, ks, vs, *warm, [(300, 0, 500, 200)])
+    masked = ra.ring_step(qs, ks, vs, *warm, [(300, 0, 500, 200, 200)])
     compare("ring_step", "fully masked hop keeps the carry fp32", masked,
             warm, dict(rtol=1e-6, atol=1e-6))
 
     # ring_step_bwd: the ring's backward at the slice's shape, all cp hops
-    # accumulated, from the final carry's logsumexp
-    o = (acc_fin / l_fin).to(bf)
+    # accumulated, from the final carry's logsumexp; o and lse as
+    # kernels/ops.py makes them (the pad rows see no key: 0 and +inf), and
+    # dout 0 on the pad rows, as unpad_chunks' gradient gives
+    o = (acc_fin / l_fin.clamp_min(1e-30)).to(bf)
     lse = lse_of(l_fin, m_fin).contiguous()
     do = randn(cp, B, C, H, hd, dtype=bf)
+    for r, c in enumerate(CP_CHUNKS):
+        do[r, :, c:] = 0
     delta = (do.float() * o.float()).sum(-1)
 
     def zeros_like_qkv():
@@ -393,14 +534,22 @@ def phase_train_kernels(torch, dev, name):
         hops = ra.ring_hops(CP_CHUNKS, step)
         ra.ring_step_bwd(q, k, v, do, lse, delta, *got, hops)
         ref.ring_step_bwd(q, k, v, do, lse, delta, *want, hops)
-    # both sides accumulate in fp32 from the same bf16 inputs (upcast
-    # exactly): only the summation order differs, so the fp32 tolerance
-    # holds; the mean magnitudes say what that tolerance is set against
+    # the tensor-core kernel takes P and dS as bf16 operands (as SDPA does)
+    # where the plain version keeps them in fp32: the bf16 tolerance and
+    # REL_TOL; the mean magnitudes, and the plain ring with hop 1 left out
+    # as the control, say what they are set against
     mags = ", ".join(f"{n} {w.abs().mean().item():.3e}"
                      for n, w in zip(("dq", "dk", "dv"), want))
     log(f"[kernels] ring_step_bwd cp4 mean |grad|: {mags}")
-    compare("ring_step_bwd", f"cp4 {CP_CHUNKS} 4 hops bf16 (dq,dk,dv)",
-            got, want, FP32_TOL)
+    case = f"cp4 {CP_CHUNKS} 4 hops bf16 (dq,dk,dv)"
+    compare("ring_step_bwd", case, got, want, BF16_TOL, rel=True)
+    ctl = zeros_like_qkv()
+    for step in (0, 2, 3):
+        ref.ring_step_bwd(q, k, v, do, lse, delta, *ctl,
+                          ra.ring_hops(CP_CHUNKS, step))
+    _reading(readings, "ring_step_bwd", case, "control: hop 1 out", ctl,
+             want)
+    del ctl
     # one hop in fp32 (dq summed by atomics: fp32 order only)
     os_ = (warm[2] / warm[1]).contiguous()
     lse_s = lse_of(warm[1], warm[0]).contiguous()
@@ -408,7 +557,7 @@ def phase_train_kernels(torch, dev, name):
     dls = (dos * os_).sum(-1)
     g1 = (torch.zeros_like(qs), torch.zeros_like(ks), torch.zeros_like(ks))
     w1 = (torch.zeros_like(qs), torch.zeros_like(ks), torch.zeros_like(ks))
-    hop = [(300, 0, 130, 200)]
+    hop = [(300, 0, 130, 200, 200)]
     ra.ring_step_bwd(qs, ks, vs, dos, lse_s, dls, *g1, hop)
     ref.ring_step_bwd(qs, ks, vs, dos, lse_s, dls, *w1, hop)
     compare("ring_step_bwd", "one hop B2 C200 H8 Hk2 hd64 fp32 (dq,dk,dv)",
@@ -432,12 +581,33 @@ def phase_train_kernels(torch, dev, name):
                                   dof)
         want = torch.autograd.grad(ref.flash_attention(qf, kf, vf),
                                    (qf, kf, vf), dof)
-        err = compare("ring_step_bwd", f"flash backward {label} {dt}", got,
-                      want, tol[dt])
-        del got, want
+        case = f"flash backward {label} {dt}"
+        err = compare("ring_step_bwd", case, got, want, tol[dt],
+                      rel=dt == bf)
+        del got
         with torch.no_grad():
             of, lse_k = fa.flash_attention(qf, kf, vf, return_lse=True)
-            _, lse_r = ref.flash_attention(qf, kf, vf, return_lse=True)
+            o_r, lse_r = ref.flash_attention(qf, kf, vf, return_lse=True)
+        if S_ == S:
+            # beside it: SDPA's backward, and the plain backward with key
+            # tile 32 left out (from the plain lse and delta)
+            ts = [t.transpose(1, 2).detach().requires_grad_()
+                  for t in (qf, kf, vf)]
+            sd = torch.autograd.grad(F.scaled_dot_product_attention(
+                *ts, is_causal=True, enable_gqa=True), ts,
+                dof.transpose(1, 2))
+            _reading(readings, "ring_step_bwd", case, "SDPA",
+                     tuple(t.transpose(1, 2) for t in sd), want)
+            del ts, sd
+            dl_r = (dof.float() * o_r.float()).sum(-1)
+            _reading(readings, "ring_step_bwd", case,
+                     "control: key tile 32 out",
+                     _bwd_without_key_tile(
+                         torch, ref, *(t.detach()[None] for t in (qf, kf, vf)),
+                         dof[None], lse_r[None], dl_r[None], 2048, 2112),
+                     tuple(w[None] for w in want))
+            del dl_r
+        del want, o_r
         compare("flash_attention", f"lse {label} {dt}", (lse_k,), (lse_r,),
                 FP32_TOL)
         if S_ == S:
@@ -484,7 +654,7 @@ def phase_train_kernels(torch, dev, name):
     qf, kf, vf, dof, of, lsef = (flash_in[n][None] for n in
                                  ("q", "k", "v", "do", "o", "lse"))
     dlf = (dof.float() * of.float()).sum(-1)
-    flash_hop = [(0, 0, 0, S)]
+    flash_hop = [(0, 0, 0, S, S)]
     bwd_acc = (torch.zeros(qf.shape, device=dev),
                torch.zeros(kf.shape, device=dev),
                torch.zeros(kf.shape, device=dev))
@@ -576,12 +746,15 @@ def phase_train_kernels(torch, dev, name):
             f"ms, plain {t['plain_ms']:.4f} ms, library {t['library_ms']} "
             f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     # the cp ring's backward per launch at the slice's shape (no library
-    # call computes a ring hop's gradient)
+    # call computes a ring hop's gradient); a hop's work is its real rows'
+    # (the kernel skips the pad rows): q, dout, lse, delta and dq of every
+    # rank's chunk, k, v, dk and dv of every source chunk
     bwd_bytes = bwd_ops = 0
+    rows = B * sum(CP_CHUNKS)
     for per_rank in vis:
-        bwd_bytes += (2 * cp * B * C * H * hd + 2 * cp * B * C * Hk * hd) * el
-        bwd_bytes += 2 * cp * B * C * H * f4
-        bwd_bytes += 2 * cp * B * C * (H + 2 * Hk) * hd * f4
+        bwd_bytes += (2 * rows * H * hd + 2 * rows * Hk * hd) * el
+        bwd_bytes += 2 * rows * H * f4
+        bwd_bytes += 2 * rows * (H + 2 * Hk) * hd * f4
         bwd_ops += sum(10 * n_ * B * H * hd for n_ in per_rank)
     acc3 = zeros_like_qkv()
     cp_bwd_ms = time_ms(torch, lambda: [
@@ -589,7 +762,8 @@ def phase_train_kernels(torch, dev, name):
         for t in tables]) / cp
     cp_bwd_bound = max(bwd_bytes / cp / bw, bwd_ops / cp / bf16_peak) * 1e3
     extra = {"ring_step_bwd_cp4_per_launch_ms": cp_bwd_ms,
-             "ring_step_bwd_cp4_bound_ms": cp_bwd_bound}
+             "ring_step_bwd_cp4_bound_ms": cp_bwd_bound,
+             "rel_readings": readings}
     log(f"[kernels] time ring_step_bwd    cp4 {CP_CHUNKS} bf16 per launch: "
         f"kernel {cp_bwd_ms:.4f} ms, bound {cp_bwd_bound:.4f} ms")
     return checks, timed, extra
@@ -855,12 +1029,14 @@ def main(argv=None) -> int:
     from repro_torch.kernels.ops import LAUNCH_COUNTERS
 
     smi, name = phase_card(torch)
-    build_s = phase_build()
-    checks, timed = phase_kernels(torch, dev, name)
+    build_s, build_info = phase_build()
+    checks, timed, extra = phase_kernels(torch, dev, name)
     train_checks, train_timed, train_extra = phase_train_kernels(
         torch, dev, name)
     checks += train_checks
     timed.update(train_timed)
+    extra["rel_readings"] += train_extra.pop("rel_readings")
+    extra.update(train_extra)
     model_err = {arch: phase_model(torch, dev, arch) for arch in SERVE_ARCHS}
     serve, launches = {}, dict.fromkeys(LAUNCH_COUNTERS, 0)
     for arch in SERVE_ARCHS:
@@ -891,8 +1067,9 @@ def main(argv=None) -> int:
                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                "library_ms": t["library_ms"]})
     report = {"card": smi, "device_name": name, "build_s": build_s,
+              "build": build_info,
               "checks": checks, "worst_err_by_kernel": worst,
-              "timed": timed, "timed_extra": train_extra,
+              "timed": timed, "timed_extra": extra,
               "model_max_abs_err": model_err, "serve": serve,
               "train_parity": train_parity, "train": train,
               "launches": launches}

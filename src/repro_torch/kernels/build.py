@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("common.cu", "rmsnorm.cu", "swiglu.cu", "flash_attention.cu",
            "ssm_scan.cu", "ring_attention.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -59,6 +59,9 @@ _SIGNATURES = {
     "ring_step_bwd": (_c.c_int, [_P] * 9 + [_c.c_int] * 8
                       + [_c.POINTER(_c.c_int), _c.c_int, _c.c_float,
                          _c.c_int, _P]),
+    "flash_attention_fwd_attrs": (_c.c_int, [_c.c_int,
+                                             _c.POINTER(_c.c_int)]),
+    "ring_step_bwd_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
 }
 
 _lock = threading.Lock()
@@ -148,6 +151,29 @@ def check(err: int, kernel: str) -> None:
     if err != 0:
         msg = library().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
+
+
+def kernel_attrs(fn: str, hd: int) -> dict:
+    """What the card's compiled kernel behind the C function ``fn``
+    (``flash_attention_fwd_attrs`` or ``ring_step_bwd_attrs``: the bf16
+    tensor-core kernels) takes at head dim ``hd``."""
+    out = (ctypes.c_int * 4)()
+    check(getattr(library(), fn)(hd, out), fn)
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "blocks_per_sm"), out))
+
+
+def require_aligned16(kernel: str, **tensors: torch.Tensor) -> None:
+    """Bases and the strides of every dimension longer than 1 on 16-byte
+    boundaries (the tensor-core kernels copy 16 bytes at a time)."""
+    for name, t in tensors.items():
+        es = t.element_size()
+        bad = t.data_ptr() % 16 or any(
+            (st * es) % 16 for n, st in zip(t.shape, t.stride()) if n > 1
+            and st != 1)
+        if bad:
+            raise ValueError(f"{kernel}: {name} (strides {t.stride()}) is "
+                             "not 16-byte aligned in its base and strides")
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -5,6 +5,7 @@
 // visiting, padded KV block into the carried fp32 online-softmax state
 // (m, l, acc).  ring_step_bwd is its VJP in the FA2 form; the JAX package
 // has none (it differentiates the jnp fold), the training path needs it.
+// With one rank it is the flash backward.
 //
 // One launch runs one ring step for EVERY rank: rank r's q chunk meets the
 // KV block of rank hops[r].src, read in place (on one card the ring's roll
@@ -12,34 +13,44 @@
 //   q, dout, dq        (R,  B, Cq, H,  HD)
 //   k, v, dk, dv       (Rk, B, Ck, Hk, HD)
 //   m, l, lse, delta   (R,  B, Cq, H)        acc (R, B, Cq, H, HD)
-// The key j of a hop is visible to query i iff j < k_valid and, causal,
-// k_start + j <= q_start + i (global positions).  Key tiles with no
-// visible key are skipped; a masked score adds p = 0 explicitly, so a row
-// that sees no key keeps its carry bit for bit (alpha is exactly 1).
+// The key j of a hop is visible to query i iff i < q_valid, j < k_valid
+// and, causal, k_start + j <= q_start + i (global positions): q_valid and
+// k_valid are the real (non-pad) rows of the two chunks.  Key tiles with
+// no visible key are skipped, and so are q tiles wholly in the pad; a
+// masked score adds p = 0 explicitly, so a row that sees no key keeps its
+// carry bit for bit (alpha is exactly 1).
 //
-// On the TPU the kv blocks were the sequential innermost grid dimension
-// and the carry rode in VMEM refs.  Here the forward gives one block a
-// (rank, b, h, 64-row q tile), loads its carry into registers, walks the
-// visible kv tiles in a loop and writes the carry out; the scores never
-// reach device memory.  Bound: at the training shapes (cp 4, S 4096,
-// hd 128) the carry's fp32 read and write outweigh the visible products at
-// the bf16 tensor rate.  Like the flash kernel, this first version
-// multiplies with fp32 FMAs on the CUDA cores from fp32 shared-memory
-// tiles, well above that bound (PERF.md).
+// Forward (both dtypes): one block a (rank, b, h, 64-row q tile) holds its
+// carry in registers over the visible kv tiles; fp32 FMAs on the CUDA
+// cores from fp32 shared tiles.  Bound: the carry's fp32 read and write.
+// Its redesign is later work (PERF.md).
 //
-// The backward gives one block a (rank, b, kv head, 64-key tile).  It
-// keeps the tile's dK and dV in registers while it loops over the G query
-// heads of its kv head and the q tiles that can see the tile, so dK/dV
-// need no atomics (the hop sources are distinct within a launch, and
-// launches are ordered on the stream); dQ rows are summed across key
-// tiles with fp32 atomicAdd.  P = exp(s - lse) is recomputed from the
-// final logsumexp, dS = P * (dO V^T - delta).
+// Backward: one block a (rank, b, kv head, key tile) keeps the tile's dK
+// and dV on chip over the G query heads and the q tiles that see it (up to
+// the rank's q_valid), so dK/dV need no atomics (the hop sources are
+// distinct within a launch, launches are ordered on the stream); dQ rows
+// are summed across key tiles with fp32 atomics.  P = exp(s - lse) from
+// the final logsumexp, dS = P * (dO V^T - delta).  Bound: five products
+// per visible (q, k) pair at the bf16 tensor-core rate.
+//   bf16: FA2's backward on mma.sync m16n8k16 (fp32 accumulate).  Each
+// warp owns 16 keys and their dK/dV C fragments; K and V load once a
+// block, Q, dO, lse and delta of each q tile through a 2-stage cp.async
+// ring of swizzled bf16 tiles.  S^T = K Q^T, P^T = exp2(...) (masked only
+// on edge tiles), dP^T = V dO^T, dS^T = P^T (dP^T - delta); dV += P^T dO
+// and dK += dS^T Q take P^T and dS^T as bf16 A fragments from registers
+// (as SDPA rounds them); dS^T goes through shared memory for dQ = dS K,
+// added with float2 atomics.  8 warps and 128 keys a block at hd >= 32
+// (145 KB of shared memory at hd 128): against 4 warps and 64 keys it
+// halves the dq atomics and Q/dO loads a key, and timed faster.
+//   fp32 (the fp32 parity checks): fp32 FMAs from fp32 shared tiles; the
+// tensor cores would round fp32 to TF32.
 //
 // The parameter blocks are __grid_constant__: the hop table is indexed by
 // the block's rank in place, never copied to each thread's local memory.
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -51,7 +62,7 @@ constexpr int kFwdThreads = 128;
 constexpr int kBwdThreads = 256;
 
 struct Hop {
-  int q_start, src, k_start, k_valid;
+  int q_start, src, k_start, k_valid, q_valid;
 };
 
 struct RingShape {
@@ -88,7 +99,7 @@ struct BwdParams {
 
 __device__ __forceinline__ bool visible(const RingShape& s, const Hop& hop,
                                         int qi, int kj, int k_valid) {
-  return qi < s.Cq && kj < k_valid &&
+  return qi < hop.q_valid && kj < k_valid &&
          (!s.causal || hop.k_start + kj <= hop.q_start + qi);
 }
 
@@ -140,7 +151,7 @@ ring_fwd_kernel(const __grid_constant__ FwdParams p) {
 
   // keys [0, k_hi) of the visiting block can be visible to this tile
   const int q_last = min(q0 + kBQ, s.Cq) - 1;
-  int k_hi = k_valid;
+  int k_hi = q0 < hop.q_valid ? k_valid : 0;  // a pad tile sees nothing
   if (s.causal) k_hi = min(k_hi, hop.q_start + q_last - hop.k_start + 1);
 
   // the carry in (rows past Cq are never stored)
@@ -276,7 +287,7 @@ constexpr size_t bwd_smem_bytes() {
   return sizeof(float) * (4 * HD * kLd + 2 * kBQ * kLd + 2 * kBQ);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kBwdThreads)
 ring_bwd_kernel(const __grid_constant__ BwdParams p) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
@@ -303,21 +314,23 @@ ring_bwd_kernel(const __grid_constant__ BwdParams p) {
   if (k0 >= k_valid) return;
   int q_begin = 0;
   if (s.causal) q_begin = max(0, hop.k_start + k0 - hop.q_start);
-  if (q_begin >= s.Cq) return;
+  if (q_begin >= hop.q_valid) return;
   q_begin = (q_begin / kBQ) * kBQ;
 
   const long long q_row0 = ((long long)r * s.B + b) * s.Cq;
   const long long kv_row0 = ((long long)hop.src * s.B + b) * s.Ck;
   const long long q_rs = (long long)s.H * HD, kv_rs = (long long)s.Hk * HD;
-  const T* kg = static_cast<const T*>(p.k) + (kv_row0 * s.Hk + kvh) * HD;
-  const T* vg = static_cast<const T*>(p.v) + (kv_row0 * s.Hk + kvh) * HD;
+  const float* kg =
+      static_cast<const float*>(p.k) + (kv_row0 * s.Hk + kvh) * HD;
+  const float* vg =
+      static_cast<const float*>(p.v) + (kv_row0 * s.Hk + kvh) * HD;
 
   for (int idx = tid; idx < kBK * HD; idx += kBwdThreads) {
     const int rr = idx / HD, d = idx % HD;
     const int kj = k0 + rr;
     const bool in = kj < s.Ck;
-    Ks[d * kLd + rr] = in ? to_f32(kg[kj * kv_rs + d]) : 0.f;
-    Vs[d * kLd + rr] = in ? to_f32(vg[kj * kv_rs + d]) : 0.f;
+    Ks[d * kLd + rr] = in ? kg[kj * kv_rs + d] : 0.f;
+    Vs[d * kLd + rr] = in ? vg[kj * kv_rs + d] : 0.f;
   }
 
   float dk[4][kDC], dv[4][kDC];
@@ -328,19 +341,20 @@ ring_bwd_kernel(const __grid_constant__ BwdParams p) {
 
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
-    const T* qg = static_cast<const T*>(p.q) + (q_row0 * s.H + h) * HD;
-    const T* og = static_cast<const T*>(p.dout) + (q_row0 * s.H + h) * HD;
+    const float* qg = static_cast<const float*>(p.q) + (q_row0 * s.H + h) * HD;
+    const float* og =
+        static_cast<const float*>(p.dout) + (q_row0 * s.H + h) * HD;
     const float* lg = p.lse + q_row0 * s.H + h;
     const float* dg = p.delta + q_row0 * s.H + h;
     float* dqg = p.dq + (q_row0 * s.H + h) * HD;
-    for (int q0 = q_begin; q0 < s.Cq; q0 += kBQ) {
+    for (int q0 = q_begin; q0 < hop.q_valid; q0 += kBQ) {
       __syncthreads();  // the previous tile's reads of every buffer are done
       for (int idx = tid; idx < kBQ * HD; idx += kBwdThreads) {
         const int rr = idx / HD, d = idx % HD;
         const int qi = q0 + rr;
         const bool in = qi < s.Cq;
-        Qs[d * kLd + rr] = in ? to_f32(qg[qi * q_rs + d]) : 0.f;
-        dOs[d * kLd + rr] = in ? to_f32(og[qi * q_rs + d]) : 0.f;
+        Qs[d * kLd + rr] = in ? qg[qi * q_rs + d] : 0.f;
+        dOs[d * kLd + rr] = in ? og[qi * q_rs + d] : 0.f;
       }
       if (tid < kBQ) {
         const int qi = q0 + tid;
@@ -460,6 +474,312 @@ ring_bwd_kernel(const __grid_constant__ BwdParams p) {
   }
 }
 
+// ------------------------------------- backward, bf16 on tensor cores ---
+// Warp w owns keys 16w..16w+15 of the block's tile in the S^T, dP^T, dK
+// and dV products, and q rows 16w..16w+15 of the q tile in dQ; lane (gid,
+// tig) = (lane / 4, lane % 4) holds rows gid and gid + 8 of its strip and,
+// in every 8-column C tile, columns 2tig and 2tig + 1.
+namespace mma_bwd {
+
+constexpr int kStages = 2;     // Q/dO/lse/delta ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD, int W>
+constexpr size_t smem_bytes() {
+  // K, V [16 W][HD] + Q, dO [kStages][kBQ][HD] + dS^T [16 W][kBQ], bf16;
+  // lse, delta [kStages][kBQ] fp32
+  return sizeof(__nv_bfloat16) * (2 * 16 * W * HD + 2 * kStages * kBQ * HD +
+                                  16 * W * kBQ) +
+         sizeof(float) * 2 * kStages * kBQ;
+}
+
+// W warps own the block's 16 W keys
+template <int HD, int W>
+__global__ void __launch_bounds__(32 * W)
+ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
+  using tc::bf16;
+  constexpr int kThreads = 32 * W;
+  constexpr int kKeys = 16 * W;        // keys of the block's tile
+  constexpr int kKSteps = HD / 16;     // k-steps over hd
+  constexpr int kDTiles = HD / 8;      // 8-column C tiles over hd
+  constexpr int kQTiles = kBQ / 8;     // 8-column C tiles over a q tile
+  // dQ (kBQ x HD) is split among the warps: 4 strips of 16 q rows times
+  // W / 4 column parts, each done in blocks of at most 64 columns
+  constexpr int kParts = W / 4;
+  constexpr int kPartTiles = kDTiles / kParts;
+  constexpr int kDQTiles = kPartTiles < 8 ? kPartTiles : 8;
+  static_assert(W % 4 == 0 && kPartTiles % 2 == 0, "whole x4 loads of dQ");
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_tc);   // [kKeys][HD]
+  bf16* Vs = Ks + kKeys * HD;                     // [kKeys][HD]
+  bf16* Qs = Vs + kKeys * HD;                     // [kStages][kBQ][HD]
+  bf16* dOs = Qs + kStages * kBQ * HD;            // [kStages][kBQ][HD]
+  bf16* dSs = dOs + kStages * kBQ * HD;           // [kKeys][kBQ], dS^T
+  float* lse_s = reinterpret_cast<float*>(dSs + kKeys * kBQ);
+  float* dl_s = lse_s + kStages * kBQ;            // lse, delta [kStages][kBQ]
+
+  const RingShape& s = p.s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: matrix, its row
+  // the first key tiles see the most queries: they go first, and blocks
+  // start in x-fastest order, so the key tile is the slowest axis
+  const int k0 = blockIdx.z * kKeys;
+  const int kvh = blockIdx.x;
+  const int r = blockIdx.y / s.B, b = blockIdx.y % s.B;
+  const Hop& hop = s.hops[r];
+  const int G = s.H / s.Hk;
+  const int k_valid = min(hop.k_valid, s.Ck);
+  const int q_valid = min(hop.q_valid, s.Cq);
+  if (k0 >= k_valid) return;
+  int q_begin = 0;
+  if (s.causal) q_begin = max(0, hop.k_start + k0 - hop.q_start);
+  if (q_begin >= q_valid) return;
+  q_begin = (q_begin / kBQ) * kBQ;
+  const int n_qt = (q_valid - q_begin + kBQ - 1) / kBQ;
+  const int n_it = G * n_qt;  // (query head, q tile) pairs, head-major
+
+  const long long q_row0 = ((long long)r * s.B + b) * s.Cq;
+  const long long kv_row0 = ((long long)hop.src * s.B + b) * s.Ck;
+  const long long q_rs = (long long)s.H * HD, kv_rs = (long long)s.Hk * HD;
+  const bf16* kg = static_cast<const bf16*>(p.k) + (kv_row0 * s.Hk + kvh) * HD;
+  const bf16* vg = static_cast<const bf16*>(p.v) + (kv_row0 * s.Hk + kvh) * HD;
+
+  auto load_q = [&](int it) {
+    const int st = it % kStages;
+    const int h = kvh * G + it / n_qt, q0 = q_begin + (it % n_qt) * kBQ;
+    const long long head = q_row0 * s.H + h;
+    tc::load_tile<HD, kBQ, kThreads>(
+        Qs + st * kBQ * HD, static_cast<const bf16*>(p.q) + head * HD, q_rs,
+        q0, q_valid);
+    tc::load_tile<HD, kBQ, kThreads>(
+        dOs + st * kBQ * HD, static_cast<const bf16*>(p.dout) + head * HD,
+        q_rs, q0, q_valid);
+    // lse and delta are strided by H: one 4-byte copy a row
+    if (threadIdx.x < 2 * kBQ) {
+      const int i = threadIdx.x & (kBQ - 1);
+      const bool in = q0 + i < q_valid;
+      const float* src = threadIdx.x < kBQ ? p.lse : p.delta;
+      float* dst = threadIdx.x < kBQ ? lse_s : dl_s;
+      tc::cp_async4(dst + st * kBQ + i,
+                    src + head + (in ? (long long)(q0 + i) * s.H : 0), in);
+    }
+  };
+  tc::load_tile<HD, kKeys, kThreads>(Ks, kg, kv_rs, k0, k_valid);
+  tc::load_tile<HD, kKeys, kThreads>(Vs, vg, kv_rs, k0, k_valid);
+  load_q(0);
+  tc::cp_async_commit();
+
+  float dk[kDTiles][4], dv[kDTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const float scale_log2 = s.sm_scale * kLog2e;
+  const int kw = k0 + warp * 16 + gid;  // this lane's key of row gid
+  // the warp's strip and column part of dQ
+  const int dq_strip = warp & 3, dq_part = warp >> 2;
+
+  for (int it = 0; it < n_it; ++it) {
+    tc::cp_async_wait<0>();  // K, V and tile it have landed
+    // every warp is past tile it - 1 (its Q/dO stage and its dS^T reads):
+    // that stage takes tile it + 1
+    __syncthreads();
+    if (it + 1 < n_it) load_q(it + 1);
+    tc::cp_async_commit();
+    const int st = it % kStages;
+    const int h = kvh * G + it / n_qt, q0 = q_begin + (it % n_qt) * kBQ;
+    const bf16* Qt = Qs + st * kBQ * HD;
+    const bf16* dOt = dOs + st * kBQ * HD;
+    const float* lse_t = lse_s + st * kBQ;
+    const float* dl_t = dl_s + st * kBQ;
+
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
+    float sT[kQTiles][4], dpT[kQTiles][4];
+#pragma unroll
+    for (int j = 0; j < kQTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks) {
+      uint32_t ka[4], va[4];
+      const int arow = warp * 16 + (lane & 15), acol = 2 * ks + (lane >> 4);
+      tc::ldmatrix_x4(ka, Ks + tc::swz<HD>(arow, acol));
+      tc::ldmatrix_x4(va, Vs + tc::swz<HD>(arow, acol));
+#pragma unroll
+      for (int np = 0; np < kQTiles / 2; ++np) {
+        const int brow = np * 16 + (mat >> 1) * 8 + mrow;
+        const int bcol = 2 * ks + (mat & 1);
+        uint32_t qb[4], ob[4];
+        tc::ldmatrix_x4(qb, Qt + tc::swz<HD>(brow, bcol));
+        tc::ldmatrix_x4(ob, dOt + tc::swz<HD>(brow, bcol));
+        tc::mma_bf16(sT[2 * np], ka, qb[0], qb[1]);
+        tc::mma_bf16(sT[2 * np + 1], ka, qb[2], qb[3]);
+        tc::mma_bf16(dpT[2 * np], va, ob[0], ob[1]);
+        tc::mma_bf16(dpT[2 * np + 1], va, ob[2], ob[3]);
+      }
+    }
+
+    // P^T = exp2(S^T scale log2e - lse log2e) under the hop's mask, and
+    // dS^T = P^T (dP^T - delta); the mask only where the tile crosses
+    // the diagonal or a chunk's real rows
+    const bool edge = q0 + kBQ > q_valid || k0 + kKeys > k_valid ||
+                      (s.causal && hop.k_start + k0 + kKeys - 1 >
+                                       hop.q_start + q0);
+#pragma unroll
+    for (int j = 0; j < kQTiles; ++j) {
+      const int qc = 8 * j + 2 * tig;  // this lane's q columns qc, qc + 1
+      const float2 ls = *reinterpret_cast<const float2*>(lse_t + qc);
+      const float2 dl = *reinterpret_cast<const float2*>(dl_t + qc);
+      const float nl0 = -ls.x * kLog2e, nl1 = -ls.y * kLog2e;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pv =
+            tc::exp2_fast(fmaf(sT[j][e], scale_log2, (e & 1) ? nl1 : nl0));
+        if (edge && !visible(s, hop, q0 + qc + (e & 1), kw + 8 * (e >> 1),
+                             k_valid))
+          pv = 0.f;
+        sT[j][e] = pv;
+        dpT[j][e] = pv * (dpT[j][e] - ((e & 1) ? dl.y : dl.x));
+      }
+    }
+
+    // dS^T to shared memory for dQ, as bf16 pairs
+#pragma unroll
+    for (int j = 0; j < kQTiles; ++j)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        *reinterpret_cast<uint32_t*>(
+            dSs + tc::swz<kBQ>(warp * 16 + gid + 8 * rr, j) + 2 * tig) =
+            tc::pack_bf16(dpT[j][2 * rr], dpT[j][2 * rr + 1]);
+
+    // dV += P^T dO and dK += dS^T Q: A fragments from registers, dO and Q
+    // as B fragments transposed from their [q][d] tiles
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      uint32_t pa[4], sa[4];
+      tc::c_to_a(pa, sT[2 * kk], sT[2 * kk + 1]);
+      tc::c_to_a(sa, dpT[2 * kk], dpT[2 * kk + 1]);
+#pragma unroll
+      for (int dp = 0; dp < kDTiles / 2; ++dp) {
+        const int brow = kk * 16 + (mat & 1) * 8 + mrow;
+        const int bcol = 2 * dp + (mat >> 1);
+        uint32_t ob[4], qb[4];
+        tc::ldmatrix_x4_trans(ob, dOt + tc::swz<HD>(brow, bcol));
+        tc::ldmatrix_x4_trans(qb, Qt + tc::swz<HD>(brow, bcol));
+        tc::mma_bf16(dv[2 * dp], pa, ob[0], ob[1]);
+        tc::mma_bf16(dv[2 * dp + 1], pa, ob[2], ob[3]);
+        tc::mma_bf16(dk[2 * dp], sa, qb[0], qb[1]);
+        tc::mma_bf16(dk[2 * dp + 1], sa, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();  // all of dS^T is in shared memory
+
+    // dQ (this warp's 16 q rows and column part) = dS K * scale, added
+    // into dq
+    const int qr = q0 + dq_strip * 16 + gid;
+    float* dqg = p.dq + (q_row0 * s.H + h) * HD;
+#pragma unroll
+    for (int d0 = dq_part * kPartTiles; d0 < (dq_part + 1) * kPartTiles;
+         d0 += kDQTiles) {
+      float dq[kDQTiles][4];
+#pragma unroll
+      for (int n = 0; n < kDQTiles; ++n)
+        dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        uint32_t sa[4];  // dS[q][key] from dS^T[key][q], transposed
+        tc::ldmatrix_x4_trans(
+            sa, dSs + tc::swz<kBQ>(kk * 16 + (mat >> 1) * 8 + mrow,
+                                   2 * dq_strip + (mat & 1)));
+#pragma unroll
+        for (int dp = 0; dp < kDQTiles / 2; ++dp) {
+          uint32_t kb[4];
+          tc::ldmatrix_x4_trans(
+              kb, Ks + tc::swz<HD>(kk * 16 + (mat & 1) * 8 + mrow,
+                                   d0 + 2 * dp + (mat >> 1)));
+          tc::mma_bf16(dq[2 * dp], sa, kb[0], kb[1]);
+          tc::mma_bf16(dq[2 * dp + 1], sa, kb[2], kb[3]);
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int qi = qr + 8 * rr;
+        if (qi >= q_valid) continue;
+        float* row = dqg + qi * q_rs + 8 * d0 + 2 * tig;
+#pragma unroll
+        for (int n = 0; n < kDQTiles; ++n)
+          atomicAdd(reinterpret_cast<float2*>(row + 8 * n),
+                    make_float2(dq[n][2 * rr] * s.sm_scale,
+                                dq[n][2 * rr + 1] * s.sm_scale));
+      }
+    }
+  }
+
+  // this block alone owns these dK/dV rows within the launch
+  float* dkg = p.dk + (kv_row0 * s.Hk + kvh) * HD;
+  float* dvg = p.dv + (kv_row0 * s.Hk + kvh) * HD;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int kj = kw + 8 * rr;
+    if (kj >= s.Ck) continue;
+#pragma unroll
+    for (int n = 0; n < kDTiles; ++n) {
+      const long long o = kj * kv_rs + 8 * n + 2 * tig;
+      float2* pk = reinterpret_cast<float2*>(dkg + o);
+      float2* pv = reinterpret_cast<float2*>(dvg + o);
+      const float2 ok = *pk, ov = *pv;
+      *pk = make_float2(ok.x + dk[n][2 * rr] * s.sm_scale,
+                        ok.y + dk[n][2 * rr + 1] * s.sm_scale);
+      *pv = make_float2(ov.x + dv[n][2 * rr], ov.y + dv[n][2 * rr + 1]);
+    }
+  }
+}
+
+// 8 warps (128 keys a block: half the dQ atomics and Q/dO loads of 64)
+// where the dQ split allows, 4 at hd 16
+template <int HD>
+constexpr int warps() {
+  return HD >= 32 ? 8 : 4;
+}
+
+template <int HD>
+cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
+  constexpr int W = warps<HD>();
+  constexpr size_t smem = smem_bytes<HD, W>();
+  auto* kernel = ring_bwd_mma_kernel<HD, W>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.s.Hk, p.s.R * p.s.B, (p.s.Ck + 16 * W - 1) / (16 * W));
+  if (grid.z > 65535) return cudaErrorInvalidValue;
+  kernel<<<grid, 32 * W, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// registers, local (spill) bytes, dynamic shared bytes, resident blocks
+// per SM
+template <int HD>
+cudaError_t attrs(int* out) {
+  constexpr int W = warps<HD>();
+  constexpr size_t smem = smem_bytes<HD, W>();
+  cudaFuncAttributes a;
+  auto* kernel = ring_bwd_mma_kernel<HD, W>;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel,
+                                                      32 * W, smem);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem;
+  return e;
+}
+
+}  // namespace mma_bwd
+
 // ------------------------------------------------------------- launch ---
 template <typename T, int HD>
 cudaError_t launch_fwd(const FwdParams& p, cudaStream_t stream) {
@@ -473,15 +793,15 @@ cudaError_t launch_fwd(const FwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
+template <int HD>
+cudaError_t launch_bwd_f32(const BwdParams& p, cudaStream_t stream) {
   constexpr size_t smem = bwd_smem_bytes<HD>();
   cudaError_t e = cudaFuncSetAttribute(
-      ring_bwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ring_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.s.Ck + kBK - 1) / kBK, p.s.Hk, p.s.R * p.s.B);
-  ring_bwd_kernel<T, HD><<<grid, kBwdThreads, smem, stream>>>(p);
+  ring_bwd_kernel<HD><<<grid, kBwdThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -496,13 +816,22 @@ cudaError_t dispatch_fwd(const P& p, int hd, cudaStream_t stream) {
   }
 }
 
-template <typename T, typename P>
-cudaError_t dispatch_bwd(const P& p, int hd, cudaStream_t stream) {
+cudaError_t dispatch_bwd_f32(const BwdParams& p, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_bwd<T, 16>(p, stream);
-    case 32: return launch_bwd<T, 32>(p, stream);
-    case 64: return launch_bwd<T, 64>(p, stream);
-    case 128: return launch_bwd<T, 128>(p, stream);
+    case 16: return launch_bwd_f32<16>(p, stream);
+    case 32: return launch_bwd_f32<32>(p, stream);
+    case 64: return launch_bwd_f32<64>(p, stream);
+    case 128: return launch_bwd_f32<128>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_bwd_mma(const BwdParams& p, int hd, cudaStream_t stream) {
+  switch (hd) {
+    case 16: return mma_bwd::launch<16>(p, stream);
+    case 32: return mma_bwd::launch<32>(p, stream);
+    case 64: return mma_bwd::launch<64>(p, stream);
+    case 128: return mma_bwd::launch<128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -514,9 +843,10 @@ bool make_shape(RingShape* s, int R, int Rk, int B, int Cq, int Ck, int H,
     return false;
   *s = RingShape{R, Rk, B, Cq, Ck, H, Hk, causal, sm_scale, {}};
   for (int r = 0; r < R; ++r) {
-    const Hop h{hops[4 * r], hops[4 * r + 1], hops[4 * r + 2],
-                hops[4 * r + 3]};
-    if (h.src < 0 || h.src >= Rk || h.k_valid < 0 || h.k_valid > Ck)
+    const int* e = hops + 5 * r;
+    const Hop h{e[0], e[1], e[2], e[3], e[4]};
+    if (h.src < 0 || h.src >= Rk || h.k_valid < 0 || h.k_valid > Ck ||
+        h.q_valid < 0 || h.q_valid > Cq)
       return false;
     s->hops[r] = h;
   }
@@ -526,7 +856,7 @@ bool make_shape(RingShape* s, int R, int Rk, int B, int Cq, int Ck, int H,
 }  // namespace
 
 // One ring step for every rank: (m, l, acc)_out = fold(carry_in, hop).
-// hops: R x (q_start, src, k_start, k_valid).
+// hops: R x (q_start, src, k_start, k_valid, q_valid).
 extern "C" int ring_step_fwd(const void* q, const void* k, const void* v,
                              const void* m_in, const void* l_in,
                              const void* acc_in, void* m_out, void* l_out,
@@ -555,7 +885,9 @@ extern "C" int ring_step_fwd(const void* q, const void* k, const void* v,
 }
 
 // One ring step's VJP for every rank, added into fp32 dq, dk, dv.  The
-// hops' sources must be distinct (the wrapper checks).
+// hops' sources must be distinct (the wrapper checks).  bf16 runs on the
+// tensor cores and needs 16-byte aligned q, k, v, dout; fp32 on the FMA
+// kernel.
 extern "C" int ring_step_bwd(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dq, void* dk, void* dv,
@@ -576,8 +908,20 @@ extern "C" int ring_step_bwd(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case REPRO_F32: return dispatch_bwd<float>(p, hd, st);
-    case REPRO_BF16: return dispatch_bwd<__nv_bfloat16>(p, hd, st);
+    case REPRO_F32: return dispatch_bwd_f32(p, hd, st);
+    case REPRO_BF16: return dispatch_bwd_mma(p, hd, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 backward's registers, spill bytes, dynamic shared memory and
+// resident blocks per SM at head dim hd, into out[0..3].
+extern "C" int ring_step_bwd_attrs(int hd, int* out) {
+  switch (hd) {
+    case 16: return mma_bwd::attrs<16>(out);
+    case 32: return mma_bwd::attrs<32>(out);
+    case 64: return mma_bwd::attrs<64>(out);
+    case 128: return mma_bwd::attrs<128>(out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -2,13 +2,16 @@
 ``csrc/flash_attention.cu``.
 
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py::
-flash_attention``.  At serving shapes it is bound by operations (the
-score and value products), not bytes.  One thread block per (b, h, 64-row
-q tile) loops over the kv tiles inside the causal/window band with fp32
-m/l/acc in registers, so the score matrix never reaches device memory.
-This first version multiplies with fp32 FMAs on the CUDA cores, not the
-tensor cores (see PERF.md for its distance from the bound).  Asked for
-it, the kernel also writes each row's logsumexp, which the backward
+flash_attention``.  At serving and training shapes it is bound by
+operations (the score and value products at the bf16 tensor-core rate),
+not bytes.  One thread block per (b, h, 64-row q tile) loops over the kv
+tiles inside the causal/window band with fp32 m/l/acc in registers, so
+the score matrix never reaches device memory.  bf16 inputs run on the
+tensor cores (``mma.sync`` m16n8k16, Q's fragments held in registers,
+K/V tiles through a 3-stage ``cp.async`` ring, P rounded to bf16 for the
+PV product as SDPA does); fp32 inputs keep the fp32 FMA kernel, since the
+tensor cores would round them to TF32 (PERF.md has both kernels' distance
+from the bound).  Asked for it, the kernel also writes each row's logsumexp, which the backward
 (``kernels/ops.py::FlashAttentionFn``, through the one-rank
 ``ring_step_bwd``) needs.  Plain version: ``kernels/ref.py::
 flash_attention``.
@@ -31,8 +34,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: Optional[float] = None,
                     return_lse: bool = False):
     """q: (B,Sq,H,hd); k/v: (B,Sk,Hk,hd), any strides with unit stride on
-    hd.  Returns a contiguous (B,Sq,H,hd) tensor of q's dtype, and with
-    ``return_lse`` also the rows' logsumexp, fp32 (B,Sq,H)."""
+    hd (bf16: 16-byte aligned bases and strides, for the tensor-core
+    kernel's 16-byte copies).  Returns a contiguous (B,Sq,H,hd) tensor of
+    q's dtype, and with ``return_lse`` also the rows' logsumexp, fp32
+    (B,Sq,H)."""
     global launches
     build.forbid_grad("flash_attention", "call kernels.ops.flash_attention",
                       q, k, v)
@@ -54,6 +59,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     code = build.dtype_code(q)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash kernel needs unit stride on the head dim")
+    if q.dtype == torch.bfloat16:
+        build.require_aligned16("flash_attention", q=q, k=k, v=v)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap < 0:

@@ -217,7 +217,7 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         Sq, Sk = q.shape[1], k.shape[1]
         # one rank whose queries sit at the end of the keys
-        hops = [(Sk - Sq, 0, 0, Sk)]
+        hops = [(Sk - Sq, 0, 0, Sk, Sq)]
         dq, dk, dv = _hop_backward(
             q.contiguous()[None], k.contiguous()[None], v.contiguous()[None],
             o[None], lse[None], dout[None], [hops], ctx.causal)

@@ -130,16 +130,18 @@ def swiglu_bwd(g, u, dh):
 # A hop is one ring step for every rank at once.  Rank r holds q
 # (B, Cq, H, hd) and folds the KV block (B, Ck, Hk, hd) of rank ``src``
 # into its carried (m, l, acc); ``hops[r] = (q_start, src, k_start,
-# k_valid)`` gives the global positions of the two chunks and the number
-# of real (non-pad) keys.  The rank axis leads every tensor.
+# k_valid, q_valid)`` gives the global positions of the two chunks and
+# their numbers of real (non-pad) rows.  The rank axis leads every tensor.
 
 def hop_mask(hops, cq: int, ck: int, *, causal: bool,
              device) -> torch.Tensor:
-    """(R, Cq, Ck) bool, True = the key is visible to the query."""
-    t = torch.tensor(hops, dtype=torch.int64, device=device).reshape(-1, 4)
+    """(R, Cq, Ck) bool, True = the key is visible to the query: a real
+    key of a real query row, and (causal) not after the query."""
+    t = torch.tensor(hops, dtype=torch.int64, device=device).reshape(-1, 5)
     qi = torch.arange(cq, device=device)
     kj = torch.arange(ck, device=device)
-    mask = (kj[None, None, :] < t[:, 3, None, None]).expand(-1, cq, -1)
+    mask = ((kj[None, None, :] < t[:, 3, None, None])
+            & (qi[None, :, None] < t[:, 4, None, None]))
     if causal:
         qpos = t[:, 0, None] + qi[None]                          # (R, Cq)
         kpos = t[:, 2, None] + kj[None]                          # (R, Ck)

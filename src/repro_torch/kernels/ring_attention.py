@@ -22,7 +22,14 @@ VJP in the FA2 form (P recomputed from the final logsumexp), for all
 ranks at once, added into fp32 dq (per rank) and dk/dv (per SOURCE rank).
 The JAX package has no backward kernel: it differentiates the jnp fold.
 Bound: by operations (five products per visible (q, k) pair) at long
-chunks, by the fp32 accumulators' bytes at short ones.
+chunks, by the fp32 accumulators' bytes at short ones.  bf16 inputs run
+on the tensor cores (``mma.sync``, P and dS rounded to bf16 as SDPA does);
+fp32 inputs on the fp32 FMA kernel.
+
+Each hop carries both chunks' real row counts, so the pad rows of the
+rank layout are skipped by the kernels and masked by the plain versions:
+their forward output is dropped by ``unpad_chunks`` and their gradient
+is 0 there, so the real rows are unchanged.
 
 Plain versions: ``kernels/ref.py::ring_step`` and ``ring_step_bwd``.
 """
@@ -41,7 +48,9 @@ MAX_RANKS = 64      # hop table entries the kernels' parameter block holds
 launches = 0        # ring_step launches since the last reset
 bwd_launches = 0    # ring_step_bwd launches since the last reset
 
-Hop = Tuple[int, int, int, int]     # (q_start, src, k_start, k_valid)
+# (q_start, src, k_start, k_valid, q_valid): the global positions of the
+# rank's q chunk and the visiting KV chunk, and their real (non-pad) rows
+Hop = Tuple[int, int, int, int, int]
 
 
 def chunk_starts(cp_chunks: Sequence[int]) -> Tuple[int, ...]:
@@ -77,25 +86,34 @@ def unpad_chunks(x: torch.Tensor, cp_chunks: Sequence[int],
 
 def ring_hops(cp_chunks: Sequence[int], step: int) -> List[Hop]:
     """The hop table of ring step ``step``: rank r folds rank
-    ``(r - step) % cp``'s KV block."""
+    ``(r - step) % cp``'s KV block; each rank's real q rows are its
+    chunk."""
     starts, cp = chunk_starts(cp_chunks), len(cp_chunks)
     out = []
     for r in range(cp):
         src = (r - step) % cp
-        out.append((starts[r], src, starts[src], cp_chunks[src]))
+        out.append((starts[r], src, starts[src], cp_chunks[src],
+                    cp_chunks[r]))
     return out
 
 
-def _check_hops(hops: Sequence[Hop], R: int, Rk: int, Ck: int) -> None:
+def _check_hops(hops: Sequence[Hop], R: int, Rk: int, Cq: int,
+                Ck: int) -> None:
     if len(hops) != R:
         raise ValueError(f"{len(hops)} hops for {R} ranks")
     if R > MAX_RANKS:
         raise ValueError(f"{R} ranks exceed the kernels' {MAX_RANKS}")
-    for q_start, src, k_start, k_valid in hops:
+    for hop in hops:
+        if len(hop) != 5:
+            raise ValueError(f"hop {tuple(hop)}: want (q_start, src, "
+                             "k_start, k_valid, q_valid)")
+        _, src, _, k_valid, q_valid = hop
         if not 0 <= src < Rk:
             raise ValueError(f"source rank {src} not in [0, {Rk})")
         if not 0 <= k_valid <= Ck:
             raise ValueError(f"k_valid {k_valid} not in [0, {Ck}]")
+        if not 0 <= q_valid <= Cq:
+            raise ValueError(f"q_valid {q_valid} not in [0, {Cq}]")
 
 
 def _hop_array(hops: Sequence[Hop]):
@@ -137,9 +155,10 @@ def ring_step(q, k, v, m, l, acc, hops: Sequence[Hop], *,
     q: (R,B,Cq,H,hd); k/v: (Rk,B,Ck,Hk,hd), bf16 or fp32, contiguous;
     m/l: (R,B,Cq,H,1) and acc (R,B,Cq,H,hd) fp32, contiguous.  Returns new
     (m, l, acc): the carry is copied in and the old tensors are untouched.
-    Keys at or past a hop's ``k_valid`` and (causal) keys after a query's
-    global position add nothing; a hop that shows a row no key leaves its
-    carry bit for bit."""
+    Keys at or past a hop's ``k_valid``, (causal) keys after a query's
+    global position, and every key for rows at or past ``q_valid`` add
+    nothing; a hop that shows a row no key leaves its carry bit for
+    bit."""
     global launches
     build.forbid_grad("ring_step", "call kernels.ops.ring_attention",
                       q, k, v, m, l, acc)
@@ -151,7 +170,7 @@ def ring_step(q, k, v, m, l, acc, hops: Sequence[Hop], *,
     _need("acc", acc, (R, B, Cq, H, hd), f32)
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("ring_step kernel takes contiguous q, k, v")
-    _check_hops(hops, R, Rk, Ck)
+    _check_hops(hops, R, Rk, Cq, Ck)
     code = build.dtype_code(q)
     m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))
     if B == 0 or Cq == 0:
@@ -175,7 +194,9 @@ def ring_step_bwd(q, k, v, dout, lse, delta, dq, dk, dv,
     delta (R,B,Cq,H) fp32.  The sources of the hops must differ (one ring
     step is a permutation), so each dk/dv row has one writer per launch;
     dq rows are summed over key tiles with fp32 atomics (their order, and
-    so the last bits, vary from run to run)."""
+    so the last bits, vary from run to run); rows at or past a hop's
+    ``q_valid`` get nothing.  bf16 inputs go to the tensor-core kernel,
+    whose 16-byte copies need 16-byte aligned tensors."""
     global bwd_launches
     build.forbid_grad("ring_step_bwd", "call kernels.ops.ring_attention",
                       q, k, v, dout, lse, delta)
@@ -190,7 +211,9 @@ def ring_step_bwd(q, k, v, dout, lse, delta, dq, dk, dv,
     _need("dv", dv, k.shape, f32)
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("ring_step_bwd kernel takes contiguous q, k, v")
-    _check_hops(hops, R, Rk, Ck)
+    if q.dtype == torch.bfloat16:
+        build.require_aligned16("ring_step_bwd", q=q, k=k, v=v, dout=dout)
+    _check_hops(hops, R, Rk, Cq, Ck)
     srcs = [h[1] for h in hops]
     if len(set(srcs)) != len(srcs):
         raise ValueError(f"hop sources {srcs} repeat: dk/dv would race")

@@ -9,10 +9,18 @@ card and no JAX:
 Kernels are held against their plain versions on the same card inputs:
 bf16 at 2e-2, fp32 at 2e-5 (TF32 off for the fp32 references), the
 selective scan at 2e-4 in y and its last state (fp32 arithmetic for either
-u dtype; a sum over up to S decayed terms in another order).  The ring hop
-backward sums dq over key tiles with fp32 atomics; their order changes
-the last bits only, inside 2e-5.  The SMOKE models, and three SMOKE train
-steps on each route, on the card are held against the CPU at 1e-4.
+u dtype; a sum over up to S decayed terms in another order).  bf16
+attention runs on the tensor cores, which take P and dS as bf16 operands
+(as SDPA does) where the plain versions keep them in fp32: its outputs,
+forward and backward, are held at the bf16 tolerance and, since 2e-2 is
+as large as a typical value there, each tensor also by its norm-relative
+error ||got - want|| / ||want|| <= 1e-2 (bf16 rounding reads a few 1e-3,
+one key tile or ring hop left out 1e-1 and more; ``chip_smoke.py`` reads
+both on every run).  fp32 attention runs on the
+FMA kernels; the ring hop backward sums dq over key tiles with fp32
+atomics, whose order changes the last bits only, inside 2e-5.  The SMOKE
+models, and three SMOKE train steps on each route, on the card are held
+against the CPU at 1e-4.
 """
 import pytest
 
@@ -31,6 +39,7 @@ from repro_torch.serve import (ServeEngine, decode_sequential,  # noqa: E402
 pytestmark = pytest.mark.cuda
 TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
        torch.float32: dict(rtol=2e-5, atol=2e-5)}
+BF16_REL = 1e-2
 SCAN_TOL = dict(rtol=2e-4, atol=2e-4)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -46,6 +55,16 @@ def dev(monkeypatch):
 def _randn(dev, *shape, dtype, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def _close_attention(got, want, dtype):
+    """Attention outputs at ``dtype``'s tolerance; bf16 (the tensor cores)
+    also within BF16_REL of ``want``'s norm."""
+    torch.testing.assert_close(got, want, **TOL[dtype])
+    if dtype == torch.bfloat16:
+        g, w = got.double(), want.double()
+        rel = ((g - w).norm() / w.norm()).item()
+        assert rel <= BF16_REL, rel
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -87,8 +106,50 @@ def test_flash_attention_kernel(dev, dtype, B, Sq, Sk, H, Hk, hd, kw):
     v = _randn(dev, B, Sk, Hk, hd, dtype=dtype, seed=2)
     kw = {"causal": True, **kw}
     got = tfa.flash_attention(q, k, v, **kw)
-    torch.testing.assert_close(got, ref.flash_attention(q, k, v, **kw),
-                               **TOL[dtype])
+    _close_attention(got, ref.flash_attention(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk,hd,kw", [
+    (1, 257, 257, 4, 2, 16, {}),                # every head dim, ragged S
+    (2, 257, 257, 4, 2, 32, {}),
+    (1, 257, 257, 4, 2, 64, {}),
+    (1, 257, 257, 4, 2, 128, {}),
+    (1, 1000, 1000, 8, 2, 128, {}),             # the prefill's length
+    (1, 100, 1000, 8, 2, 128, {}),              # Sq < Sk
+    (1, 300, 200, 8, 2, 64, {}),                # Sq > Sk: masked rows
+    (1, 1000, 1000, 4, 1, 128, {"window": 256}),
+    (1, 1000, 1000, 4, 2, 128, {"softcap": 50.0}),
+    (2, 200, 200, 8, 1, 64, {}),                # MQA
+    (1, 130, 130, 4, 2, 32, {"causal": False}),
+])
+def test_flash_attention_tensor_cores(dev, B, Sq, Sk, H, Hk, hd, kw):
+    """The bf16 forward on the tensor cores, and its lse, against the
+    plain version; rows that see no key are exactly 0 with lse +inf."""
+    bf = torch.bfloat16
+    q = _randn(dev, B, Sq, H, hd, dtype=bf)
+    k = _randn(dev, B, Sk, Hk, hd, dtype=bf, seed=1)
+    v = _randn(dev, B, Sk, Hk, hd, dtype=bf, seed=2)
+    kw = {"causal": True, **kw}
+    n = tfa.launches
+    got, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches == n + 1
+    want, want_lse = ref.flash_attention(q, k, v, return_lse=True, **kw)
+    _close_attention(got, want, bf)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    if Sq > Sk and kw["causal"]:
+        assert got[:, :Sq - Sk].abs().max().item() == 0.0
+        assert torch.isinf(lse[:, :Sq - Sk]).all()
+
+
+def test_flash_attention_refuses_unaligned_bf16(dev):
+    """The tensor-core kernel copies 16 bytes at a time: a bf16 view whose
+    rows are not 16-byte aligned is refused, not read wrongly."""
+    x = _randn(dev, 1, 8, 3, 36, dtype=torch.bfloat16)
+    q = x[..., :32]                      # head stride 36 elements: 72 B
+    assert q.stride(2) * 2 % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(q, q, q)
 
 
 def test_flash_attention_reads_strided_inputs(dev):
@@ -98,7 +159,7 @@ def test_flash_attention_reads_strided_inputs(dev):
     got = tfa.flash_attention(q, k, v)
     want = ref.flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous())
-    torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
+    _close_attention(got, want, torch.bfloat16)
 
 
 def _scan_inputs(dev, B, S, di, ds, u_dtype, seed=0):
@@ -235,8 +296,9 @@ def _carry(dev, R, B, C, H, hd):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hop", [(0, 0, 0, 100), (100, 0, 0, 100),
-                                 (0, 0, 100, 100), (130, 0, 60, 37)])
+@pytest.mark.parametrize("hop", [(0, 0, 0, 100, 100), (100, 0, 0, 100, 100),
+                                 (0, 0, 100, 100, 100),
+                                 (130, 0, 60, 37, 100)])
 def test_ring_step_kernel_one_hop(dev, dtype, hop):
     """Self, past, wrap (fully masked) and ragged partial hops over a warm
     carry, one rank."""
@@ -244,7 +306,7 @@ def test_ring_step_kernel_one_hop(dev, dtype, hop):
     k = _randn(dev, 1, 2, 100, 2, 64, dtype=dtype, seed=1)
     v = _randn(dev, 1, 2, 100, 2, 64, dtype=dtype, seed=2)
     warm = ref.ring_step(q, k, v, *_carry(dev, 1, 2, 100, 8, 64),
-                         [(hop[0], 0, hop[0], 100)])
+                         [(hop[0], 0, hop[0], 100, 100)])
     n = tra.launches
     got = tra.ring_step(q, k, v, *warm, [hop])
     torch.cuda.synchronize()
@@ -271,9 +333,12 @@ def test_ring_kernels_over_a_ragged_ring(dev, dtype):
         carry = ref.ring_step(q, k, v, *carry, hops)
         for g, w in zip(got, carry):
             torch.testing.assert_close(g, w, **TOL[torch.float32])
+    # the pad rows past each chunk see no key (l = 0): o and lse as
+    # kernels/ops.py makes them, 0 and +inf there
     m, l, acc = carry
-    o = (acc / l).to(dtype)
-    lse = (m + torch.log(l))[..., 0].contiguous()
+    o = (acc / l.clamp_min(1e-30)).to(dtype)
+    lse = torch.where(l > 0, m + torch.log(l), torch.inf)[..., 0]
+    lse = lse.contiguous()
     do = _randn(dev, 3, 2, 70, 4, 32, dtype=dtype, seed=3)
     delta = (do.float() * o.float()).sum(-1)
     acc_k = [torch.zeros(t.shape, device=dev) for t in (q, k, v)]
@@ -286,7 +351,52 @@ def test_ring_kernels_over_a_ragged_ring(dev, dtype):
     torch.cuda.synchronize()
     assert tra.bwd_launches == n + 3
     for g, w in zip(acc_k, acc_r):
-        torch.testing.assert_close(g, w, **TOL[torch.float32])
+        _close_attention(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_backward_skips_pad_rows(dev, dtype):
+    """A ragged cp = 4 ring whose hops carry each rank's real q count
+    (q_valid < Cq on three ranks): the forward leaves the pad rows' empty
+    carry as it was, and with the pad rows' dout 0 (as ``unpad_chunks``
+    gives) the real rows' gradients equal those of the same hops with
+    q_valid = Cq within fp32 rounding (dq's atomics), while dq is exactly
+    0 on the pad rows."""
+    chunks = (130, 97, 72, 57)
+    R, B, C, H, Hk, hd = 4, 1, 130, 8, 2, 128
+    q = _randn(dev, R, B, C, H, hd, dtype=dtype)
+    k = _randn(dev, R, B, C, Hk, hd, dtype=dtype, seed=1)
+    v = _randn(dev, R, B, C, Hk, hd, dtype=dtype, seed=2)
+    tables = [tra.ring_hops(chunks, s) for s in range(R)]
+    assert all(h[4] == chunks[r] for t in tables for r, h in enumerate(t))
+    full = [[h[:4] + (C,) for h in t] for t in tables]
+    carry = _carry(dev, R, B, C, H, hd)
+    for t in tables:
+        carry = tra.ring_step(q, k, v, *carry, t)
+    m, l, acc = carry
+    for r, c in enumerate(chunks):
+        assert (m[r, :, c:] == ref.NEG_INF).all()
+        assert not l[r, :, c:].any() and not acc[r, :, c:].any()
+    o = (acc / l.clamp_min(1e-30)).to(dtype)
+    lse = torch.where(l > 0, m + torch.log(l), torch.inf)[..., 0]
+    lse = lse.contiguous()
+    do = _randn(dev, R, B, C, H, hd, dtype=dtype, seed=3)
+    for r, c in enumerate(chunks):
+        do[r, :, c:] = 0
+    delta = (do.float() * o.float()).sum(-1)
+    grads = {}
+    for name, tabs in (("q_valid", tables), ("full", full)):
+        acc3 = [torch.zeros(t.shape, device=dev) for t in (q, k, v)]
+        for t in tabs:
+            tra.ring_step_bwd(q, k, v, do, lse, delta, *acc3, t)
+        grads[name] = acc3
+    for g, w in zip(grads["q_valid"], grads["full"]):
+        for r, c in enumerate(chunks):
+            torch.testing.assert_close(g[r, :, :c], w[r, :, :c],
+                                       **TOL[torch.float32])
+    dq = grads["q_valid"][0]
+    for r, c in enumerate(chunks[1:], 1):
+        assert dq[r, :, c:].abs().max().item() == 0.0
 
 
 def test_ring_step_bwd_refuses_repeated_sources(dev):
@@ -295,7 +405,7 @@ def test_ring_step_bwd_refuses_repeated_sources(dev):
     acc = [torch.zeros(q.shape, device=dev) for _ in range(3)]
     with pytest.raises(ValueError, match="repeat"):
         tra.ring_step_bwd(q, q, q, q, lse, lse, *acc,
-                          [(0, 0, 0, 8), (8, 0, 0, 8)])
+                          [(0, 0, 0, 8, 8), (8, 0, 0, 8, 8)])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -345,12 +455,37 @@ def test_flash_backward_on_card(dev, dtype, B, Sq, Sk, H, Hk, hd, causal):
     want = torch.autograd.grad(ref.flash_attention(q, k, v, causal=causal),
                                (q, k, v), do)
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, **TOL[dtype])
+        _close_attention(g, w, dtype)
     with torch.no_grad():
         _, lse = tfa.flash_attention(q, k, v, causal=causal, return_lse=True)
         _, want_lse = ref.flash_attention(q, k, v, causal=causal,
                                           return_lse=True)
     torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk,hd", [
+    (1, 257, 257, 4, 2, 16),
+    (2, 257, 257, 4, 2, 32),
+    (1, 257, 257, 4, 2, 64),
+    (1, 257, 257, 8, 2, 128),
+    (1, 1000, 1000, 8, 2, 128),
+    (1, 100, 300, 4, 1, 64),             # Sq < Sk
+])
+def test_flash_backward_tensor_cores(dev, B, Sq, Sk, H, Hk, hd):
+    """The bf16 flash backward (one-rank ``ring_step_bwd`` on the tensor
+    cores) against autograd through the plain flash, at every head dim,
+    ragged and with the queries at the end of the keys."""
+    bf = torch.bfloat16
+    q = _randn(dev, B, Sq, H, hd, dtype=bf).requires_grad_()
+    k = _randn(dev, B, Sk, Hk, hd, dtype=bf, seed=1).requires_grad_()
+    v = _randn(dev, B, Sk, Hk, hd, dtype=bf, seed=2).requires_grad_()
+    do = _randn(dev, B, Sq, H, hd, dtype=bf, seed=3)
+    n = tra.bwd_launches
+    got = torch.autograd.grad(ops.flash_attention(q, k, v), (q, k, v), do)
+    assert tra.bwd_launches == n + 1
+    want = torch.autograd.grad(ref.flash_attention(q, k, v), (q, k, v), do)
+    for g, w in zip(got, want):
+        _close_attention(g, w, bf)
 
 
 def test_wrappers_refuse_inputs_that_need_grad_on_card(dev):

@@ -164,3 +164,17 @@ def test_cpu_dispatch_launches_no_kernel():
     q = torch.randn(1, 8, 2, 16)
     ops.flash_attention(q, q, q)
     assert (trn.launches, tsg.launches, tfa.launches) == before
+
+
+def test_tensor_core_kernels_refuse_unaligned_views():
+    """The bf16 kernels copy 16 bytes at a time: a view whose base or a
+    stride of a dimension longer than 1 is not on 16 bytes is refused."""
+    from repro_torch.kernels import build
+    x = torch.zeros(2, 8, 3, 40, dtype=torch.bfloat16)
+    build.require_aligned16("k", q=x[..., :32], k=x[:1])   # 80 B, 64 B
+    with pytest.raises(ValueError, match="16-byte"):
+        build.require_aligned16("k", q=torch.zeros(2, 8, 3, 36,
+                                                   dtype=torch.bfloat16)
+                                [..., :32])               # 72 B heads
+    with pytest.raises(ValueError, match="16-byte"):
+        build.require_aligned16("k", q=x.view(-1)[1:65].view(1, 64))

@@ -85,7 +85,7 @@ def test_ring_step_matches_pallas(q_start, k_start, k_valid, name):
                                  causal=True, sm_scale=1.0 / math.sqrt(hd))
     got = ops.ring_step(qt[None], kt[None], vt[None],
                         *(_t(w)[None] for w in warm),
-                        [(q_start, 0, k_start, k_valid)], causal=True)
+                        [(q_start, 0, k_start, k_valid, Cq)], causal=True)
     for g, p, w in zip(got, pallas, jnp_ref):
         assert g.dtype == torch.float32
         _close(g[0], p, _tol(name))
@@ -102,16 +102,18 @@ def test_ring_step_fully_masked_hop_is_noop():
                          (1, B, C, Hk, hd)))
     empty = (torch.full((1, B, C, H, 1), ref.NEG_INF),
              torch.zeros(1, B, C, H, 1), torch.zeros(1, B, C, H, hd))
-    state = ops.ring_step(q, k, v, *empty, [(0, 0, 0, C)])
-    after = ops.ring_step(q, k, v, *state, [(0, 0, C, C)])
+    state = ops.ring_step(q, k, v, *empty, [(0, 0, 0, C, C)])
+    after = ops.ring_step(q, k, v, *state, [(0, 0, C, C, C)])
     for a, b in zip(after, state):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
 def test_ring_step_rank_batched_matches_per_rank_folds():
-    """One batched call folds ring step s for every rank: it equals the
-    jnp fold run rank by rank on the source rank's KV block, for every
-    step of a ragged cp = 3 ring."""
+    """One batched call folds ring step s for every rank: on each rank's
+    real rows it equals the jnp fold run rank by rank on the source
+    rank's KV block, for every step of a ragged cp = 3 ring.  The pad rows
+    past a rank's chunk (its ``q_valid``), which JAX folds and drops, see
+    no key and keep the empty carry exactly."""
     chunks = (40, 31, 25)
     cp, cmax, B, H, Hk, hd = 3, 40, 2, 4, 2, 32
     starts = tra.chunk_starts(chunks)
@@ -126,15 +128,81 @@ def test_ring_step_rank_batched_matches_per_rank_folds():
         hops = tra.ring_hops(chunks, s)
         assert [h[1] for h in hops] == [(r - s) % cp for r in range(cp)]
         tstate = ops.ring_step(qt, kt, vt, *tstate, hops)
-        for r, (q_start, src, k_start, k_valid) in enumerate(hops):
+        for r, (q_start, src, k_start, k_valid, q_valid) in enumerate(hops):
             assert q_start == starts[r] and k_valid == chunks[src]
+            assert q_valid == chunks[r]
             jstate[r] = jra._ring_step_ref(
                 qj[r], kj[src], vj[src], *jstate[r], q_start=q_start,
                 k_start=k_start, k_valid=k_valid, causal=True,
                 sm_scale=1.0 / math.sqrt(hd))
-        for r in range(cp):
+        for r, c in enumerate(chunks):
             for g, w in zip(tstate, jstate[r]):
-                _close(g[r], w, _tol("float32"))
+                _close(g[r][:, :c], w[:, :c], _tol("float32"))
+            m, l, acc = (t[r][:, c:] for t in tstate)
+            assert (m == ref.NEG_INF).all() and not l.any() and not acc.any()
+
+
+# ------------------------------------------- real rows of a hop table ----
+@pytest.mark.parametrize("chunks", [(40, 31, 25), (1, 94, 1), (48, 48)])
+def test_ring_hops_carry_each_ranks_real_rows(chunks):
+    """Every hop of every ring step carries the visiting chunk's real key
+    count and the rank's own real q count: q_valid = the rank's chunk."""
+    starts = tra.chunk_starts(chunks)
+    for s in range(len(chunks)):
+        for r, (q_start, src, k_start, k_valid, q_valid) in enumerate(
+                tra.ring_hops(chunks, s)):
+            assert (q_start, k_start) == (starts[r], starts[src])
+            assert (k_valid, q_valid) == (chunks[src], chunks[r])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_plain_hops_skip_pad_rows_and_keep_real_rows(direction, causal):
+    """The plain hop and its VJP with each rank's q_valid give the real
+    rows of the same hops with q_valid = Cq.  The pad rows see no key: the
+    forward leaves their empty carry as it was, and (with dout 0 there, as
+    ``unpad_chunks``' gradient gives) the backward gives them dq = 0."""
+    chunks = (40, 31, 25)
+    cp, C, B, H, Hk, hd = 3, 40, 2, 4, 2, 16
+    g = torch.Generator().manual_seed(7)
+    q, k, v, do = (torch.randn(cp, B, C, h, hd, generator=g)
+                   for h in (H, Hk, Hk, H))
+    for r, c in enumerate(chunks):
+        do[r, :, c:] = 0
+    tables = [tra.ring_hops(chunks, s) for s in range(cp)]
+    full = [[h[:4] + (C,) for h in t] for t in tables]
+    empty = (torch.full((cp, B, C, H, 1), ref.NEG_INF),
+             torch.zeros(cp, B, C, H, 1), torch.zeros(cp, B, C, H, hd))
+    carries = {}
+    for name, tabs in (("q_valid", tables), ("full", full)):
+        carry = empty
+        for t in tabs:
+            carry = ref.ring_step(q, k, v, *carry, t, causal=causal)
+        carries[name] = carry
+    if direction == "forward":
+        for got, want, e in zip(carries["q_valid"], carries["full"], empty):
+            for r, c in enumerate(chunks):
+                torch.testing.assert_close(got[r, :, :c], want[r, :, :c],
+                                           rtol=0, atol=0)
+                assert torch.equal(got[r, :, c:], e[r, :, c:])
+        return
+    m, l, acc = carries["q_valid"]
+    o = acc / l.clamp_min(1e-30)
+    lse = torch.where(l > 0, m + torch.log(l), torch.inf)[..., 0]
+    delta = (do * o).sum(-1)
+    grads = {}
+    for name, tabs in (("q_valid", tables), ("full", full)):
+        acc3 = [torch.zeros(t.shape) for t in (q, k, v)]
+        for t in tabs:
+            ref.ring_step_bwd(q, k, v, do, lse, delta, *acc3, t,
+                              causal=causal)
+        grads[name] = acc3
+    for got, want in zip(grads["q_valid"], grads["full"]):
+        for r, c in enumerate(chunks):
+            torch.testing.assert_close(got[r, :, :c], want[r, :, :c],
+                                       **_tol("float32"))
+    for r, c in enumerate(chunks):
+        assert not grads["q_valid"][0][r, :, c:].any()
 
 
 # ----------------------------------------------------------- the ring ----
@@ -264,7 +332,7 @@ def _wrapper_calls():
         "swiglu": (tsg.swiglu, (x, x)),
         "swiglu_bwd": (tsg.swiglu_bwd, (x, x, x)),
         "flash_attention": (tfa.flash_attention, (q, q, q)),
-        "ring_step": (lambda *a: tra.ring_step(*a, [(0, 0, 0, 8)]),
+        "ring_step": (lambda *a: tra.ring_step(*a, [(0, 0, 0, 8, 8)]),
                       (r, r, r, m, m, r)),
         "ssm_scan": (tss.ssm_scan, (u, u, bc, bc, torch.randn(16, 4))),
     }

@@ -7,21 +7,26 @@ Phases, each raising on failure so the script exits non-zero:
   1. card     nvidia-smi name and power limit, torch's device name
   2. build    the Hopper kernels from ``src/repro_torch/kernels/csrc``;
               nvcc -Xptxas -v's lines for the bf16 tensor-core kernels
-              (flash forward, ring_step_bwd), and their registers, spill
-              bytes, dynamic shared memory and resident blocks per SM as
-              the card reports them
+              (flash forward, ring_step forward and backward) and the
+              selective scan, and their registers, spill bytes, dynamic
+              shared memory and resident blocks per SM as the card reports
+              them
   3. kernels  each kernel against its plain PyTorch version on the card at
               the main paths' shapes (bf16 tol 2e-2, fp32 tol 2e-5, the
-              selective scan 2e-4 in y and its last state), timed beside
-              the plain version and one library call where there is one;
-              the flash forward also at the reference training route's
-              B1 S4096, beside SDPA; the training kernels (ring_step,
-              ring_step_bwd, rmsnorm_bwd, swiglu_bwd, the flash backward
-              and its lse) at the training shapes: the cp ring's, and B1
-              S4096 for the flash backward.  bf16 attention (the tensor
-              cores take P and dS as bf16, the plain versions keep them in
-              fp32) is also held by each output's norm-relative error
-              (REL_TOL), read beside SDPA's and two controls'
+              selective scan 2e-4 in y and its last state), timed with CUDA
+              events beside the plain version and one library call where
+              there is one;
+              rmsnorm also at a decode step's 8 rows, the scan at each
+              prefill length of the trace (S 128, 500, 1000); the flash
+              forward also at the reference training route's B1 S4096,
+              beside SDPA; the training kernels (ring_step, ring_step_bwd,
+              rmsnorm_bwd, swiglu_bwd, the flash backward and its lse) at
+              the training shapes: the cp ring's, and B1 S4096 for the
+              flash backward.  bf16 attention (the tensor cores take P and
+              dS as bf16 operands, P of the ring hop as a hi + lo pair; the
+              plain versions keep them in fp32) is also held by each
+              output's norm-relative error (REL_TOL), read beside SDPA's
+              and the controls'
   4. model    llama3-8b and falcon-mamba-7b SMOKE in fp32: the kernels on
               the card against the plain versions on the CPU through
               forward/prefill/the cache/decode
@@ -39,8 +44,13 @@ Phases, each raising on failure so the script exits non-zero:
               of the reference route, each with finite losses, exact launch
               counts, its step times, tokens/s and peak memory; the two
               step-0 losses agree within 2e-2
+  7. device   every timed row's device time from a torch.profiler trace,
+              in a child process of this script (``--device-times``), so
+              that the profiler never slows the launches of this one
 Then one JSON line with every kernel (launches summed over the serve and
-train runs), the card line, and the last line
+train runs; rmsnorm has a second row at its decode shape, which takes the
+launches made inside decode steps, the first row the rest; the scan's row
+is its S1000 timing), the card line, and the last line
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
 check and timing there as JSON.  Imports nothing of JAX.
 """
@@ -68,6 +78,8 @@ PEAKS = {  # marker: (bytes/s, bf16 tensor FLOP/s, fp32 FLOP/s)
 # An SM issues 16 special-function results (exp2, rcp, ...) per clock
 # against 128 fp32 FMAs (256 FLOP), so their peak is fp32 FLOP/s / 16.
 SFU_PER_FP32_FLOP = 1 / 16
+# the device kernels behind the rmsnorm wrapper (block- and warp-per-row)
+RMSNORM_KERNELS = ("rmsnorm_block_kernel", "rmsnorm_warp_kernel")
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 FP32_TOL = dict(rtol=2e-5, atol=2e-5)
 # bf16 attention on the tensor cores takes P (and, backward, dS) as bf16
@@ -81,6 +93,8 @@ REL_TOL = 1e-2
 # another order than the plain loop's (tests/test_kernels.py:102-103)
 SCAN_TOL = dict(rtol=2e-4, atol=2e-4)
 SERVE_ARCHS = ("llama3-8b", "falcon-mamba-7b")
+# the prompt lengths of the serve trace: each Mamba prefill scans one
+SCAN_SEQS = (128, 500, 1000)
 # model-level fp32 tolerance: two layers of matmuls summed in other orders
 # on the CPU and the card, then a 256-way unembed
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -129,15 +143,24 @@ def _reading(readings, kernel, case, what, got, want):
 def _without_key_tile(torch, ref, q, k, v, lo: int, hi: int):
     """The plain fold of one rank (a leading rank axis of 1) over keys
     [0, lo) and [hi, S): the causal forward with key tile [lo, hi) left
-    out, as (o, the fold's carry)."""
+    out, as o."""
     R, B, S, H, hd = q.shape
-    carry = (torch.full((R, B, S, H, 1), ref.NEG_INF, device=q.device),
+    empty = (torch.full((R, B, S, H, 1), ref.NEG_INF, device=q.device),
              torch.zeros((R, B, S, H, 1), device=q.device),
              torch.zeros((R, B, S, H, hd), device=q.device))
-    for a, b in ((0, lo), (hi, S)):
-        carry = ref.ring_step(q, k[:, :, a:b], v[:, :, a:b], *carry,
-                              [(0, 0, a, b - a, S)])
-    return (carry[2] / carry[1]).to(q.dtype)
+    _, l, acc = _hop_without_key_tile(ref, q, k, v, empty,
+                                      [(0, 0, 0, S, S)], lo, hi)
+    return (acc / l).to(q.dtype)
+
+
+def _hop_without_key_tile(ref, q, k, v, carry, hops, lo: int, hi: int):
+    """The plain fold of one ring step with keys [lo, hi) of every
+    visiting block left out."""
+    for a, b in ((0, lo), (hi, k.shape[2])):
+        sub = [(qs, src, ks + a, max(0, min(kv, b) - a), qv)
+               for qs, src, ks, kv, qv in hops]
+        carry = ref.ring_step(q, k[:, :, a:b], v[:, :, a:b], *carry, sub)
+    return carry
 
 
 def _bwd_without_key_tile(torch, ref, q, k, v, do, lse, delta, lo: int,
@@ -150,22 +173,6 @@ def _bwd_without_key_tile(torch, ref, q, k, v, do, lse, delta, lo: int,
         ref.ring_step_bwd(q, k[:, :, a:b], v[:, :, a:b], do, lse, delta, dq,
                           dk[:, :, a:b], dv[:, :, a:b], [(0, 0, a, b - a, S)])
     return dq, dk, dv
-
-
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around ``iters``
-    back-to-back calls (inputs stay in L2, as the main path's do)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # ------------------------------------------------------------- phase 1 ---
@@ -182,15 +189,19 @@ def phase_card(torch):
 
 
 # ------------------------------------------------------------- phase 2 ---
-# the bf16 tensor-core kernels: C function reporting their attributes
+# the bf16 tensor-core kernels (by head dim) and the selective scan (by
+# u's dtype code): the C function reporting their attributes
 TC_KERNELS = {"flash_fwd_mma_kernel": "flash_attention_fwd_attrs",
+              "ring_fwd_mma_kernel": "ring_step_fwd_attrs",
               "ring_bwd_mma_kernel": "ring_step_bwd_attrs"}
+SCAN_KERNEL = ("ssm_scan_kernel", "ssm_scan_attrs")
 
 
 def phase_build():
-    """Build; log ptxas' lines for the tensor-core kernels, and each one's
-    registers, spill bytes, dynamic shared memory and resident blocks per
-    SM at every head dim, from the card."""
+    """Build; log ptxas' lines for the tensor-core kernels and the scan,
+    and each one's registers, spill bytes, dynamic shared memory and
+    resident blocks per SM (at every head dim; the scan for bf16 and fp32
+    u), from the card."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     t0 = time.perf_counter()
@@ -200,24 +211,31 @@ def phase_build():
     show = False
     for line in build.ptxas_log.splitlines():
         if "Compiling entry function" in line:
-            show = any(k in line for k in TC_KERNELS)
+            show = any(k in line for k in (*TC_KERNELS, SCAN_KERNEL[0]))
         if show and ("entry function" in line or "Used" in line
                      or "spill" in line):
             log(f"[build]   {line.strip()}")
+    variants = [(kernel, fn, hd, f"hd{hd}", "(bf16, as launched)")
+                for kernel, fn in TC_KERNELS.items() for hd in HEAD_DIMS]
+    variants += [(*SCAN_KERNEL, code, f"u {dt}", "(as the prefill launches it)")
+                 for dt, code in (("bf16", 1), ("fp32", 0))]
     attrs = {}
-    for kernel, fn in TC_KERNELS.items():
-        for hd in HEAD_DIMS:
-            a = build.kernel_attrs(fn, hd)
-            attrs[f"{kernel} hd{hd}"] = a
-            log(f"[build]   {kernel} hd{hd} (bf16, as launched): "
-                f"{a['registers']} registers, {a['spill_bytes']} B local, "
-                f"{a['smem_bytes']} B dynamic shared, "
-                f"{a['blocks_per_sm']} blocks/SM")
+    for kernel, fn, arg, key, how in variants:
+        a = build.kernel_attrs(fn, arg)
+        attrs[f"{kernel} {key}"] = a
+        log(f"[build]   {kernel} {key} {how}: "
+            f"{a['registers']} registers, {a['spill_bytes']} B local, "
+            f"{a['smem_bytes']} B dynamic shared, "
+            f"{a['blocks_per_sm']} blocks/SM")
     return secs, {"attrs": attrs}
 
 
 # ------------------------------------------------------------- phase 3 ---
-def phase_kernels(torch, dev, name):
+def phase_kernels(torch, dev, name, device_only=False):
+    """The serving path's kernels on the card against their plain
+    versions, then timed with CUDA events; with ``device_only`` (phase 7's
+    child process) the same checks, then each row's profiler device time
+    alone."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -225,6 +243,7 @@ def phase_kernels(torch, dev, name):
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels import swiglu as sg
+    from repro_torch.utils.timing import device_ms, event_ms
 
     bw, bf16_peak, fp32_peak = peaks(name)
     gen = torch.Generator(device=dev)
@@ -310,19 +329,24 @@ def phase_kernels(torch, dev, name):
     pairs = S * (S + 1) // 2
     bytes_ms = (2 * S * H * hd + 2 * S * Hk * hd) * 2 / bw * 1e3
     ops_ms = 4 * pairs * hd * H / bf16_peak * 1e3
-    fwd4096 = {
-        "shape": f"B1 S{S} H32 Hk8 hd128 causal bf16", "max_abs_err": err,
-        "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v)),
-        "plain_ms": time_ms(torch, lambda: ref.flash_attention(q, k, v),
-                            iters=3, warmup=1),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))}
-    log(f"[kernels] time flash_attention  {fwd4096['shape']}: kernel "
-        f"{fwd4096['ms']:.4f} ms, plain {fwd4096['plain_ms']:.4f} ms, "
-        f"library {fwd4096['library_ms']:.4f} ms, bound "
-        f"{fwd4096['bound_ms']:.4f} ms ({fwd4096['bound_by']})")
+    if device_only:
+        fwd4096 = {"device_ms": device_ms(lambda: fa.flash_attention(q, k, v),
+                                          ("flash_fwd",))}
+    else:
+        fwd4096 = {
+            "shape": f"B1 S{S} H32 Hk8 hd128 causal bf16",
+            "max_abs_err": err,
+            "ms": event_ms(lambda: fa.flash_attention(q, k, v)),
+            "plain_ms": event_ms(lambda: ref.flash_attention(q, k, v),
+                                 iters=3, warmup=1),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))}
+        log(f"[kernels] time flash_attention  {fwd4096['shape']}: kernel "
+            f"{fwd4096['ms']:.4f} ms, plain {fwd4096['plain_ms']:.4f} ms, "
+            f"library {fwd4096['library_ms']:.4f} ms, bound "
+            f"{fwd4096['bound_ms']:.4f} ms ({fwd4096['bound_by']})")
     del q, k, v, qt, kt, vt
 
     # ssm_scan, y and the last state: the prefill's shape (d_inner 8192,
@@ -353,8 +377,20 @@ def phase_kernels(torch, dev, name):
     pairs = S * (S + 1) // 2          # visible (q, k) pairs, causal
     el = 2                            # bf16 bytes
     di, ds = 8192, 16
-    scan = scan_inputs(1, S, di, ds, bf)
-    states = S * di * ds              # (t, d, n) state updates, one exp each
+    scans = {S_: scan_inputs(1, S_, di, ds, bf) for S_ in SCAN_SEQS}
+    xd = randn(8, 4096, dtype=bf)     # a decode step's rows
+
+    def scan_cost(S_):
+        """Bytes and operations of one scan of S_ steps: u (bf16), dt and
+        y (fp32) per (t, d); B, C per (t, n); A and the last state per
+        (d, n); 6 fp32 FLOP per (t, d, n) state update (dt*A, decay*h,
+        du*B, the add, h*C, the sum) and one exp on the special-function
+        units."""
+        states = S_ * di * ds
+        return (S_ * di * (el + 4 + 4) + 2 * S_ * ds * 4 + 2 * di * ds * 4,
+                [(6 * states + S_ * di, fp32_peak),
+                 (states, fp32_peak * SFU_PER_FP32_FLOP)])
+
     rows = {
         "rmsnorm": dict(
             source="src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -363,15 +399,29 @@ def phase_kernels(torch, dev, name):
             fn=lambda: rn.rmsnorm(x, s, 1e-5),
             plain=lambda: ref.rmsnorm(x, s, 1e-5),
             library=lambda: F.rms_norm(x, (4096,), s, 1e-5),
+            kernels=RMSNORM_KERNELS,
             bytes=2 * 1000 * 4096 * el + 4096 * el,
             ops=[(4 * 1000 * 4096, fp32_peak)]),
+        # the same kernel at a decode step's 8 rows, where most of its
+        # launches run
+        "rmsnorm decode": dict(
+            name="rmsnorm",
+            source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm.py:19",
+            shape="x (8, 4096) bf16",
+            fn=lambda: rn.rmsnorm(xd, s, 1e-5),
+            plain=lambda: ref.rmsnorm(xd, s, 1e-5),
+            library=lambda: F.rms_norm(xd, (4096,), s, 1e-5),
+            kernels=RMSNORM_KERNELS,
+            bytes=2 * 8 * 4096 * el + 4096 * el,
+            ops=[(4 * 8 * 4096, fp32_peak)]),
         "swiglu": dict(
             source="src/repro_torch/kernels/csrc/swiglu.cu",
             replaces="src/repro/kernels/swiglu.py:16",
             shape="g, u (1000, 14336) bf16 -> bf16",
             fn=lambda: sg.swiglu(g, u, bf),
             plain=lambda: ref.swiglu(g, u, bf),
-            library=None,
+            library=None, kernels=("swiglu_kernel",),
             bytes=3 * 1000 * 14336 * el,
             ops=[(8 * 1000 * 14336, fp32_peak)]),
         "flash_attention": dict(
@@ -382,37 +432,41 @@ def phase_kernels(torch, dev, name):
             plain=lambda: ref.flash_attention(q, k, v, causal=True),
             library=lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True),
+            kernels=("flash_fwd",),
             bytes=(2 * S * H * hd + 2 * S * Hk * hd) * el,
             ops=[(4 * pairs * hd * H, bf16_peak)]),
-        "ssm_scan": dict(
+    }
+    # the scan at each prefill length of the serve trace; the longest is
+    # the kernel's row
+    for S_ in SCAN_SEQS:
+        nbytes, ops = scan_cost(S_)
+        rows[f"ssm_scan S{S_}"] = dict(
+            name="ssm_scan",
             source="src/repro_torch/kernels/csrc/ssm_scan.cu",
             replaces="src/repro/kernels/ssm_scan.py:46",
-            shape="B1 S1000 di8192 ds16, u bf16, dt/B/C/A fp32",
-            fn=lambda: ss.ssm_scan(*scan),
-            plain=lambda: ref.ssm_scan(*scan),
-            library=None,
-            # u (bf16), dt and y (fp32) per (t, d); B, C per (t, n); A and
-            # the last state per (d, n)
-            bytes=S * di * (el + 4 + 4) + 2 * S * ds * 4 + 2 * di * ds * 4,
-            # 6 fp32 FLOP per state update (dt*A, decay*h, du*B, the add,
-            # h*C, the sum) and one exp on the special-function units
-            ops=[(6 * states + S * di, fp32_peak),
-                 (states, fp32_peak * SFU_PER_FP32_FLOP)]),
-    }
+            shape=f"B1 S{S_} di8192 ds16, u bf16, dt/B/C/A fp32",
+            fn=lambda a=scans[S_]: ss.ssm_scan(*a),
+            plain=lambda a=scans[S_]: ref.ssm_scan(*a),
+            library=None, kernels=("ssm_scan_kernel",), bytes=nbytes,
+            ops=ops, line=S_ == max(SCAN_SEQS))
     timed = {}
     for kname, r in rows.items():
+        if device_only:
+            timed[kname] = {"device_ms": device_ms(r["fn"], r["kernels"])}
+            continue
         bytes_ms = r["bytes"] / bw * 1e3
         ops_ms = max(n / peak for n, peak in r["ops"]) * 1e3
         err = _max_err(r["fn"](), r["plain"]())
         timed[kname] = {
-            "name": kname, "route": "cuda", "source": r["source"],
+            "name": r.get("name", kname), "line": r.get("line", True),
+            "route": "cuda", "source": r["source"],
             "replaces": r["replaces"], "shape": r["shape"],
             "max_abs_err": err,
-            "ms": time_ms(torch, r["fn"]),
-            "plain_ms": time_ms(torch, r["plain"]),
+            "ms": event_ms(r["fn"]),
+            "plain_ms": event_ms(r["plain"]),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": (time_ms(torch, r["library"])
+            "library_ms": (event_ms(r["library"])
                            if r["library"] else None),
         }
         t = timed[kname]
@@ -438,9 +492,10 @@ def _visible_pairs(chunks, step: int):
     return out
 
 
-def phase_train_kernels(torch, dev, name):
+def phase_train_kernels(torch, dev, name, device_only=False):
     """The training path's kernels on the card against their plain
-    versions, at the cp training shapes, then timed."""
+    versions, at the cp training shapes, then timed (``device_only``: as
+    in phase_kernels)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -448,6 +503,7 @@ def phase_train_kernels(torch, dev, name):
     from repro_torch.kernels import ring_attention as ra
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import swiglu as sg
+    from repro_torch.utils.timing import device_ms, event_ms
 
     bw, bf16_peak, fp32_peak = peaks(name)
     gen = torch.Generator(device=dev)
@@ -489,13 +545,20 @@ def phase_train_kernels(torch, dev, name):
     q = randn(cp, B, C, H, hd, dtype=bf)
     k, v = randn(cp, B, C, Hk, hd, dtype=bf), randn(cp, B, C, Hk, hd,
                                                     dtype=bf)
+    # (the tensor cores take P as a bf16 hi + lo pair: BF16_TOL and
+    # REL_TOL on each of m, l and acc), beside a control: the plain fold of
+    # the diagonal step with key tile 1 (keys 64-127) left out
     carry = empty_carry(cp, B, C, H, hd)
     for step in range(cp):
         hops = ra.ring_hops(CP_CHUNKS, step)
         got = ra.ring_step(q, k, v, *carry, hops)
         want = ref.ring_step(q, k, v, *carry, hops)
-        compare("ring_step", f"cp4 {CP_CHUNKS} step {step} bf16", got, want,
-                BF16_TOL)
+        case = f"cp4 {CP_CHUNKS} step {step} bf16"
+        compare("ring_step", case, got, want, BF16_TOL, rel=True)
+        if step == 0:
+            _reading(readings, "ring_step", case, "control: key tile 1 out",
+                     _hop_without_key_tile(ref, q, k, v, carry, hops, 64,
+                                           128), want)
         carry = want
     m_fin, l_fin, acc_fin = carry
     # one hop in fp32: a ragged partial block over a warm carry, then a
@@ -678,7 +741,7 @@ def phase_train_kernels(torch, dev, name):
             shape=f"cp4 chunks {'/'.join(map(str, CP_CHUNKS))} B1 H32 Hk8 "
                   "hd128 bf16, fp32 carry; per launch, mean of the 4 steps",
             fn=ring_all(ra.ring_step), plain=ring_all(ref.ring_step),
-            per_call=cp, library=None,
+            per_call=cp, library=None, kernels=("ring_fwd",),
             bytes=ring_bytes / cp, ops=[(ring_ops / cp, bf16_peak)],
             err=max(c["max_abs_err"] for c in checks
                     if c["kernel"] == "ring_step")),
@@ -692,7 +755,7 @@ def phase_train_kernels(torch, dev, name):
                                         flash_hop),
             plain=lambda: ref.ring_step_bwd(qf, kf, vf, dof, lsef, dlf,
                                             *bwd_acc, flash_hop),
-            per_call=1,
+            per_call=1, kernels=("ring_bwd",),
             library=lambda: torch.autograd.grad(
                 sdpa_out, (qt, kt, vt), do_t, retain_graph=True),
             bytes=(2 * S * H * hd + 2 * S * Hk * hd) * el + 2 * S * H * f4
@@ -706,6 +769,7 @@ def phase_train_kernels(torch, dev, name):
             shape=f"x, dy ({S}, 4096) bf16 -> dx bf16, dscale fp32",
             fn=lambda: rn.rmsnorm_bwd(x, sc, dy, 1e-5),
             plain=lambda: ref.rmsnorm_bwd(x, sc, dy, 1e-5), per_call=1,
+            kernels=("rmsnorm_bwd_kernel", "column_sum_kernel"),
             library=lambda: torch.autograd.grad(rms_out, (xr, sr), dy,
                                                 retain_graph=True),
             bytes=3 * S * 4096 * el + 4096 * (el + f4),
@@ -719,6 +783,7 @@ def phase_train_kernels(torch, dev, name):
             shape=f"g, u, dh ({S}, 14336) bf16 -> dg, du bf16",
             fn=lambda: sg.swiglu_bwd(g, u, dh),
             plain=lambda: ref.swiglu_bwd(g, u, dh), per_call=1, library=None,
+            kernels=("swiglu_bwd_kernel",),
             bytes=5 * S * 14336 * el,
             ops=[(12 * S * 14336, fp32_peak),
                  (S * 14336, fp32_peak * SFU_PER_FP32_FLOP)],
@@ -727,18 +792,22 @@ def phase_train_kernels(torch, dev, name):
     }
     timed = {}
     for kname, r in rows.items():
+        n = r["per_call"]
+        if device_only:
+            timed[kname] = {"device_ms": device_ms(r["fn"], r["kernels"]) / n}
+            continue
         bytes_ms = r["bytes"] / bw * 1e3
         ops_ms = max(n / peak for n, peak in r["ops"]) * 1e3
-        n = r["per_call"]
         timed[kname] = {
-            "name": kname, "route": "cuda", "source": r["source"],
+            "name": kname, "line": True, "route": "cuda",
+            "source": r["source"],
             "replaces": r["replaces"], "shape": r["shape"],
             "max_abs_err": r["err"],
-            "ms": time_ms(torch, r["fn"]) / n,
-            "plain_ms": time_ms(torch, r["plain"], iters=3, warmup=1) / n,
+            "ms": event_ms(r["fn"]) / n,
+            "plain_ms": event_ms(r["plain"], iters=3, warmup=1) / n,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": (time_ms(torch, r["library"])
+            "library_ms": (event_ms(r["library"])
                            if r["library"] else None),
         }
         t = timed[kname]
@@ -757,9 +826,15 @@ def phase_train_kernels(torch, dev, name):
         bwd_bytes += 2 * rows * (H + 2 * Hk) * hd * f4
         bwd_ops += sum(10 * n_ * B * H * hd for n_ in per_rank)
     acc3 = zeros_like_qkv()
-    cp_bwd_ms = time_ms(torch, lambda: [
-        ra.ring_step_bwd(q, k, v, do, lse, delta, *acc3, t)
-        for t in tables]) / cp
+
+    def cp_bwd():
+        return [ra.ring_step_bwd(q, k, v, do, lse, delta, *acc3, t)
+                for t in tables]
+
+    if device_only:
+        return checks, timed, {"ring_step_bwd_cp4_per_launch_device_ms":
+                               device_ms(cp_bwd, ("ring_bwd",)) / cp}
+    cp_bwd_ms = event_ms(cp_bwd) / cp
     cp_bwd_bound = max(bwd_bytes / cp / bw, bwd_ops / cp / bf16_peak) * 1e3
     extra = {"ring_step_bwd_cp4_per_launch_ms": cp_bwd_ms,
              "ring_step_bwd_cp4_bound_ms": cp_bwd_bound,
@@ -839,9 +914,20 @@ def phase_serve(torch, dev, arch):
     reqs = scripted_trace(16, vocab_size=cfg.vocab_size, seed=0,
                           prompt_lens=(128, 500, 1000),
                           gen_lens=(16, 32, 64), arrival_every=1)
-    # the timed engine runs the plain bundle; the logits are checked for
-    # finiteness on the untimed decode_sequential pass below
-    eng = ServeEngine(base, params, max_batch=8, max_len=2048, device=dev)
+    # the timed engine runs the plain bundle, its decode steps' launches
+    # counted apart (two reads of the counters a step); the logits are
+    # checked for finiteness on the untimed decode_sequential pass below
+    decode_launches = dict.fromkeys(ops.LAUNCH_COUNTERS, 0)
+
+    def counted_decode(*a):
+        before = ops.launch_counts()
+        out = base.decode_step(*a)
+        for kname, n in ops.launch_counts().items():
+            decode_launches[kname] += n - before[kname]
+        return out
+
+    eng = ServeEngine(dataclasses.replace(base, decode_step=counted_decode),
+                      params, max_batch=8, max_len=2048, device=dev)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     report = eng.run(reqs)
@@ -862,6 +948,11 @@ def phase_serve(torch, dev, arch):
                       flash_attention=L * len(reqs))
     log(f"[serve] {arch} launches {launches} expected {expect}")
     assert launches == expect, (launches, expect)
+    per_step = L + 1 if cfg.family == "ssm" else 2 * L + 1
+    log(f"[serve] {arch} rmsnorm launches in decode steps "
+        f"{decode_launches['rmsnorm']} expected "
+        f"{per_step * report.decode_steps}")
+    assert decode_launches["rmsnorm"] == per_step * report.decode_steps
 
     def finite(fn, where):
         def call(*a):
@@ -891,6 +982,7 @@ def phase_serve(torch, dev, arch):
         "arch": arch, "params": n_params,
         **report.to_dict(), "prefills": len(reqs), "wall_s": wall,
         "init_s": init_s, "launches": launches, "expected_launches": expect,
+        "decode_launches": decode_launches,
         "decode_agree": [agree, n_dec], "streams_equal": [full_equal,
                                                           len(reqs)],
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
@@ -996,6 +1088,42 @@ def phase_train(torch, dev, route: str):
     return summary, launches
 
 
+# ------------------------------------------------------------- phase 7 ---
+def phase_device_times(torch):
+    """Each timed row's device time from a torch.profiler trace, taken in
+    a child process (``--device-times``): once CUPTI has traced a process
+    its later kernel launches stay slower, so the profiler never runs in
+    this one, whose serve and train phases are bound by the host."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--device-times"], capture_output=True, text=True,
+                       timeout=900)
+    if r.returncode != 0:
+        print(r.stdout[-8000:], r.stderr[-8000:], sep="\n", file=sys.stderr)
+        raise RuntimeError(f"device-time child exited {r.returncode}")
+    times = json.loads(r.stdout.strip().splitlines()[-1])
+    log(f"[device] profiler child: {time.perf_counter() - t0:.1f} s")
+    return times
+
+
+def device_times_main(torch, dev) -> int:
+    """The child of phase 7: phase 3's checks and rows again, each row's
+    profiler device time alone, as one JSON line."""
+    name = torch.cuda.get_device_name(dev)
+    _, timed, extra = phase_kernels(torch, dev, name, device_only=True)
+    _, train_timed, train_extra = phase_train_kernels(torch, dev, name,
+                                                      device_only=True)
+    timed.update(train_timed)
+    times = {k: t["device_ms"] for k, t in timed.items()}
+    times["flash_attention_S4096"] = extra["flash_attention_S4096"][
+        "device_ms"]
+    times.update(train_extra)
+    print(json.dumps(times))
+    return 0
+
+
 def _leaves(node):
     if isinstance(node, dict):
         for v in node.values():
@@ -1009,6 +1137,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=Path, default=None,
                     help="also write the checks and timings here as JSON")
+    ap.add_argument("--device-times", action="store_true",
+                    help="phase 7's child: print the rows' profiler device "
+                         "times as one JSON line, and nothing else runs")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -1026,6 +1157,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
+    if args.device_times:
+        return device_times_main(torch, dev)
     from repro_torch.kernels.ops import LAUNCH_COUNTERS
 
     smi, name = phase_card(torch)
@@ -1043,6 +1176,10 @@ def main(argv=None) -> int:
         serve[arch], counts = phase_serve(torch, dev, arch)
         for kname, n in counts.items():
             launches[kname] += n
+    # rmsnorm's two rows: its launches inside decode steps (8 rows or
+    # fewer), and the rest (prefills and training)
+    decode_rms = sum(serve[a]["decode_launches"]["rmsnorm"]
+                     for a in SERVE_ARCHS)
     train_parity = phase_train_parity(torch, dev)
     train = {}
     for route in ("cp", "reference"):
@@ -1053,6 +1190,17 @@ def main(argv=None) -> int:
     log(f"[train] step-0 loss cp {l_cp} vs reference {l_ref}: "
         f"diff {abs(l_cp - l_ref):.3e} (tol {TRAIN_LOSS_TOL})")
     assert abs(l_cp - l_ref) < TRAIN_LOSS_TOL, (l_cp, l_ref)
+    device = phase_device_times(torch)
+    for kname, t in timed.items():
+        t["device_ms"] = device[kname]
+        log(f"[device] {kname:15s} {t['shape']}: device "
+            f"{t['device_ms']:.4f} ms (events {t['ms']:.4f} ms)")
+    extra["flash_attention_S4096"]["device_ms"] = device[
+        "flash_attention_S4096"]
+    extra["ring_step_bwd_cp4_per_launch_device_ms"] = device[
+        "ring_step_bwd_cp4_per_launch_device_ms"]
+    row_launches = {"rmsnorm": launches["rmsnorm"] - decode_rms,
+                    "rmsnorm decode": decode_rms}
 
     worst = {}
     for c in checks:
@@ -1060,9 +1208,12 @@ def main(argv=None) -> int:
                                  c["max_abs_err"])
     line = []
     for kname, t in timed.items():
+        if not t["line"]:
+            continue
         line.append({k: t[k] for k in (
-            "name", "route", "source", "replaces")}
-            | {"launches": launches[kname], "max_abs_err": t["max_abs_err"],
+            "name", "route", "source", "replaces", "shape")}
+            | {"launches": row_launches.get(kname, launches[t["name"]]),
+               "max_abs_err": t["max_abs_err"], "device_ms": t["device_ms"],
                "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                "library_ms": t["library_ms"]})

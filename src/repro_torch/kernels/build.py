@@ -61,6 +61,8 @@ _SIGNATURES = {
                          _c.c_int, _P]),
     "flash_attention_fwd_attrs": (_c.c_int, [_c.c_int,
                                              _c.POINTER(_c.c_int)]),
+    "ring_step_fwd_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
+    "ssm_scan_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
     "ring_step_bwd_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
 }
 
@@ -153,12 +155,13 @@ def check(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
 
 
-def kernel_attrs(fn: str, hd: int) -> dict:
-    """What the card's compiled kernel behind the C function ``fn``
-    (``flash_attention_fwd_attrs`` or ``ring_step_bwd_attrs``: the bf16
-    tensor-core kernels) takes at head dim ``hd``."""
+def kernel_attrs(fn: str, arg: int) -> dict:
+    """What the card's compiled kernel behind the C function ``fn`` takes
+    as launched: the bf16 tensor-core kernels (``flash_attention_fwd_attrs``,
+    ``ring_step_fwd_attrs``, ``ring_step_bwd_attrs``) at head dim ``arg``,
+    the selective scan (``ssm_scan_attrs``) for u of dtype code ``arg``."""
     out = (ctypes.c_int * 4)()
-    check(getattr(library(), fn)(hd, out), fn)
+    check(getattr(library(), fn)(arg, out), fn)
     return dict(zip(("registers", "spill_bytes", "smem_bytes",
                      "blocks_per_sm"), out))
 

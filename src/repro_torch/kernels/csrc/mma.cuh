@@ -102,6 +102,27 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
+// The same, each value split as hi + lo with hi its bf16 rounding and lo
+// the rest rounded to bf16: two products (hi, then lo) carry ~16 of its
+// bits into an fp32 accumulator, where one carries 8.
+__device__ __forceinline__ void split_bf16(uint32_t& hi, uint32_t& lo,
+                                           float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
+__device__ __forceinline__ void c_to_a_split(uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4],
+                                             const float (&c0)[4],
+                                             const float (&c1)[4]) {
+  split_bf16(hi[0], lo[0], c0[0], c0[1]);
+  split_bf16(hi[1], lo[1], c0[2], c0[3]);
+  split_bf16(hi[2], lo[2], c1[0], c1[1]);
+  split_bf16(hi[3], lo[3], c1[2], c1[3]);
+}
+
 // Element offset of 16-byte chunk c of row r in a [rows][D] bf16 tile.
 // The chunk index is XOR-ed with bits of the row so that the 8 rows an
 // ldmatrix reads at one chunk column fall in 8 different 16-byte bank

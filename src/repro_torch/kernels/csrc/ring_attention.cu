@@ -20,10 +20,26 @@
 // masked score adds p = 0 explicitly, so a row that sees no key keeps its
 // carry bit for bit (alpha is exactly 1).
 //
-// Forward (both dtypes): one block a (rank, b, h, 64-row q tile) holds its
-// carry in registers over the visible kv tiles; fp32 FMAs on the CUDA
-// cores from fp32 shared tiles.  Bound: the carry's fp32 read and write.
-// Its redesign is later work (PERF.md).
+// Forward: one block a (rank, b, h, 64-row q tile) holds its carry in
+// registers over the visible kv tiles, heaviest q tiles first.  Bound: the
+// carry's fp32 read and write (at the training shapes more time at the
+// byte rate than the visible products at the bf16 tensor-core rate).
+//   bf16: the tensor-core flash forward (flash_attention.cu, mma_fwd)
+// with the carry: 4 warps of 16 q rows, Q's fragments in registers, K/V
+// through a 3-stage cp.async ring of swizzled bf16 tiles, S = Q K^T and
+// acc += P V on mma.sync m16n8k16 with fp32 accumulators.  The carry is
+// loaded into acc's C fragments and each row's (m, l) before the first key
+// tile and stored unnormalised (no / l).  m stays in natural-log units, as
+// the carry keeps it: p = exp2(s scale log2e - m log2e), so a row whose max
+// does not move keeps m bit for bit and gets alpha = 1 exactly.  Because
+// acc is not normalised, P enters PV split as two bf16 A fragments, hi +
+// lo (~16 bits of P), not one: one bf16 P puts its rounding into sums the
+// size of sqrt(l), beyond 2e-2 elementwise at the training shapes.  Tiles
+// wholly in the pad and key tiles with no visible key are skipped; the
+// mask acts only on tiles that cross k_valid, q_valid or the diagonal.
+// 112 KB of shared memory at hd 128, two blocks an SM.
+//   fp32 (the fp32 parity checks): fp32 FMAs from fp32 shared tiles; the
+// tensor cores would round fp32 to TF32.
 //
 // Backward: one block a (rank, b, kv head, key tile) keeps the tile's dK
 // and dV on chip over the G query heads and the q tiles that see it (up to
@@ -120,7 +136,7 @@ constexpr size_t fwd_smem_bytes() {
   return sizeof(float) * (HD * kLd + fwd_ks_rows<HD>() * kLd + kBK * HD);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kFwdThreads)
 ring_fwd_kernel(const __grid_constant__ FwdParams p) {
   static_assert(HD % 8 == 0, "head dim must be a multiple of 8");
@@ -144,9 +160,11 @@ ring_fwd_kernel(const __grid_constant__ FwdParams p) {
 
   const long long q_row0 = ((long long)r * s.B + b) * s.Cq;    // row (r,b,0)
   const long long kv_row0 = ((long long)hop.src * s.B + b) * s.Ck;
-  const T* qg = static_cast<const T*>(p.q) + (q_row0 * s.H + h) * HD;
-  const T* kg = static_cast<const T*>(p.k) + (kv_row0 * s.Hk + kvh) * HD;
-  const T* vg = static_cast<const T*>(p.v) + (kv_row0 * s.Hk + kvh) * HD;
+  const float* qg = static_cast<const float*>(p.q) + (q_row0 * s.H + h) * HD;
+  const float* kg =
+      static_cast<const float*>(p.k) + (kv_row0 * s.Hk + kvh) * HD;
+  const float* vg =
+      static_cast<const float*>(p.v) + (kv_row0 * s.Hk + kvh) * HD;
   const long long q_rs = (long long)s.H * HD, kv_rs = (long long)s.Hk * HD;
 
   // keys [0, k_hi) of the visiting block can be visible to this tile
@@ -171,7 +189,7 @@ ring_fwd_kernel(const __grid_constant__ FwdParams p) {
     for (int idx = tid; idx < kBQ * HD; idx += kFwdThreads) {
       const int rr = idx / HD, d = idx % HD;
       const int qi = q0 + rr;
-      Qs[d * kLd + rr] = qi < s.Cq ? to_f32(qg[qi * q_rs + d]) : 0.f;
+      Qs[d * kLd + rr] = qi < s.Cq ? qg[qi * q_rs + d] : 0.f;
     }
   }
   for (int k0 = 0; k0 < k_hi; k0 += kBK) {
@@ -180,8 +198,8 @@ ring_fwd_kernel(const __grid_constant__ FwdParams p) {
       const int rr = idx / HD, d = idx % HD;
       const int kj = k0 + rr;
       const bool in = kj < s.Ck;
-      Ks[d * kLd + rr] = in ? to_f32(kg[kj * kv_rs + d]) : 0.f;
-      Vs[rr * HD + d] = in ? to_f32(vg[kj * kv_rs + d]) : 0.f;
+      Ks[d * kLd + rr] = in ? kg[kj * kv_rs + d] : 0.f;
+      Vs[rr * HD + d] = in ? vg[kj * kv_rs + d] : 0.f;
     }
     __syncthreads();
 
@@ -275,6 +293,278 @@ ring_fwd_kernel(const __grid_constant__ FwdParams p) {
       p.acc_out[row * HD + tx + 8 * j] = acc[i][j];
   }
 }
+
+// -------------------------------------- forward, bf16 on tensor cores ---
+// The flash forward of flash_attention.cu (mma_fwd) with the ring's
+// carry and hop table.  Warp w owns q rows 16w..16w+15 of the block's
+// tile; lane (gid, tig) = (lane / 4, lane % 4) holds rows gid and gid + 8
+// of that strip and, in every 8-column C tile, columns 2tig and 2tig + 1.
+namespace mma_fwd {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 3;     // K/V ring depth: two tiles in flight
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kBQ == 16 * kWarps, "one 16-row strip a warp");
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  // Q [kBQ][HD] + K, V [kStages][kBK][HD], bf16
+  return sizeof(__nv_bfloat16) * (kBQ * HD + 2 * kStages * kBK * HD);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+ring_fwd_mma_kernel(const __grid_constant__ FwdParams p) {
+  using tc::bf16;
+  constexpr int kKSteps = HD / 16;   // k-steps of Q K^T over hd
+  constexpr int kOutTiles = HD / 8;  // 8-column C tiles of acc
+  constexpr int kSTiles = kBK / 8;   // 8-column C tiles of S
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);    // [kBQ][HD]
+  bf16* Ks = Qs + kBQ * HD;                       // [kStages][kBK][HD]
+  bf16* Vs = Ks + kStages * kBK * HD;             // [kStages][kBK][HD]
+
+  const RingShape& s = p.s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: matrix, its row
+  // heaviest (latest) q tiles first: under causality they see most keys.
+  // Blocks start in x-fastest order, so the q tile is the slowest axis.
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;
+  const int h = blockIdx.x;
+  const int r = blockIdx.y / s.B, b = blockIdx.y % s.B;
+  const Hop& hop = s.hops[r];
+  const int kvh = h / (s.H / s.Hk);
+  const int k_valid = min(hop.k_valid, s.Ck);
+  const int q_valid = min(hop.q_valid, s.Cq);
+
+  const long long q_row0 = ((long long)r * s.B + b) * s.Cq;    // row (r,b,0)
+  const long long kv_row0 = ((long long)hop.src * s.B + b) * s.Ck;
+  const long long q_rs = (long long)s.H * HD, kv_rs = (long long)s.Hk * HD;
+  const bf16* qg = static_cast<const bf16*>(p.q) + (q_row0 * s.H + h) * HD;
+  const bf16* kg =
+      static_cast<const bf16*>(p.k) + (kv_row0 * s.Hk + kvh) * HD;
+  const bf16* vg =
+      static_cast<const bf16*>(p.v) + (kv_row0 * s.Hk + kvh) * HD;
+
+  // keys [0, k_hi) of the visiting block can be visible to this tile; a
+  // tile wholly in the pad sees none
+  int k_hi = q0 < q_valid ? k_valid : 0;
+  if (s.causal && k_hi > 0)
+    k_hi = min(k_hi, hop.q_start + min(q0 + kBQ, q_valid) - 1 -
+                         hop.k_start + 1);
+  const int n_tiles = k_hi > 0 ? (k_hi + kBK - 1) / kBK : 0;
+
+  auto load_kv = [&](int it) {
+    const int st = it % kStages, k0 = it * kBK;
+    tc::load_tile<HD, kBK, kThreads>(Ks + st * kBK * HD, kg, kv_rs, k0,
+                                     k_valid);
+    tc::load_tile<HD, kBK, kThreads>(Vs + st * kBK * HD, vg, kv_rs, k0,
+                                     k_valid);
+  };
+  if (n_tiles > 0) {
+    // Q's group, then one group a K/V tile, kStages - 1 ahead
+    tc::load_tile<HD, kBQ, kThreads>(Qs, qg, q_rs, q0, q_valid);
+    tc::cp_async_commit();
+#pragma unroll
+    for (int it = 0; it < kStages - 1; ++it) {
+      if (it < n_tiles) load_kv(it);
+      tc::cp_async_commit();
+    }
+  }
+
+  // the carry in, as the C fragments of acc and each row's m and l: m in
+  // natural-log units, as it is stored; l whole on the tig == 0 lane and 0
+  // on the others, whose partial sums add to it at the end.  Rows past Cq
+  // (never stored) start as an empty carry.
+  float o[kOutTiles][4];
+  float m[2], l[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qi = q0 + warp * 16 + gid + 8 * rr;
+    const long long row = (q_row0 + qi) * s.H + h;
+    const bool in = qi < s.Cq;
+    m[rr] = in ? p.m_in[row] : -1e30f;
+    l[rr] = in && tig == 0 ? p.l_in[row] : 0.f;
+#pragma unroll
+    for (int n = 0; n < kOutTiles; ++n) {
+      const float2 a =
+          in ? *reinterpret_cast<const float2*>(p.acc_in + row * HD + 8 * n +
+                                                2 * tig)
+             : make_float2(0.f, 0.f);
+      o[n][2 * rr] = a.x;
+      o[n][2 * rr + 1] = a.y;
+    }
+  }
+
+  if (n_tiles > 0) {
+    tc::cp_async_wait<kStages - 1>();  // Q has landed
+    __syncthreads();
+    // Q's strip as A fragments, held for the whole kv loop
+    uint32_t qf[kKSteps][4];
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks)
+      tc::ldmatrix_x4(qf[ks], Qs + tc::swz<HD>(warp * 16 + (lane & 15),
+                                               2 * ks + (lane >> 4)));
+    const float sl2 = s.sm_scale * kLog2e;  // raw score -> log2 units
+    const int qw = q0 + warp * 16 + gid;    // this lane's row gid
+
+    for (int it = 0; it < n_tiles; ++it) {
+      tc::cp_async_wait<kStages - 2>();  // tile it has landed
+      // every warp is past tile it - 1: its stage takes tile it + 2
+      __syncthreads();
+      if (it + kStages - 1 < n_tiles) load_kv(it + kStages - 1);
+      tc::cp_async_commit();
+      const int k0 = it * kBK;
+      const bf16* Kt = Ks + (it % kStages) * kBK * HD;
+      const bf16* Vt = Vs + (it % kStages) * kBK * HD;
+
+      // S = Q K^T (raw): each x4 load of K gives two key tiles' B
+      // fragments
+      float sc[kSTiles][4];
+#pragma unroll
+      for (int j = 0; j < kSTiles; ++j)
+        sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+#pragma unroll
+        for (int np = 0; np < kSTiles / 2; ++np) {
+          uint32_t kb[4];
+          tc::ldmatrix_x4(kb,
+                          Kt + tc::swz<HD>(np * 16 + (mat >> 1) * 8 + mrow,
+                                           2 * ks + (mat & 1)));
+          tc::mma_bf16(sc[2 * np], qf[ks], kb[0], kb[1]);
+          tc::mma_bf16(sc[2 * np + 1], qf[ks], kb[2], kb[3]);
+        }
+      }
+
+      // the hop's mask, only where the tile crosses k_valid, q_valid or
+      // the causal diagonal: a masked score is -inf, so its p is 0
+      const bool edge = k0 + kBK > k_valid || q0 + kBQ > q_valid ||
+                        (s.causal && hop.k_start + k0 + kBK - 1 >
+                                         hop.q_start + q0);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < kSTiles; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!visible(s, hop, qw + 8 * (e >> 1),
+                         k0 + 8 * j + 2 * tig + (e & 1), k_valid))
+              sc[j][e] = -INFINITY;
+      }
+
+      // online softmax on the fragments; m stays in natural-log units and
+      // the exponent takes it as -m log2e, so a row whose max did not
+      // move keeps m bit for bit and gets alpha = 1 exactly
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kSTiles; ++j)
+          mx = fmaxf(mx, fmaxf(sc[j][2 * rr], sc[j][2 * rr + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[rr], mx * s.sm_scale);
+        const float alpha =
+            m_new == m[rr] ? 1.f : tc::exp2_fast((m[rr] - m_new) * kLog2e);
+        // nothing visible yet (m = -inf): keep exp2 away from inf - inf
+        const float nm = m_new == -INFINITY ? 0.f : -m_new * kLog2e;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < kSTiles; ++j) {
+          sc[j][2 * rr] = tc::exp2_fast(fmaf(sc[j][2 * rr], sl2, nm));
+          sc[j][2 * rr + 1] =
+              tc::exp2_fast(fmaf(sc[j][2 * rr + 1], sl2, nm));
+          rs += sc[j][2 * rr] + sc[j][2 * rr + 1];
+        }
+        l[rr] = l[rr] * alpha + rs;
+        m[rr] = m_new;
+#pragma unroll
+        for (int n = 0; n < kOutTiles; ++n) {
+          o[n][2 * rr] *= alpha;
+          o[n][2 * rr + 1] *= alpha;
+        }
+      }
+
+      // acc += P V with P split as bf16 hi + lo (the carry is not
+      // normalised: one bf16 P would put its rounding, ~2e-3 of each
+      // term, into sums of size sqrt(l)); V's B fragments come transposed
+      // from its [key][d] tile
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        uint32_t ph[4], pl[4];
+        tc::c_to_a_split(ph, pl, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+        for (int dp = 0; dp < kOutTiles / 2; ++dp) {
+          uint32_t vb[4];
+          tc::ldmatrix_x4_trans(
+              vb, Vt + tc::swz<HD>(kk * 16 + (mat & 1) * 8 + mrow,
+                                   2 * dp + (mat >> 1)));
+          tc::mma_bf16(o[2 * dp], ph, vb[0], vb[1]);
+          tc::mma_bf16(o[2 * dp + 1], ph, vb[2], vb[3]);
+          tc::mma_bf16(o[2 * dp], pl, vb[0], vb[1]);
+          tc::mma_bf16(o[2 * dp + 1], pl, vb[2], vb[3]);
+        }
+      }
+    }
+    tc::cp_async_wait<0>();  // no copy outlives the block
+  }
+
+  // the carry out, unnormalised; every row below Cq is written
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float lr = l[rr];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int qi = q0 + warp * 16 + gid + 8 * rr;
+    if (qi >= s.Cq) continue;
+    const long long row = (q_row0 + qi) * s.H + h;
+    if (tig == 0) {
+      p.m_out[row] = m[rr];
+      p.l_out[row] = lr;
+    }
+#pragma unroll
+    for (int n = 0; n < kOutTiles; ++n)
+      *reinterpret_cast<float2*>(p.acc_out + row * HD + 8 * n + 2 * tig) =
+          make_float2(o[n][2 * rr], o[n][2 * rr + 1]);
+  }
+}
+
+template <int HD>
+cudaError_t launch(const FwdParams& p, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<HD>();
+  auto* kernel = ring_fwd_mma_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.s.H, p.s.R * p.s.B, (p.s.Cq + kBQ - 1) / kBQ);
+  if (grid.z > 65535) return cudaErrorInvalidValue;
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// registers, local (spill) bytes, dynamic shared bytes, resident blocks
+// per SM
+template <int HD>
+cudaError_t attrs(int* out) {
+  constexpr size_t smem = smem_bytes<HD>();
+  auto* kernel = ring_fwd_mma_kernel<HD>;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel,
+                                                      kThreads, smem);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem;
+  return e;
+}
+
+}  // namespace mma_fwd
 
 // ------------------------------------------------------------ backward ---
 // thread (ty, tx) = (tid / 16, tid % 16): in the score tiles it owns rows
@@ -781,15 +1071,15 @@ cudaError_t attrs(int* out) {
 }  // namespace mma_bwd
 
 // ------------------------------------------------------------- launch ---
-template <typename T, int HD>
-cudaError_t launch_fwd(const FwdParams& p, cudaStream_t stream) {
+template <int HD>
+cudaError_t launch_fwd_f32(const FwdParams& p, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<HD>();
   cudaError_t e = cudaFuncSetAttribute(
-      ring_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ring_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.s.Cq + kBQ - 1) / kBQ, p.s.H, p.s.R * p.s.B);
-  ring_fwd_kernel<T, HD><<<grid, kFwdThreads, smem, stream>>>(p);
+  ring_fwd_kernel<HD><<<grid, kFwdThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -805,13 +1095,21 @@ cudaError_t launch_bwd_f32(const BwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, typename P>
-cudaError_t dispatch_fwd(const P& p, int hd, cudaStream_t stream) {
+cudaError_t dispatch_fwd(const FwdParams& p, int hd, bool bf,
+                         cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_fwd<T, 16>(p, stream);
-    case 32: return launch_fwd<T, 32>(p, stream);
-    case 64: return launch_fwd<T, 64>(p, stream);
-    case 128: return launch_fwd<T, 128>(p, stream);
+    case 16:
+      return bf ? mma_fwd::launch<16>(p, stream)
+                : launch_fwd_f32<16>(p, stream);
+    case 32:
+      return bf ? mma_fwd::launch<32>(p, stream)
+                : launch_fwd_f32<32>(p, stream);
+    case 64:
+      return bf ? mma_fwd::launch<64>(p, stream)
+                : launch_fwd_f32<64>(p, stream);
+    case 128:
+      return bf ? mma_fwd::launch<128>(p, stream)
+                : launch_fwd_f32<128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -856,7 +1154,8 @@ bool make_shape(RingShape* s, int R, int Rk, int B, int Cq, int Ck, int H,
 }  // namespace
 
 // One ring step for every rank: (m, l, acc)_out = fold(carry_in, hop).
-// hops: R x (q_start, src, k_start, k_valid, q_valid).
+// hops: R x (q_start, src, k_start, k_valid, q_valid).  bf16 runs on the
+// tensor cores and needs 16-byte aligned q, k, v; fp32 on the FMA kernel.
 extern "C" int ring_step_fwd(const void* q, const void* k, const void* v,
                              const void* m_in, const void* l_in,
                              const void* acc_in, void* m_out, void* l_out,
@@ -878,8 +1177,8 @@ extern "C" int ring_step_fwd(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case REPRO_F32: return dispatch_fwd<float>(p, hd, st);
-    case REPRO_BF16: return dispatch_fwd<__nv_bfloat16>(p, hd, st);
+    case REPRO_F32: return dispatch_fwd(p, hd, false, st);
+    case REPRO_BF16: return dispatch_fwd(p, hd, true, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -922,6 +1221,18 @@ extern "C" int ring_step_bwd_attrs(int hd, int* out) {
     case 32: return mma_bwd::attrs<32>(out);
     case 64: return mma_bwd::attrs<64>(out);
     case 128: return mma_bwd::attrs<128>(out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 forward's registers, spill bytes, dynamic shared memory and
+// resident blocks per SM at head dim hd, into out[0..3].
+extern "C" int ring_step_fwd_attrs(int hd, int* out) {
+  switch (hd) {
+    case 16: return mma_fwd::attrs<16>(out);
+    case 32: return mma_fwd::attrs<32>(out);
+    case 64: return mma_fwd::attrs<64>(out);
+    case 128: return mma_fwd::attrs<128>(out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -15,103 +15,241 @@
 // clock, 132 SMs at the 1.98 GHz boost clock: ~0.031 ms).
 //
 // Design.  On the TPU one grid cell keeps a (di_block, ds) state in VMEM
-// and walks the chunks of S in order.  Here the parallelism must come from
-// B*di*ds: one thread owns one (b, d, n) state element in a register for
-// the whole sequence, 16 lanes per channel (ds <= 16; lanes past ds carry
-// zeros), 16 channels per 256-thread block.  The block walks S in chunks of
-// kChunk steps: dt, dt*u, B and C of the chunk are staged in shared memory
-// with coalesced loads, each step's y[t, d] is a 16-lane shuffle sum staged
-// in shared memory, and the chunk's y is written out coalesced.  Any S (a
-// partial last chunk is masked) and any di (a partial last block of
-// channels is masked).  expf, not __expf: the state is a product of up to S
-// decays, and the fast version's error grows with |dt * A|.
+// and walks the chunks of S in order.  Here one thread owns kPer = 4
+// states of one channel in registers for the whole sequence: kLanes = 4
+// neighbouring lanes share a channel (states n = kPer * lane + j; states
+// past ds carry zeros), kChannels = 32 channels a 128-thread block.  Each
+// step a thread reads dt and u of its channel once (one product dt * u for
+// its states) and B_t, C_t of its states as float4 broadcasts from shared
+// memory, and keeps its part of y[t, d] in a register.  Steps go in groups
+// of kLanes: after a group, kLanes - 1 shuffles leave lane q with the
+// whole y of the group's step q, which it stores (3 shuffles for 4
+// steps).  The block walks S in chunks of kChunk = 64 steps: dt, u, B and
+// C of the next chunk are copied into the other half of a double buffer
+// in shared memory (cp.async, 16 bytes a copy,
+// when ds = 16, di is a multiple of kChannels and the bases are aligned;
+// plain loads otherwise) while the current chunk's steps run.  Any S (the
+// rows past S are zero-filled: dt = 0 leaves h as it is) and any di (a
+// partial last block of channels is masked); 1 <= ds <= 16.  At the
+// Mamba prefill (B 1, di 8192) that is 8 warps an SM: the kernel is bound
+// by the latency of each step's loads, exponentials and sums, not by the
+// special-function units (PERF.md).  S is not split across blocks: a
+// chunked scan (each chunk's end state from zero, a carry pass, a rescan
+// from the carried state) computes every decay twice, a floor of twice
+// the one-pass bound on the special-function units.
+//
+// The decay is exp2(dt * A log2e) on the special-function unit (ex2.approx,
+// A scaled by log2e once).  Its error grows with |dt * A| only where the
+// decay is too small to add to h; the card tests hold it at the fp32
+// tolerance from decays of 1 (dt and A near 0, 4096 steps) to underflow
+// (|dt * A| >= 50).
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kLanes = 16;                    // state lanes per channel
-constexpr int kChannels = 16;                 // channels per block
-constexpr int kThreads = kLanes * kChannels;  // 256
-constexpr int kChunk = 64;                    // time steps staged per pass
+constexpr int kStates = 16;                   // largest d_state taken
+constexpr int kPer = 4;                       // states a thread owns
+constexpr int kLanes = kStates / kPer;        // lanes a channel
+constexpr int kChannels = 32;                 // channels a block
+constexpr int kThreads = kLanes * kChannels;
+constexpr int kChunk = 64;                    // time steps a chunk
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename Tu>
+struct Smem {
+  float dt[2][kChunk][kChannels];
+  Tu u[2][kChunk][kChannels];
+  float b[2][kChunk][kStates];
+  float c[2][kChunk][kStates];
+};
+
+// kVec: ds == 16, di % kChannels == 0 and 16-byte aligned bases, so each
+// chunk row is whole 16-byte pieces for cp.async
+template <typename Tu, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 ssm_scan_kernel(const Tu* __restrict__ u, const float* __restrict__ dt,
                 const float* __restrict__ Bc, const float* __restrict__ Cc,
                 const float* __restrict__ A, float* __restrict__ y,
                 float* __restrict__ h_last, int S, int di, int ds) {
-  __shared__ float s_dt[kChunk][kChannels];
-  __shared__ float s_du[kChunk][kChannels];   // dt * u
-  __shared__ float s_b[kChunk][kLanes];
-  __shared__ float s_c[kChunk][kLanes];
-  __shared__ float s_y[kChunk][kChannels];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<Tu>& sm = *reinterpret_cast<Smem<Tu>*>(smem_raw);
 
   const int b = blockIdx.y;
   const int d0 = blockIdx.x * kChannels;
   const int tid = threadIdx.x;
   const int c = tid / kLanes;                 // channel in the block
-  const int n = tid % kLanes;                 // state index
+  const int q = tid % kLanes;                 // its lane in the channel
   const int d = d0 + c;
-  const bool live = d < di && n < ds;
-  const float a = live ? A[(int64_t)d * ds + n] : 0.f;
+  const int n0 = q * kPer;                    // first state of the thread
   const int64_t row0 = (int64_t)b * S;        // first (b, t) row
-  float h = 0.f;
 
-  for (int t0 = 0; t0 < S; t0 += kChunk) {
-    const int T = min(kChunk, S - t0);
-    for (int i = tid; i < T * kChannels; i += kThreads) {
-      const int tt = i / kChannels, cc = i % kChannels;
-      float dtv = 0.f, uv = 0.f;
-      if (d0 + cc < di) {
-        const int64_t off = (row0 + t0 + tt) * di + d0 + cc;
-        dtv = dt[off];
-        uv = to_f32(u[off]);
-      }
-      s_dt[tt][cc] = dtv;
-      s_du[tt][cc] = dtv * uv;
-    }
-    for (int i = tid; i < T * kLanes; i += kThreads) {
-      const int tt = i / kLanes, nn = i % kLanes;
-      float bv = 0.f, cv = 0.f;
-      if (nn < ds) {
-        const int64_t off = (row0 + t0 + tt) * ds + nn;
-        bv = Bc[off];
-        cv = Cc[off];
-      }
-      s_b[tt][nn] = bv;
-      s_c[tt][nn] = cv;
-    }
-    __syncthreads();
-    // every thread runs every step: the shuffles need all 32 lanes
-#pragma unroll 4
-    for (int tt = 0; tt < T; ++tt) {
-      const float decay = expf(s_dt[tt][c] * a);
-      h = fmaf(decay, h, s_du[tt][c] * s_b[tt][n]);
-      float p = h * s_c[tt][n];
+  float a2[kPer], h[kPer];
 #pragma unroll
-      for (int o = kLanes / 2; o > 0; o >>= 1)
-        p += __shfl_xor_sync(0xffffffffu, p, o);
-      if (n == 0) s_y[tt][c] = p;
-    }
-    __syncthreads();
-    for (int i = tid; i < T * kChannels; i += kThreads) {
-      const int tt = i / kChannels, cc = i % kChannels;
-      if (d0 + cc < di) y[(row0 + t0 + tt) * di + d0 + cc] = s_y[tt][cc];
-    }
-    // the next chunk's staging writes no buffer read above, and its time
-    // loop writes s_y only after the next __syncthreads
+  for (int j = 0; j < kPer; ++j) {
+    const bool live = d < di && n0 + j < ds;
+    a2[j] = live ? A[(int64_t)d * ds + n0 + j] * kLog2e : 0.f;
+    h[j] = 0.f;
   }
-  if (live) h_last[((int64_t)b * di + d) * ds + n] = h;
+
+  // chunk k's dt, u, B and C into buffer k & 1
+  auto stage = [&](int k) {
+    const int t0 = k * kChunk, buf = k & 1;
+    if constexpr (kVec) {
+      constexpr int kDt = kChannels / 4;              // 16 B pieces a row
+      constexpr int kU = kChannels * sizeof(Tu) / 16;
+      constexpr int kBC = kStates / 4;
+#pragma unroll
+      for (int i = tid; i < kChunk * kDt; i += kThreads) {
+        const int tt = i / kDt, p = i % kDt;
+        const bool in = t0 + tt < S;
+        tc::cp_async16(&sm.dt[buf][tt][4 * p],
+                       dt + (in ? (row0 + t0 + tt) * di + d0 : 0) + 4 * p,
+                       in);
+      }
+#pragma unroll
+      for (int i = tid; i < kChunk * kU; i += kThreads) {
+        const int tt = i / kU, p = i % kU;
+        constexpr int kE = 16 / sizeof(Tu);           // elements a piece
+        const bool in = t0 + tt < S;
+        tc::cp_async16(&sm.u[buf][tt][kE * p],
+                       u + (in ? (row0 + t0 + tt) * di + d0 : 0) + kE * p,
+                       in);
+      }
+#pragma unroll
+      for (int i = tid; i < kChunk * kBC; i += kThreads) {
+        const int tt = i / kBC, p = i % kBC;
+        const bool in = t0 + tt < S;
+        const int64_t off = (in ? (row0 + t0 + tt) * kStates : 0) + 4 * p;
+        tc::cp_async16(&sm.b[buf][tt][4 * p], Bc + off, in);
+        tc::cp_async16(&sm.c[buf][tt][4 * p], Cc + off, in);
+      }
+    } else {
+      for (int i = tid; i < kChunk * kChannels; i += kThreads) {
+        const int tt = i / kChannels, cc = i % kChannels;
+        const bool in = t0 + tt < S && d0 + cc < di;
+        const int64_t off = (row0 + t0 + tt) * di + d0 + cc;
+        sm.dt[buf][tt][cc] = in ? dt[off] : 0.f;
+        sm.u[buf][tt][cc] = in ? u[off] : from_f32<Tu>(0.f);
+      }
+      for (int i = tid; i < kChunk * kStates; i += kThreads) {
+        const int tt = i / kStates, n = i % kStates;
+        const bool in = t0 + tt < S && n < ds;
+        const int64_t off = (row0 + t0 + tt) * ds + n;
+        sm.b[buf][tt][n] = in ? Bc[off] : 0.f;
+        sm.c[buf][tt][n] = in ? Cc[off] : 0.f;
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  // one step of the thread's states from buffer buf, row t; returns
+  // their part of y[t, d]
+  auto step = [&](int buf, int t) {
+    const float dtv = sm.dt[buf][t][c];
+    const float du = dtv * to_f32(sm.u[buf][t][c]);
+    const float4 b4 = *reinterpret_cast<const float4*>(&sm.b[buf][t][n0]);
+    const float4 c4 = *reinterpret_cast<const float4*>(&sm.c[buf][t][n0]);
+    const float bv[kPer] = {b4.x, b4.y, b4.z, b4.w};
+    const float cv[kPer] = {c4.x, c4.y, c4.z, c4.w};
+    float yp = 0.f;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      h[j] = fmaf(tc::exp2_fast(dtv * a2[j]), h[j], du * bv[j]);
+      yp = fmaf(h[j], cv[j], yp);
+    }
+    return yp;
+  };
+
+  const int n_chunks = (S + kChunk - 1) / kChunk;
+  stage(0);
+  for (int k = 0; k < n_chunks; ++k) {
+    tc::cp_async_wait<0>();  // chunk k has landed
+    // every thread is past chunk k - 1: its buffer takes chunk k + 1
+    __syncthreads();
+    if (k + 1 < n_chunks) stage(k + 1);
+    const int t0 = k * kChunk, buf = k & 1;
+    const int T = min(kChunk, S - t0);
+    float* yg = y + (row0 + t0) * di + d;
+    // every thread runs every step: the shuffles need all 32 lanes.
+    // Steps in groups of kLanes: each lane sums its states' part of y for
+    // every step of the group, then kLanes - 1 shuffles leave lane q with
+    // the whole y of the group's step q.  Steps past T read zero-filled
+    // rows (dt = 0: a decay of 1 and nothing added), so h passes them as
+    // it is.
+#pragma unroll 4
+    for (int tt = 0; tt < T; tt += kLanes) {
+      float v[kLanes];
+#pragma unroll
+      for (int g = 0; g < kLanes; ++g) v[g] = step(buf, tt + g);
+      // halve the values a lane holds kLanes / 2, ..., 1 at a time: keep
+      // the half its lane bit m names, add the partner's copy of it
+#pragma unroll
+      for (int m = kLanes / 2; m >= 1; m >>= 1) {
+        const bool upper = q & m;
+#pragma unroll
+        for (int i = 0; i < m; ++i) {
+          const float send = upper ? v[i] : v[i + m];
+          const float keep = upper ? v[i + m] : v[i];
+          v[i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+        }
+      }
+      if (d < di && tt + q < T) yg[(int64_t)(tt + q) * di] = v[0];
+    }
+  }
+  tc::cp_async_wait<0>();  // no copy outlives the block
+
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)
+    if (d < di && n0 + j < ds)
+      h_last[((int64_t)b * di + d) * ds + n0 + j] = h[j];
+}
+
+template <typename Tu, bool kVec>
+cudaError_t launch_vec(const Tu* u, const float* dt, const float* Bc,
+                       const float* Cc, const float* A, float* y,
+                       float* h_last, int B, int S, int di, int ds,
+                       cudaStream_t stream) {
+  constexpr size_t smem = sizeof(Smem<Tu>);
+  auto* kernel = ssm_scan_kernel<Tu, kVec>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((di + kChannels - 1) / kChannels, B);
+  kernel<<<grid, kThreads, smem, stream>>>(u, dt, Bc, Cc, A, y, h_last, S,
+                                           di, ds);
+  return cudaGetLastError();
 }
 
 template <typename Tu>
 cudaError_t launch(const void* u, const float* dt, const float* Bc,
                    const float* Cc, const float* A, float* y, float* h_last,
                    int B, int S, int di, int ds, cudaStream_t stream) {
-  const dim3 grid((di + kChannels - 1) / kChannels, B);
-  ssm_scan_kernel<Tu><<<grid, kThreads, 0, stream>>>(
-      static_cast<const Tu*>(u), dt, Bc, Cc, A, y, h_last, S, di, ds);
-  return cudaGetLastError();
+  const Tu* up = static_cast<const Tu*>(u);
+  const bool vec = ds == kStates && di % kChannels == 0 && aligned16(u) &&
+                   aligned16(dt) && aligned16(Bc) && aligned16(Cc);
+  return vec ? launch_vec<Tu, true>(up, dt, Bc, Cc, A, y, h_last, B, S, di,
+                                    ds, stream)
+             : launch_vec<Tu, false>(up, dt, Bc, Cc, A, y, h_last, B, S, di,
+                                     ds, stream);
+}
+
+template <typename Tu>
+cudaError_t attrs(int* out) {
+  constexpr size_t smem = sizeof(Smem<Tu>);
+  auto* kernel = ssm_scan_kernel<Tu, true>;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel,
+                                                      kThreads, smem);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem;
+  return e;
 }
 
 }  // namespace
@@ -122,7 +260,7 @@ extern "C" int ssm_scan_fwd(const void* u, const void* dt, const void* Bc,
                             const void* Cc, const void* A, void* y,
                             void* h_last, int B, int S, int di, int ds,
                             int u_dtype, void* stream) {
-  if (B <= 0 || B > 65535 || S <= 0 || di <= 0 || ds <= 0 || ds > kLanes)
+  if (B <= 0 || B > 65535 || S <= 0 || di <= 0 || ds <= 0 || ds > kStates)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* dtp = static_cast<const float*>(dt);
@@ -139,5 +277,16 @@ extern "C" int ssm_scan_fwd(const void* u, const void* dt, const void* Bc,
                                    s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The scan's registers, spill bytes, dynamic shared memory and resident
+// blocks per SM (the cp.async kernel, as the prefill launches it) for u
+// of dtype code u_dtype, into out[0..3].
+extern "C" int ssm_scan_attrs(int u_dtype, int* out) {
+  switch (u_dtype) {
+    case REPRO_F32: return attrs<float>(out);
+    case REPRO_BF16: return attrs<__nv_bfloat16>(out);
+    default: return cudaErrorInvalidValue;
   }
 }

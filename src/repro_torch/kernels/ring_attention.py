@@ -16,6 +16,9 @@ its grid runs over rank x B x H x 64-row q tile, the counterpart of the
 rank it is exactly the Pallas hop.  Bound: at the training shapes it must
 read and write the fp32 carry (~180 MB at cp 4, S 4096), more time at the
 card's byte rate than the hop's visible products at the bf16 tensor rate.
+bf16 inputs run on the tensor cores (``mma.sync`` from ``cp.async``-staged
+bf16 tiles; P enters PV as a bf16 hi + lo pair, since the carry is not
+normalised), fp32 inputs on the fp32 FMA kernel.
 
 ``ring_step_bwd`` wraps ``ring_step_bwd`` of the same source: one hop's
 VJP in the FA2 form (P recomputed from the final logsumexp), for all
@@ -158,7 +161,8 @@ def ring_step(q, k, v, m, l, acc, hops: Sequence[Hop], *,
     Keys at or past a hop's ``k_valid``, (causal) keys after a query's
     global position, and every key for rows at or past ``q_valid`` add
     nothing; a hop that shows a row no key leaves its carry bit for
-    bit."""
+    bit.  bf16 inputs go to the tensor-core kernel, whose 16-byte copies
+    need 16-byte aligned tensors."""
     global launches
     build.forbid_grad("ring_step", "call kernels.ops.ring_attention",
                       q, k, v, m, l, acc)
@@ -170,6 +174,8 @@ def ring_step(q, k, v, m, l, acc, hops: Sequence[Hop], *,
     _need("acc", acc, (R, B, Cq, H, hd), f32)
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("ring_step kernel takes contiguous q, k, v")
+    if q.dtype == torch.bfloat16:
+        build.require_aligned16("ring_step", q=q, k=k, v=v)
     _check_hops(hops, R, Rk, Cq, Ck)
     code = build.dtype_code(q)
     m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))

@@ -1,12 +1,18 @@
 """Mamba-1 selective scan on the card: wrapper of ``csrc/ssm_scan.cu``.
 
 Replaces the Pallas kernel ``repro/kernels/ssm_scan.py::ssm_scan``.  One
-thread keeps one (b, d, n) state element in a register for the whole
-sequence and the block walks S in chunks staged in shared memory, so any
-S and any d_inner are taken (the Pallas kernel asserts ``S % chunk == 0``).
-Its floor at the prefill shape is the special-function units' rate for
-the B*S*di*ds exponentials, a little above the bytes it must move.  Plain
-version: ``kernels/ref.py::ssm_scan``.
+thread keeps four states of one channel in registers for the whole
+sequence (four lanes a channel, 32 channels a block): it reads dt and u of
+its channel once a step, B and C of its states as ``float4`` broadcasts,
+and sums its part of y[t, d] in a register.  The channel's four lanes add
+their parts once a group of four steps: three shuffles leave each lane
+with the whole y of one step of the group.  The block walks S in chunks of 64 steps, the next
+chunk copied into shared memory (``cp.async``) while the current one
+runs, so any S and any d_inner are taken (the Pallas kernel asserts
+``S % chunk == 0``).  Its floor at the prefill shape is the
+special-function units' rate for the B*S*di*ds exponentials, a little
+above the bytes it must move.  One call is one launch.  Plain version:
+``kernels/ref.py::ssm_scan``.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_STATE = 16   # state lanes per channel in the kernel
+MAX_STATE = 16   # the largest d_state the kernel takes
 launches = 0     # kernel launches since the last reset
 
 

@@ -57,13 +57,18 @@ def _randn(dev, *shape, dtype, seed=0):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
+def _rel(got, want) -> float:
+    """||got - want|| / ||want||."""
+    g, w = got.double(), want.double()
+    return ((g - w).norm() / w.norm()).item()
+
+
 def _close_attention(got, want, dtype):
     """Attention outputs at ``dtype``'s tolerance; bf16 (the tensor cores)
     also within BF16_REL of ``want``'s norm."""
     torch.testing.assert_close(got, want, **TOL[dtype])
     if dtype == torch.bfloat16:
-        g, w = got.double(), want.double()
-        rel = ((g - w).norm() / w.norm()).item()
+        rel = _rel(got, want)
         assert rel <= BF16_REL, rel
 
 
@@ -217,6 +222,41 @@ def test_ssm_scan_kernel_rejects_what_it_does_not_take(dev):
         tss.ssm_scan(u, dt, big, big, torch.zeros(32, 17, device=dev))
 
 
+@pytest.mark.parametrize("u_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,di,ds,dt_kind", [
+    (1, 63, 256, 16, "softplus"),     # one partial chunk of 64 steps
+    (1, 64, 256, 16, "softplus"),     # one whole chunk
+    (1, 65, 256, 16, "softplus"),     # a chunk and one step
+    (3, 129, 101, 16, "softplus"),    # B 3; di not a multiple of 32
+    (1, 4096, 512, 16, "softplus"),   # the training route's length
+    (2, 70, 96, 1, "softplus"),       # d_state 1, 4, 15: the masked states
+    (2, 70, 96, 4, "softplus"),
+    (2, 70, 96, 15, "softplus"),
+    (1, 4096, 256, 16, "near0"),      # decay ~1 for every step
+    (1, 1000, 256, 16, "large"),      # |dt A| >= 50 on half the channels
+])
+def test_ssm_scan_kernel_edges(dev, u_dtype, B, S, di, ds, dt_kind):
+    """Chunk edges, partial channel blocks, d_state below 16 (the plain-
+    load path), B 3, long S, and decays from 1 (dt near 0, A near 0) to
+    underflow (|dt A| >= 50): y and the last state at the scan's
+    tolerance, one launch a call."""
+    u, dt, Bc, Cc, A = _scan_inputs(dev, B, S, di, ds, u_dtype)
+    if dt_kind == "near0":
+        dt, A = dt * 1e-3, A * 1e-2
+    elif dt_kind == "large":
+        g = torch.Generator(device=dev).manual_seed(5)
+        big = 50 + 50 * torch.rand((B, S, di), generator=g, device=dev)
+        dt = torch.where(torch.arange(di, device=dev) % 2 == 0, big, dt)
+        A = -(1 + torch.rand((di, ds), generator=g, device=dev))
+    n = tss.launches
+    y, h = tss.ssm_scan(u, dt, Bc, Cc, A)
+    torch.cuda.synchronize()
+    assert tss.launches == n + 1
+    want_y, want_h = ref.ssm_scan(u, dt, Bc, Cc, A)
+    torch.testing.assert_close(y, want_y, **SCAN_TOL)
+    torch.testing.assert_close(h, want_h, **SCAN_TOL)
+
+
 def _to(node, dev):
     return {k: _to(v, dev) for k, v in node.items()} \
         if isinstance(node, dict) else node.to(dev)
@@ -301,7 +341,8 @@ def _carry(dev, R, B, C, H, hd):
                                  (130, 0, 60, 37, 100)])
 def test_ring_step_kernel_one_hop(dev, dtype, hop):
     """Self, past, wrap (fully masked) and ragged partial hops over a warm
-    carry, one rank."""
+    carry, one rank: bf16 (the tensor cores) at the bf16 tolerance and
+    norm, fp32 at the fp32 tolerance."""
     q = _randn(dev, 1, 2, 100, 8, 64, dtype=dtype)
     k = _randn(dev, 1, 2, 100, 2, 64, dtype=dtype, seed=1)
     v = _randn(dev, 1, 2, 100, 2, 64, dtype=dtype, seed=2)
@@ -312,7 +353,7 @@ def test_ring_step_kernel_one_hop(dev, dtype, hop):
     torch.cuda.synchronize()
     assert tra.launches == n + 1
     for g, w in zip(got, ref.ring_step(q, k, v, *warm, [hop])):
-        torch.testing.assert_close(g, w, **TOL[torch.float32])
+        _close_attention(g, w, dtype)
     if hop[2] > hop[0]:   # every key in the future: the carry passes
         for g, w in zip(got, warm):
             assert torch.equal(g, w)
@@ -332,7 +373,7 @@ def test_ring_kernels_over_a_ragged_ring(dev, dtype):
         got = tra.ring_step(q, k, v, *carry, hops)
         carry = ref.ring_step(q, k, v, *carry, hops)
         for g, w in zip(got, carry):
-            torch.testing.assert_close(g, w, **TOL[torch.float32])
+            _close_attention(g, w, dtype)
     # the pad rows past each chunk see no key (l = 0): o and lse as
     # kernels/ops.py makes them, 0 and +inf there
     m, l, acc = carry
@@ -397,6 +438,81 @@ def test_ring_backward_skips_pad_rows(dev, dtype):
     dq = grads["q_valid"][0]
     for r, c in enumerate(chunks[1:], 1):
         assert dq[r, :, c:].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("hd,H,Hk", [(16, 8, 2), (32, 8, 2), (64, 8, 2),
+                                     (128, 8, 2), (64, 4, 1)])
+@pytest.mark.parametrize("hop", [
+    (0, 0, 0, 200, 200),       # the diagonal
+    (330, 0, 260, 77, 200),    # offset +70, ragged k_valid
+    (100, 0, 130, 200, 150),   # offset -30: rows < 30 see no key; pad rows
+    (400, 0, 0, 131, 97),      # all past: no edge but k_valid and q_valid
+    (0, 0, 500, 200, 200),     # all future: fully masked
+])
+def test_ring_step_tensor_cores(dev, hd, H, Hk, hop):
+    """The bf16 hop on the tensor cores over a warm carry, GQA 4 and MQA,
+    every head dim: the carry at the bf16 tolerance and norm; rows that
+    see no key (pad rows past q_valid, rows before the keys, a fully
+    masked hop) keep it bit for bit."""
+    bf, C, B = torch.bfloat16, 200, 2
+    q = _randn(dev, 1, B, C, H, hd, dtype=bf)
+    k = _randn(dev, 1, B, C, Hk, hd, dtype=bf, seed=1)
+    v = _randn(dev, 1, B, C, Hk, hd, dtype=bf, seed=2)
+    warm = ref.ring_step(q, k, v, *_carry(dev, 1, B, C, H, hd),
+                         [(hop[0], 0, hop[0] - 1000, C, C)])
+    n = tra.launches
+    got = tra.ring_step(q, k, v, *warm, [hop])
+    torch.cuda.synchronize()
+    assert tra.launches == n + 1
+    want = ref.ring_step(q, k, v, *warm, [hop])
+    for g, w in zip(got, want):
+        _close_attention(g, w, bf)
+    seen = ref.hop_mask([hop], C, C, causal=True, device=dev)[0].any(-1)
+    for g, w in zip(got, warm):
+        assert torch.equal(g[:, :, ~seen], w[:, :, ~seen])
+
+
+def test_ring_step_tensor_cores_norm_check_can_fail(dev):
+    """The norm-relative check reads a sound kernel well inside BF16_REL
+    and the plain fold with one key tile (keys 64-127) left out well
+    above it."""
+    bf, C, H, Hk, hd = torch.bfloat16, 256, 8, 2, 128
+    q = _randn(dev, 1, 1, C, H, hd, dtype=bf)
+    k = _randn(dev, 1, 1, C, Hk, hd, dtype=bf, seed=1)
+    v = _randn(dev, 1, 1, C, Hk, hd, dtype=bf, seed=2)
+    empty = _carry(dev, 1, 1, C, H, hd)
+    hop = [(0, 0, 0, C, C)]
+    got = tra.ring_step(q, k, v, *empty, hop)
+    want = ref.ring_step(q, k, v, *empty, hop)
+    ctl = empty
+    for a, b in ((0, 64), (128, C)):
+        ctl = ref.ring_step(q, k[:, :, a:b], v[:, :, a:b], *ctl,
+                            [(0, 0, a, b - a, C)])
+    assert _rel(got[2], want[2]) <= BF16_REL / 10
+    assert _rel(ctl[2], want[2]) > BF16_REL
+
+
+@pytest.mark.parametrize("hd", [32, 128])
+def test_ring_step_tensor_cores_over_a_padded_ring(dev, hd):
+    """Every step of a cp = 4 ring with ragged chunks (pad q tiles, ragged
+    k_valid, past, diagonal and wrap hops): each step from the plain
+    carry, at the bf16 tolerance and norm; the pad rows keep the empty
+    carry bit for bit."""
+    bf, chunks = torch.bfloat16, (261, 140, 197, 75)
+    R, B, C, H, Hk = 4, 1, 261, 8, 2
+    q = _randn(dev, R, B, C, H, hd, dtype=bf)
+    k = _randn(dev, R, B, C, Hk, hd, dtype=bf, seed=1)
+    v = _randn(dev, R, B, C, Hk, hd, dtype=bf, seed=2)
+    carry = _carry(dev, R, B, C, H, hd)
+    for s in range(R):
+        hops = tra.ring_hops(chunks, s)
+        got = tra.ring_step(q, k, v, *carry, hops)
+        carry = ref.ring_step(q, k, v, *carry, hops)
+        for g, w in zip(got, carry):
+            _close_attention(g, w, bf)
+        for r, c in enumerate(chunks):
+            for g, w in zip(got, _carry(dev, R, B, C, H, hd)):
+                assert torch.equal(g[r, :, c:], w[r, :, c:])
 
 
 def test_ring_step_bwd_refuses_repeated_sources(dev):

@@ -93,6 +93,20 @@ def test_entry_points_raise_without_cuda(no_cuda):
         serve_cli.main(["--smoke"])
 
 
+@pytest.mark.parametrize("argv", [[], ["--device-times"]],
+                         ids=["smoke", "device-times child"])
+def test_chip_smoke_fails_without_cuda(argv):
+    """``chip_smoke.py``, and its profiler child, exit non-zero and print
+    no result where torch sees no CUDA device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), *argv],
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert r.stdout == ""
+    assert "torch.cuda.is_available() is false" in r.stderr
+
+
 def test_engine_rejects_params_on_another_device():
     b = registry.get_bundle("llama3-8b", smoke=True)
     params = b.init(b.cfg, seed=0, device="cpu")

@@ -178,3 +178,24 @@ def test_tensor_core_kernels_refuse_unaligned_views():
                                 [..., :32])               # 72 B heads
     with pytest.raises(ValueError, match="16-byte"):
         build.require_aligned16("k", q=x.view(-1)[1:65].view(1, 64))
+
+
+def test_build_digest_follows_the_sources_and_flags(monkeypatch, tmp_path):
+    """The library's file name carries a digest of every kernel source,
+    header and nvcc flag, so an edited source is rebuilt, never loaded
+    stale."""
+    import shutil
+    from repro_torch.kernels import build
+    base = build._digest()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert build._digest() == base
+    for name in (build.SOURCES[-1], build.HEADERS[-1]):
+        text = (csrc / name).read_bytes()
+        (csrc / name).write_bytes(text + b"\n// edited\n")
+        assert build._digest() != base, name
+        (csrc / name).write_bytes(text)
+    assert build._digest() == base
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
+    assert build._digest() != base

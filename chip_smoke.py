@@ -10,16 +10,17 @@ Phases, each raising on failure so the script exits non-zero:
               (flash forward, ring_step forward and backward) and the
               selective scan, and their registers, spill bytes, dynamic
               shared memory and resident blocks per SM as the card reports
-              them
+              them, with those of the rmsnorm kernels at the main paths'
+              widths
   3. kernels  each kernel against its plain PyTorch version on the card at
               the main paths' shapes (bf16 tol 2e-2, fp32 tol 2e-5, the
               selective scan 2e-4 in y and its last state), timed with CUDA
               events beside the plain version and one library call where
               there is one;
-              rmsnorm also at a decode step's 8 rows, the scan at each
-              prefill length of the trace (S 128, 500, 1000); the flash
-              forward also at the reference training route's B1 S4096,
-              beside SDPA; the training kernels (ring_step, ring_step_bwd,
+              rmsnorm and swiglu also at a decode step's 8 rows, the scan
+              at each prefill length of the trace (S 128, 500, 1000); the
+              flash forward also at the reference training route's B1
+              S4096, beside SDPA; the training kernels (ring_step, ring_step_bwd,
               rmsnorm_bwd, swiglu_bwd, the flash backward and its lse) at
               the training shapes: the cp ring's, and B1 S4096 for the
               flash backward.  bf16 attention (the tensor cores take P and
@@ -45,12 +46,17 @@ Phases, each raising on failure so the script exits non-zero:
               counts, its step times, tokens/s and peak memory; the two
               step-0 losses agree within 2e-2
   7. device   every timed row's device time from a torch.profiler trace,
-              in a child process of this script (``--device-times``), so
-              that the profiler never slows the launches of this one
+              and its library call's (every kernel that call runs), and
+              the launch floor: the device time of ``zero_()`` on a
+              one-element tensor, the shortest kernel PyTorch launches; in
+              a child process of this script (``--device-times``), so that
+              the profiler never slows the launches of this one.
+              rmsnorm_bwd must run as one kernel a call
 Then one JSON line with every kernel (launches summed over the serve and
-train runs; rmsnorm has a second row at its decode shape, which takes the
-launches made inside decode steps, the first row the rest; the scan's row
-is its S1000 timing), the card line, and the last line
+train runs; rmsnorm and swiglu have a second row at their decode shape,
+which takes the launches made inside decode steps, the first row the rest;
+the scan's row is its S1000 timing; each row with its library call's device
+time and the floor), the card line, and the last line
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
 check and timing there as JSON.  Imports nothing of JAX.
 """
@@ -78,8 +84,18 @@ PEAKS = {  # marker: (bytes/s, bf16 tensor FLOP/s, fp32 FLOP/s)
 # An SM issues 16 special-function results (exp2, rcp, ...) per clock
 # against 128 fp32 FMAs (256 FLOP), so their peak is fp32 FLOP/s / 16.
 SFU_PER_FP32_FLOP = 1 / 16
-# the device kernels behind the rmsnorm wrapper (block- and warp-per-row)
-RMSNORM_KERNELS = ("rmsnorm_block_kernel", "rmsnorm_warp_kernel")
+# the device kernels behind the rmsnorm wrapper (a row in registers over a
+# block or a warp; the loop kernel past the register template)
+RMSNORM_KERNELS = ("rmsnorm_fwd_kernel", "rmsnorm_fwd_warp_kernel",
+                   "rmsnorm_loop_kernel")
+# rmsnorm's kernels as the main paths launch them: (bwd, D, dtype code)
+RMSNORM_ATTRS = {"rmsnorm_fwd_kernel D4096 bf16": (0, 4096, 1),
+                 "rmsnorm_fwd_warp_kernel D128 bf16": (0, 128, 1),
+                 "rmsnorm_bwd_ring_kernel D4096 bf16": (1, 4096, 1),
+                 "rmsnorm_bwd_ring_kernel D100 fp32": (1, 100, 0),
+                 "rmsnorm_bwd_general_kernel D100 bf16": (1, 100, 1)}
+# a row whose device time is within this many launch floors is at its floor
+AT_FLOOR = 1.5
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 FP32_TOL = dict(rtol=2e-5, atol=2e-5)
 # bf16 attention on the tensor cores takes P (and, backward, dS) as bf16
@@ -215,13 +231,18 @@ def phase_build():
         if show and ("entry function" in line or "Used" in line
                      or "spill" in line):
             log(f"[build]   {line.strip()}")
-    variants = [(kernel, fn, hd, f"hd{hd}", "(bf16, as launched)")
+    variants = [(kernel, fn, (hd,), f"hd{hd}", "(bf16, as launched)")
                 for kernel, fn in TC_KERNELS.items() for hd in HEAD_DIMS]
-    variants += [(*SCAN_KERNEL, code, f"u {dt}", "(as the prefill launches it)")
+    variants += [(*SCAN_KERNEL, (code,), f"u {dt}",
+                  "(as the prefill launches it)")
                  for dt, code in (("bf16", 1), ("fp32", 0))]
+    for key, args in RMSNORM_ATTRS.items():
+        kernel, case = key.split(" ", 1)
+        variants.append((kernel, "rmsnorm_attrs", args, case,
+                         "(as launched)"))
     attrs = {}
-    for kernel, fn, arg, key, how in variants:
-        a = build.kernel_attrs(fn, arg)
+    for kernel, fn, args, key, how in variants:
+        a = build.kernel_attrs(fn, *args)
         attrs[f"{kernel} {key}"] = a
         log(f"[build]   {kernel} {key} {how}: "
             f"{a['registers']} registers, {a['spill_bytes']} B local, "
@@ -271,8 +292,8 @@ def phase_kernels(torch, dev, name, device_only=False):
     readings = []
 
     # rmsnorm: decode (8 rows) and prefill (1000 rows) at D=4096; D=128 is
-    # the one-warp-per-row path (qk_norm width)
-    for rows, D in ((8, 4096), (1000, 4096), (256, 128)):
+    # the one-warp-per-row path (qk_norm width), D=20480 the loop kernel
+    for rows, D in ((8, 4096), (1000, 4096), (256, 128), (3, 20480)):
         for dt in (bf, f32):
             x, s = randn(rows, D, dtype=dt), randn(D, dtype=dt)
             compare("rmsnorm", f"{rows}x{D} {dt}", rn.rmsnorm(x, s, 1e-5),
@@ -331,7 +352,10 @@ def phase_kernels(torch, dev, name, device_only=False):
     ops_ms = 4 * pairs * hd * H / bf16_peak * 1e3
     if device_only:
         fwd4096 = {"device_ms": device_ms(lambda: fa.flash_attention(q, k, v),
-                                          ("flash_fwd",))}
+                                          ("flash_fwd",)),
+                   "library_device_ms": device_ms(
+                       lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, is_causal=True, enable_gqa=True))}
     else:
         fwd4096 = {
             "shape": f"B1 S{S} H32 Hk8 hd128 causal bf16",
@@ -379,6 +403,7 @@ def phase_kernels(torch, dev, name, device_only=False):
     di, ds = 8192, 16
     scans = {S_: scan_inputs(1, S_, di, ds, bf) for S_ in SCAN_SEQS}
     xd = randn(8, 4096, dtype=bf)     # a decode step's rows
+    gd, ud = randn(8, 14336, dtype=bf), randn(8, 14336, dtype=bf)
 
     def scan_cost(S_):
         """Bytes and operations of one scan of S_ steps: u (bf16), dt and
@@ -424,6 +449,17 @@ def phase_kernels(torch, dev, name, device_only=False):
             library=None, kernels=("swiglu_kernel",),
             bytes=3 * 1000 * 14336 * el,
             ops=[(8 * 1000 * 14336, fp32_peak)]),
+        # the same at a decode step's 8 rows (32 launches a llama step)
+        "swiglu decode": dict(
+            name="swiglu",
+            source="src/repro_torch/kernels/csrc/swiglu.cu",
+            replaces="src/repro/kernels/swiglu.py:16",
+            shape="g, u (8, 14336) bf16 -> bf16",
+            fn=lambda: sg.swiglu(gd, ud, bf),
+            plain=lambda: ref.swiglu(gd, ud, bf),
+            library=None, kernels=("swiglu_kernel",),
+            bytes=3 * 8 * 14336 * el,
+            ops=[(8 * 8 * 14336, fp32_peak)]),
         "flash_attention": dict(
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:91",
@@ -452,7 +488,7 @@ def phase_kernels(torch, dev, name, device_only=False):
     timed = {}
     for kname, r in rows.items():
         if device_only:
-            timed[kname] = {"device_ms": device_ms(r["fn"], r["kernels"])}
+            timed[kname] = _device_row(device_ms, r)
             continue
         bytes_ms = r["bytes"] / bw * 1e3
         ops_ms = max(n / peak for n, peak in r["ops"]) * 1e3
@@ -503,7 +539,7 @@ def phase_train_kernels(torch, dev, name, device_only=False):
     from repro_torch.kernels import ring_attention as ra
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import swiglu as sg
-    from repro_torch.utils.timing import device_ms, event_ms
+    from repro_torch.utils.timing import device_ms, device_profile, event_ms
 
     bw, bf16_peak, fp32_peak = peaks(name)
     gen = torch.Generator(device=dev)
@@ -683,11 +719,15 @@ def phase_train_kernels(torch, dev, name, device_only=False):
     compare("rmsnorm_bwd", f"{TRAIN_SEQ}x4096 bf16 (dx,dscale)",
             rn.rmsnorm_bwd(x, sc, dy, 1e-5), ref.rmsnorm_bwd(x, sc, dy, 1e-5),
             BF16_TOL)
-    xs_, ss_, dys = (randn(37, 100, dtype=f32), randn(100, dtype=f32),
-                     randn(37, 100, dtype=f32))
-    compare("rmsnorm_bwd", "37x100 fp32 (dx,dscale)",
-            rn.rmsnorm_bwd(xs_, ss_, dys), ref.rmsnorm_bwd(xs_, ss_, dys),
-            FP32_TOL)
+    # off the main path: a masked ring row (D 100 fp32: 25 packs) and the
+    # general kernel (D 100 bf16 is no multiple of 8; D 20480 is past the
+    # ring)
+    for rows, D, dt in ((37, 100, f32), (37, 100, bf), (40, 20480, bf)):
+        xs_, ss_, dys = (randn(rows, D, dtype=dt), randn(D, dtype=dt),
+                         randn(rows, D, dtype=dt))
+        compare("rmsnorm_bwd", f"{rows}x{D} {dt} (dx,dscale)",
+                rn.rmsnorm_bwd(xs_, ss_, dys), ref.rmsnorm_bwd(xs_, ss_, dys),
+                tol[dt])
     g, u, dh = (randn(TRAIN_SEQ, 14336, dtype=bf) for _ in range(3))
     compare("swiglu_bwd", f"{TRAIN_SEQ}x14336 bf16 (dg,du)",
             sg.swiglu_bwd(g, u, dh), ref.swiglu_bwd(g, u, dh), BF16_TOL)
@@ -769,7 +809,7 @@ def phase_train_kernels(torch, dev, name, device_only=False):
             shape=f"x, dy ({S}, 4096) bf16 -> dx bf16, dscale fp32",
             fn=lambda: rn.rmsnorm_bwd(x, sc, dy, 1e-5),
             plain=lambda: ref.rmsnorm_bwd(x, sc, dy, 1e-5), per_call=1,
-            kernels=("rmsnorm_bwd_kernel", "column_sum_kernel"),
+            kernels=("rmsnorm_bwd_ring_kernel",),
             library=lambda: torch.autograd.grad(rms_out, (xr, sr), dy,
                                                 retain_graph=True),
             bytes=3 * S * 4096 * el + 4096 * (el + f4),
@@ -794,7 +834,10 @@ def phase_train_kernels(torch, dev, name, device_only=False):
     for kname, r in rows.items():
         n = r["per_call"]
         if device_only:
-            timed[kname] = {"device_ms": device_ms(r["fn"], r["kernels"]) / n}
+            timed[kname] = _device_row(device_ms, r, n)
+            if kname == "rmsnorm_bwd":   # what one call runs on the card
+                timed[kname]["runs_a_call"] = {
+                    k: c for k, (c, _) in device_profile(r["fn"]).items()}
             continue
         bytes_ms = r["bytes"] / bw * 1e3
         ops_ms = max(n / peak for n, peak in r["ops"]) * 1e3
@@ -842,6 +885,14 @@ def phase_train_kernels(torch, dev, name, device_only=False):
     log(f"[kernels] time ring_step_bwd    cp4 {CP_CHUNKS} bf16 per launch: "
         f"kernel {cp_bwd_ms:.4f} ms, bound {cp_bwd_bound:.4f} ms")
     return checks, timed, extra
+
+
+def _device_row(device_ms, r, per_call: int = 1) -> dict:
+    """A timed row's profiler readings: its kernels' device time a launch,
+    and its library call's (everything that call runs on the card)."""
+    return {"device_ms": device_ms(r["fn"], r["kernels"]) / per_call,
+            "library_device_ms": (device_ms(r["library"]) if r["library"]
+                                  else None)}
 
 
 def _max_err(got, want) -> float:
@@ -949,10 +1000,13 @@ def phase_serve(torch, dev, arch):
     log(f"[serve] {arch} launches {launches} expected {expect}")
     assert launches == expect, (launches, expect)
     per_step = L + 1 if cfg.family == "ssm" else 2 * L + 1
-    log(f"[serve] {arch} rmsnorm launches in decode steps "
-        f"{decode_launches['rmsnorm']} expected "
-        f"{per_step * report.decode_steps}")
+    sg_step = 0 if cfg.family == "ssm" else L
+    log(f"[serve] {arch} rmsnorm / swiglu launches in decode steps "
+        f"{decode_launches['rmsnorm']} / {decode_launches['swiglu']} "
+        f"expected {per_step * report.decode_steps} / "
+        f"{sg_step * report.decode_steps}")
     assert decode_launches["rmsnorm"] == per_step * report.decode_steps
+    assert decode_launches["swiglu"] == sg_step * report.decode_steps
 
     def finite(fn, where):
         def call(*a):
@@ -1111,15 +1165,16 @@ def phase_device_times(torch):
 def device_times_main(torch, dev) -> int:
     """The child of phase 7: phase 3's checks and rows again, each row's
     profiler device time alone, as one JSON line."""
+    from repro_torch.utils.timing import device_ms
     name = torch.cuda.get_device_name(dev)
     _, timed, extra = phase_kernels(torch, dev, name, device_only=True)
     _, train_timed, train_extra = phase_train_kernels(torch, dev, name,
                                                       device_only=True)
     timed.update(train_timed)
-    times = {k: t["device_ms"] for k, t in timed.items()}
-    times["flash_attention_S4096"] = extra["flash_attention_S4096"][
-        "device_ms"]
-    times.update(train_extra)
+    times = dict(timed, flash_attention_S4096=extra["flash_attention_S4096"],
+                 **train_extra)
+    one = torch.zeros(1, device=dev)
+    times["floor_ms"] = device_ms(lambda: one.zero_(), iters=100)
     print(json.dumps(times))
     return 0
 
@@ -1176,10 +1231,10 @@ def main(argv=None) -> int:
         serve[arch], counts = phase_serve(torch, dev, arch)
         for kname, n in counts.items():
             launches[kname] += n
-    # rmsnorm's two rows: its launches inside decode steps (8 rows or
-    # fewer), and the rest (prefills and training)
-    decode_rms = sum(serve[a]["decode_launches"]["rmsnorm"]
-                     for a in SERVE_ARCHS)
+    # rmsnorm's and swiglu's two rows: their launches inside decode steps
+    # (8 rows or fewer), and the rest (prefills and training)
+    decode = {k: sum(serve[a]["decode_launches"][k] for a in SERVE_ARCHS)
+              for k in ("rmsnorm", "swiglu")}
     train_parity = phase_train_parity(torch, dev)
     train = {}
     for route in ("cp", "reference"):
@@ -1191,16 +1246,29 @@ def main(argv=None) -> int:
         f"diff {abs(l_cp - l_ref):.3e} (tol {TRAIN_LOSS_TOL})")
     assert abs(l_cp - l_ref) < TRAIN_LOSS_TOL, (l_cp, l_ref)
     device = phase_device_times(torch)
-    for kname, t in timed.items():
-        t["device_ms"] = device[kname]
+    floor = device["floor_ms"]
+    log(f"[device] launch floor (zero_ of a one-element tensor): "
+        f"{floor:.4f} ms")
+    for kname, t in list(timed.items()) + [
+            ("flash_attention_S4096", extra["flash_attention_S4096"])]:
+        t.update(device[kname])
+        t["floors"] = t["device_ms"] / floor
+        lib = t["library_device_ms"]
         log(f"[device] {kname:15s} {t['shape']}: device "
-            f"{t['device_ms']:.4f} ms (events {t['ms']:.4f} ms)")
-    extra["flash_attention_S4096"]["device_ms"] = device[
-        "flash_attention_S4096"]
+            f"{t['device_ms']:.4f} ms (events {t['ms']:.4f} ms), "
+            f"{t['floors']:.2f} floors"
+            + (" (at its floor)" if t["floors"] <= AT_FLOOR else "")
+            + (f"; library device {lib:.4f} ms (events "
+               f"{t['library_ms']:.4f} ms)" if lib is not None else ""))
+    runs = timed["rmsnorm_bwd"]["runs_a_call"]
+    log(f"[device] rmsnorm_bwd runs a call: {runs}")
+    assert (sum(runs.values()) == 1
+            and all("rmsnorm_bwd_ring_kernel" in k for k in runs)), runs
     extra["ring_step_bwd_cp4_per_launch_device_ms"] = device[
         "ring_step_bwd_cp4_per_launch_device_ms"]
-    row_launches = {"rmsnorm": launches["rmsnorm"] - decode_rms,
-                    "rmsnorm decode": decode_rms}
+    row_launches = {}
+    for k, n in decode.items():
+        row_launches[k], row_launches[f"{k} decode"] = launches[k] - n, n
 
     worst = {}
     for c in checks:
@@ -1216,7 +1284,9 @@ def main(argv=None) -> int:
                "max_abs_err": t["max_abs_err"], "device_ms": t["device_ms"],
                "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-               "library_ms": t["library_ms"]})
+               "library_ms": t["library_ms"],
+               "library_device_ms": t["library_device_ms"],
+               "floor_ms": floor})
     report = {"card": smi, "device_name": name, "build_s": build_s,
               "build": build_info,
               "checks": checks, "worst_err_by_kernel": worst,

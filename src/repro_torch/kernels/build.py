@@ -42,7 +42,7 @@ _SIGNATURES = {
     "repro_cuda_error_string": (_c.c_char_p, [_c.c_int]),
     "rmsnorm_fwd": (_c.c_int, [_P, _P, _P, _c.c_longlong, _c.c_int,
                                _c.c_float, _c.c_int, _P]),
-    "rmsnorm_bwd": (_c.c_int, [_P] * 6 + [_c.c_longlong, _c.c_int, _c.c_int,
+    "rmsnorm_bwd": (_c.c_int, [_P] * 7 + [_c.c_longlong, _c.c_int, _c.c_int,
                                           _c.c_float, _c.c_int, _P]),
     "swiglu_fwd": (_c.c_int, [_P, _P, _P, _c.c_longlong, _c.c_int,
                               _c.c_int, _P]),
@@ -64,6 +64,8 @@ _SIGNATURES = {
     "ring_step_fwd_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
     "ssm_scan_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
     "ring_step_bwd_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
+    "rmsnorm_attrs": (_c.c_int, [_c.c_int] * 3 + [_c.POINTER(_c.c_int)]),
+    "rmsnorm_bwd_blocks_per_sm": (_c.c_int, []),
 }
 
 _lock = threading.Lock()
@@ -155,13 +157,14 @@ def check(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
 
 
-def kernel_attrs(fn: str, arg: int) -> dict:
+def kernel_attrs(fn: str, *args: int) -> dict:
     """What the card's compiled kernel behind the C function ``fn`` takes
     as launched: the bf16 tensor-core kernels (``flash_attention_fwd_attrs``,
-    ``ring_step_fwd_attrs``, ``ring_step_bwd_attrs``) at head dim ``arg``,
-    the selective scan (``ssm_scan_attrs``) for u of dtype code ``arg``."""
+    ``ring_step_fwd_attrs``, ``ring_step_bwd_attrs``) at head dim ``args``,
+    the selective scan (``ssm_scan_attrs``) for u of dtype code ``args``,
+    rmsnorm (``rmsnorm_attrs``) at ``(bwd, D, dtype code)``."""
     out = (ctypes.c_int * 4)()
-    check(getattr(library(), fn)(arg, out), fn)
+    check(getattr(library(), fn)(*args, out), fn)
     return dict(zip(("registers", "spill_bytes", "smem_bytes",
                      "blocks_per_sm"), out))
 

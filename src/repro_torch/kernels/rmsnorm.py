@@ -1,24 +1,40 @@
 """RMSNorm on the card: wrapper of ``csrc/rmsnorm.cu``.
 
 Replaces the Pallas kernel ``repro/kernels/rmsnorm.py::rmsnorm``.  Bound by
-bytes (each x read once, each output written once); the kernel reads a row
-with 16-byte loads, reduces the fp32 sum of squares in registers and shared
-memory, and writes the scaled row in x's dtype.  Plain version:
-``kernels/ref.py::rmsnorm``.
+bytes (each x read once, each output written once); the kernel holds a row
+in registers as 16-byte packs, x and scale loaded together, reduces the
+fp32 sum of squares with one barrier, and writes the scaled row in x's
+dtype.  Plain version: ``kernels/ref.py::rmsnorm``.
 
-``rmsnorm_bwd`` wraps the backward of the same source (dx and the
-cross-row dscale sum, the latter from per-block partial rows and a second
-pass; bound by bytes).  Plain version: ``kernels/ref.py::rmsnorm_bwd``.
+``rmsnorm_bwd`` wraps the backward of the same source: one cooperative
+launch computes dx and the cross-row dscale sum, each row read once through
+a cp.async ring, dscale summed over the blocks' partial rows after a grid
+barrier in a fixed order (bit-identical from call to call).  Bound by
+bytes.  Plain version: ``kernels/ref.py::rmsnorm_bwd``.
 """
 from __future__ import annotations
+
+import threading
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-BWD_BLOCKS = 2 * 132    # rows are walked by at most two blocks per SM
 launches = 0       # rmsnorm launches since the last reset
 bwd_launches = 0   # rmsnorm_bwd launches since the last reset
+# the backward's grid-barrier counters, one per (device, stream): zeroed
+# once, and back to their base after every launch
+_barriers: Dict[Tuple[int, int], torch.Tensor] = {}
+_barriers_lock = threading.Lock()
+
+
+def _barrier(dev: torch.device, stream: int) -> torch.Tensor:
+    with _barriers_lock:
+        key = (dev.index, stream)
+        if key not in _barriers:
+            _barriers[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+        return _barriers[key]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -66,16 +82,20 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
             and dy.is_contiguous()):
         raise ValueError("rmsnorm_bwd kernel takes contiguous x, scale, dy")
     dx = torch.empty_like(x)
-    dscale = torch.zeros((D,), dtype=torch.float32, device=dev)
     rows = x.numel() // D if D else 0
     if rows == 0:
-        return dx, dscale
-    nb = min(rows, BWD_BLOCKS)
+        return dx, torch.zeros((D,), dtype=torch.float32, device=dev)
+    dscale = torch.empty((D,), dtype=torch.float32, device=dev)
+    lib = build.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nb = min(rows, lib.rmsnorm_bwd_blocks_per_sm() * sms)
     partial = torch.empty((nb, D), dtype=torch.float32, device=dev)
-    err = build.library().rmsnorm_bwd(
+    stream = build.stream_handle(dev)
+    err = lib.rmsnorm_bwd(
         x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), dscale.data_ptr(), rows, D, nb, float(eps),
-        code, build.stream_handle(dev))
+        partial.data_ptr(), dscale.data_ptr(),
+        _barrier(dev, stream).data_ptr(), rows, D, nb, float(eps), code,
+        stream)
     build.check(err, "rmsnorm_bwd")
     bwd_launches += 1
     return dx, dscale

@@ -73,7 +73,14 @@ def _close_attention(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rows,D", [(8, 4096), (37, 100), (300, 128)])
+@pytest.mark.parametrize("rows,D", [
+    (8, 4096), (37, 100), (300, 128),
+    # decode-sized row counts at llama's and a 5120 width (4 packs a thread)
+    (1, 4096), (3, 4096), (64, 4096), (1, 5120), (3, 5120), (8, 5120),
+    (64, 5120),
+    (5, 37),                     # one element a pack
+    (3, 16384), (2, 20480),      # the last register layout; the loop kernel
+])
 def test_rmsnorm_kernel(dev, dtype, rows, D):
     x, s = _randn(dev, rows, D, dtype=dtype), _randn(dev, D, dtype=dtype,
                                                      seed=1)
@@ -525,16 +532,80 @@ def test_ring_step_bwd_refuses_repeated_sources(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rows,D", [(8, 4096), (37, 100), (300, 128),
-                                    (600, 256)])
+@pytest.mark.parametrize("rows,D", [
+    (8, 4096), (37, 100), (300, 128), (600, 256),
+    # row counts about the grid of 2 blocks an SM (264 on 132 SMs), and
+    # the training shape and one more
+    (1, 4096), (263, 4096), (265, 4096), (4096, 4096), (4097, 4096),
+    # widths: the qk-norm width, 4 and 8 packs a thread, the last ring
+    # width in bf16, and past the ring (the general kernel)
+    (64, 128), (300, 5120), (130, 8192), (50, 16384), (40, 20480),
+])
 def test_rmsnorm_bwd_kernel(dev, dtype, rows, D):
     x = _randn(dev, rows, D, dtype=dtype)
     s = _randn(dev, D, dtype=dtype, seed=1)
     dy = _randn(dev, rows, D, dtype=dtype, seed=2)
+    n = trn.bwd_launches
     dx, ds = trn.rmsnorm_bwd(x, s, dy, 1e-5)
-    want_dx, want_ds = ref.rmsnorm_bwd(x, s, dy, 1e-5)
-    torch.testing.assert_close(dx, want_dx, **TOL[dtype])
-    torch.testing.assert_close(ds, want_ds, **TOL[torch.float32])
+    torch.cuda.synchronize()
+    assert trn.bwd_launches == n + 1
+    _close_rmsnorm_bwd((dx, ds), (x, s, dy), dtype)
+
+
+def _bwd_inputs(dev, rows, D, dtype, seed=0):
+    return (_randn(dev, rows, D, dtype=dtype, seed=seed),
+            _randn(dev, D, dtype=dtype, seed=seed + 1),
+            _randn(dev, rows, D, dtype=dtype, seed=seed + 2))
+
+
+def _close_rmsnorm_bwd(got, args, dtype):
+    """dx against the plain backward at ``dtype``'s tolerance; dscale, an
+    fp32 sum over the rows, at 2e-5 against the plain backward run in fp64
+    (at 4096 rows two fp32 sums in different orders differ by more than
+    2e-5: PERF.md)."""
+    want_dx, _ = ref.rmsnorm_bwd(*args, 1e-5)
+    _, want_ds = ref.rmsnorm_bwd(*(t.double() for t in args), 1e-5)
+    torch.testing.assert_close(got[0], want_dx, **TOL[dtype])
+    torch.testing.assert_close(got[1].double(), want_ds,
+                               **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("rows,D,dtype", [
+    (4096, 4096, torch.bfloat16),      # the ring kernel
+    (37, 100, torch.float32),          # the general kernel
+])
+def test_rmsnorm_bwd_is_deterministic(dev, rows, D, dtype):
+    """dscale's cross-block sum runs in a fixed order: two calls agree bit
+    for bit.  A call of another size between them (another grid) leaves the
+    barrier counter ready: the calls after it are still right."""
+    args = _bwd_inputs(dev, rows, D, dtype)
+    first = trn.rmsnorm_bwd(*args)
+    other = _bwd_inputs(dev, 265, 5120, dtype, seed=5)
+    dx_o, ds_o = trn.rmsnorm_bwd(*other)
+    second = trn.rmsnorm_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+    _close_rmsnorm_bwd((dx_o, ds_o), other, dtype)
+    _close_rmsnorm_bwd(second, args, dtype)
+
+
+def test_rmsnorm_bwd_is_one_kernel(dev):
+    """dx and dscale come from one kernel a call, and nothing else runs on
+    the card (the outputs and scratch are allocated, not filled)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = _bwd_inputs(dev, 4096, 4096, torch.bfloat16)
+    trn.rmsnorm_bwd(*args)           # the stream's barrier counter, once
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            trn.rmsnorm_bwd(*args)
+        torch.cuda.synchronize()
+    seen = {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+    assert list(seen.values()) == [3], seen
+    assert "rmsnorm_bwd_ring_kernel" in next(iter(seen)), seen
 
 
 @pytest.mark.parametrize("dti,dto", [(torch.bfloat16, torch.bfloat16),

@@ -10,6 +10,7 @@
 """
 import ast
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -105,6 +106,20 @@ def test_chip_smoke_fails_without_cuda(argv):
     assert r.returncode != 0
     assert r.stdout == ""
     assert "torch.cuda.is_available() is false" in r.stderr
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """``chip_smoke.py`` copied into a directory that holds nothing else of
+    the repo exits 1 and prints no result, before it imports torch: the
+    required failure of the script without the program (on a machine with
+    a card as on one without)."""
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    r = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 1
+    assert r.stdout == ""
+    assert "src/repro_torch not found next to this script" in r.stderr
 
 
 def test_engine_rejects_params_on_another_device():

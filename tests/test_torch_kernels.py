@@ -121,7 +121,10 @@ def test_flash_attention_fully_masked_rows_are_zero():
     _close(got[:, 16:], np.asarray(want)[:, 16:], "float32")
 
 
-@pytest.mark.parametrize("shape", [(2, 37, 64), (300, 256), (4, 128)])
+@pytest.mark.parametrize("shape", [(2, 37, 64), (300, 256), (4, 128),
+                                   # row counts off the multiples of 8 at
+                                   # the decode widths, and 5120
+                                   (3, 4096), (13, 5120), (265, 128)])
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
 def test_rmsnorm_matches_pallas(shape, name):
     rng = np.random.default_rng(5)

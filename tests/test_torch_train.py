@@ -34,7 +34,7 @@ from repro.parallel.sharding import ShardingRules  # noqa: E402
 from repro.train import steps as jsteps  # noqa: E402
 from repro_torch.core.plan import ParallelPlan, StagePlacement  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
-from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
@@ -73,24 +73,35 @@ def _tree_close(got, want, tol, path=""):
 
 
 # ------------------------------------------------------ backward refs ----
-@pytest.mark.parametrize("shape", [(37, 64), (4, 5, 128)])
+@pytest.mark.parametrize("shape", [(37, 64), (4, 5, 128),
+                                   # a row count off the multiples of 8,
+                                   # and a 5120 width
+                                   (265, 128), (13, 5120)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_bwd_matches_jax_vjp(shape, dtype):
+    """The plain backward, and ``ops.rmsnorm``'s CPU path forward and
+    through autograd, against the JAX oracle and its ``jax.vjp``."""
     rng = np.random.default_rng(0)
     xj, xt = _pair(rng, shape, dtype)
     sj, st = _pair(rng, shape[-1:], dtype)
     dj, dt = _pair(rng, shape, dtype)
-    _, vjp = jax.vjp(lambda x, s: jref.rmsnorm_ref(x, s, 1e-5), xj, sj)
+    want, vjp = jax.vjp(lambda x, s: jref.rmsnorm_ref(x, s, 1e-5), xj, sj)
     want_dx, want_ds = vjp(dj)
     dx, ds = ref.rmsnorm_bwd(xt, st, dt, 1e-5)
     assert dx.dtype == xt.dtype and ds.dtype == torch.float32
     tol = BF16 if dtype == "bfloat16" else F32
-    np.testing.assert_allclose(_to_np(dx), _np(want_dx), **tol)
     # dscale sums over rows: scale the bf16 tolerance by the magnitude
-    np.testing.assert_allclose(_to_np(ds), _np(want_ds),
-                               rtol=tol["rtol"],
-                               atol=tol["atol"] * np.sqrt(xt.numel()
-                                                          / shape[-1]))
+    ds_tol = dict(rtol=tol["rtol"],
+                  atol=tol["atol"] * np.sqrt(xt.numel() / shape[-1]))
+    np.testing.assert_allclose(_to_np(dx), _np(want_dx), **tol)
+    np.testing.assert_allclose(_to_np(ds), _np(want_ds), **ds_tol)
+    xg, sg = xt.clone().requires_grad_(), st.clone().requires_grad_()
+    out = ops.rmsnorm(xg, sg, 1e-5)
+    out.backward(dt)
+    assert xg.grad.dtype == xt.dtype and sg.grad.dtype == st.dtype
+    np.testing.assert_allclose(_to_np(out), _np(want), **tol)
+    np.testing.assert_allclose(_to_np(xg.grad), _np(want_dx), **tol)
+    np.testing.assert_allclose(_to_np(sg.grad), _np(want_ds), **ds_tol)
 
 
 @pytest.mark.parametrize("shape", [(5, 7, 128), (300, 96)])

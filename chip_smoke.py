@@ -45,6 +45,16 @@ Phases, each raising on failure so the script exits non-zero:
               of the reference route, each with finite losses, exact launch
               counts, its step times, tokens/s and peak memory; the two
               step-0 losses agree within 2e-2
+  6b. plan   the port's planner and profile runner on the card: the cp
+              chunks above come from its cp_split; llama3-8b's per-layer
+              forward and backward at full width, seq 4096, measured
+              through the kernels at depths 1 and 2 (exact launch
+              counts), and a quick kernel sweep, into a ProfileStore saved
+              under chiprun_out/profiles/; the profiled and the analytic
+              predictor's step and peak memory for phase 6's reference
+              plan beside the measured ones; the planner's plan for one
+              H100 (pp 1, tp 1, dp 1, cp 1); the Eq. 2 MFU of the measured
+              step
   7. device   every timed row's device time from a torch.profiler trace,
               and its library call's (every kernel that call runs), and
               the launch floor: the device time of ``zero_()`` on a
@@ -116,10 +126,12 @@ SCAN_SEQS = (128, 500, 1000)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 # the training slice: llama3-8b at full width, cut to 4 layers (its train
 # state, ~16 bytes a parameter, does not fit 80 GB at 32), one sequence of
-# 4096, the cp = 4 chunks of segmentation.cp_split(4096, 4, attn=1/4096,
-# lin=0.5) in the JAX package (hard-coded: nothing of JAX is imported)
+# 4096 over a cp = 4 ring whose chunks the port's planner splits
+# (segmentation.cp_split(4096, 4, attn=1/4096, lin=0.5); main sets them
+# once src/ is importable)
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 3
-CP_CHUNKS = (1383, 1057, 884, 772)
+TRAIN_CP, CP_SPLIT = 4, dict(attn=1 / TRAIN_SEQ, lin=0.5)
+CP_CHUNKS: tuple = ()
 SMOKE_CP_CHUNKS = (40, 31, 25)
 TRAIN_LOSS_TOL = 2e-2   # cp vs reference step-0 loss, bf16
 
@@ -1142,6 +1154,122 @@ def phase_train(torch, dev, route: str):
     return summary, launches
 
 
+# ------------------------------------------------------------ phase 6b ---
+PROFILE_SEQS, PROFILE_MBS = (TRAIN_SEQ,), (1,)
+PROFILE_WARMUP, PROFILE_REPS = 2, 5
+KERNEL_SEQS, KERNEL_MBS = (128,), (1, 2)   # the runner's --quick shapes
+
+
+def _probe_launches(depths, calls: int) -> dict:
+    """Launches of ``calls`` forward calls and ``calls`` step calls of the
+    reference loss at each depth: a forward launches rmsnorm 2L+1, swiglu
+    L and flash L times; a step does that and the backward kernels."""
+    out = {}
+    for L in depths:
+        for k, n in (("rmsnorm", 2 * (2 * L + 1)), ("swiglu", 2 * L),
+                     ("flash_attention", 2 * L), ("rmsnorm_bwd", 2 * L + 1),
+                     ("swiglu_bwd", L), ("ring_step_bwd", L)):
+            out[k] = out.get(k, 0) + n * calls
+    return out
+
+
+def phase_plan(torch, dev, ref: dict):
+    """The port's profile runner, predictor and planner on the card,
+    against phase 6's measured reference step ``ref``."""
+    from repro_torch.core import cluster as C
+    from repro_torch.core import planner
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    from repro_torch.core.predictor import PerformancePredictor
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.profile import (PROFILE_DIR, ProfiledCostModel,
+                                     ProfileStore, runner)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kind = runner.device_kind(dev)
+    store = ProfileStore()
+    calls = PROFILE_WARMUP + PROFILE_REPS
+    ops.reset_launch_counts()
+    runner.bench_layers(store, kind, "llama3-8b", seqs=PROFILE_SEQS,
+                        micro_bss=PROFILE_MBS, tp=1, warmup=PROFILE_WARMUP,
+                        reps=PROFILE_REPS, verbose=False, smoke=False,
+                        device=dev)
+    launches = ops.launch_counts()
+    expect = dict.fromkeys(launches, 0)
+    expect.update(_probe_launches((1, 2), calls * len(PROFILE_SEQS)
+                                  * len(PROFILE_MBS)))
+    log(f"[plan] bench_layers launches {launches} expected {expect}")
+    assert launches == expect, (launches, expect)
+    ops.reset_launch_counts()
+    runner.bench_kernels(store, kind, KERNEL_SEQS, KERNEL_MBS, warmup=1,
+                         reps=3, verbose=False, device=dev)
+    k_launches = ops.launch_counts()
+    k_expect = dict.fromkeys(k_launches, 0)
+    n = 4 * len(KERNEL_SEQS) * len(KERNEL_MBS)   # (1 + 3) fwd, then grad
+    k_expect.update(rmsnorm=2 * n, rmsnorm_bwd=n, swiglu=2 * n,
+                    swiglu_bwd=n, flash_attention=2 * n, ring_step_bwd=n)
+    log(f"[plan] bench_kernels launches {k_launches} expected {k_expect}")
+    assert k_launches == k_expect, (k_launches, k_expect)
+    path = store.save(PROFILE_DIR / f"{kind}.json")
+    shape = {"arch": "llama3-8b", "seq_len": TRAIN_SEQ, "micro_bs": 1,
+             "tp": 1}
+    step = store.get(kind, "layer_step", shape).value
+    probes = {e.shape["n_layers"]: e.value
+              for e in store.entries(kind, "loss_probe")}
+    log(f"[plan] {kind} layer_step S{TRAIN_SEQ}: fwd_s {step['fwd_s']!r} "
+        f"bwd_s {step['bwd_s']!r}; loss probes {json.dumps(probes)}; "
+        f"{len(store)} entries -> {path}")
+    assert step["fwd_s"] > 0 and step["bwd_s"] > 0, step
+
+    cfg = registry.get_config("llama3-8b", num_layers=TRAIN_LAYERS)
+    card = C.ClusterSpec(groups=(C.NodeGroup(C.H100, 1, accel_per_node=1),))
+    src = ProfiledCostModel(store, device_map={C.H100.name: kind})
+    plan = ParallelPlan(
+        stages=(StagePlacement(0, TRAIN_LAYERS, 1, 1, True),), micro_bs=1,
+        global_batch=1, seq_len=TRAIN_SEQ)
+    prof = PerformancePredictor(card, cfg, cost_source=src).predict(plan)
+    ana = PerformancePredictor(card, cfg).predict(plan)
+    steady = ref["step_s"][1:]
+    measured = sum(steady) / len(steady)
+    for name, pr in (("profiled", prof), ("analytic", ana)):
+        log(f"[plan] {name} prediction {plan.describe()}: iter_time "
+            f"{pr.iter_time!r} s vs measured {measured!r} s (ratio "
+            f"{pr.iter_time / measured!r}); peak_mem_gb "
+            f"{pr.peak_mem_gb[0]!r} vs measured {ref['peak_mem_gb']!r}; "
+            f"mfu {pr.mfu!r}; fits {pr.fits}")
+        assert math.isfinite(pr.iter_time) and pr.iter_time > 0, pr
+        assert pr.fits, pr
+    assert src.hits > 0, "the profile served no layer time"
+    res = planner.search(card, cfg, global_batch=1, seq_len=TRAIN_SEQ,
+                         tp_options=[1], pp_options=[1], cost_source=src)
+    got = (res.plan.pp, res.plan.stages[0].tp, res.plan.dp, res.plan.cp)
+    log(f"[plan] planner on one H100: {res.plan.describe()}, iter_time "
+        f"{res.prediction.iter_time!r} s, mfu {res.prediction.mfu!r}, "
+        f"{res.evaluated} evaluated")
+    assert got == (1, 1, 1, 1), got
+    mfu = (cfg.flops_per_token(TRAIN_SEQ) * 3 * TRAIN_SEQ
+           / (measured * C.H100.peak_tflops * 1e12))
+    log(f"[plan] measured Eq. 2 MFU {mfu!r} (H100 preset {C.H100.mfu})")
+    secs = time.perf_counter() - t0
+    log(f"[plan] phase took {secs:.1f} s")
+    summary = {
+        "device_kind": kind, "layer_step": step, "loss_probe": probes,
+        "measured_step_s": measured, "measured_peak_gb": ref["peak_mem_gb"],
+        "profiled": {"iter_time": prof.iter_time, "mfu": prof.mfu,
+                     "peak_mem_gb": prof.peak_mem_gb[0]},
+        "analytic": {"iter_time": ana.iter_time, "mfu": ana.mfu,
+                     "peak_mem_gb": ana.peak_mem_gb[0]},
+        "search": {"plan": res.plan.describe(),
+                   "iter_time": res.prediction.iter_time,
+                   "mfu": res.prediction.mfu},
+        "measured_mfu": mfu, "seconds": secs,
+    }
+    total = {k: launches[k] + k_launches[k] for k in launches}
+    return summary, total
+
+
 # ------------------------------------------------------------- phase 7 ---
 def phase_device_times(torch):
     """Each timed row's device time from a torch.profiler trace, taken in
@@ -1206,6 +1334,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    global CP_CHUNKS
+    from repro_torch.core.segmentation import cp_split
+    CP_CHUNKS = tuple(cp_split(TRAIN_SEQ, TRAIN_CP, **CP_SPLIT))
+    assert sum(CP_CHUNKS) == TRAIN_SEQ, CP_CHUNKS
     # fp32 references in full fp32 (no TF32) on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1217,6 +1349,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.ops import LAUNCH_COUNTERS
 
     smi, name = phase_card(torch)
+    log(f"[plan] cp chunks from cp_split({TRAIN_SEQ}, {TRAIN_CP}, "
+        f"{CP_SPLIT}): {CP_CHUNKS}")
     build_s, build_info = phase_build()
     checks, timed, extra = phase_kernels(torch, dev, name)
     train_checks, train_timed, train_extra = phase_train_kernels(
@@ -1245,6 +1379,9 @@ def main(argv=None) -> int:
     log(f"[train] step-0 loss cp {l_cp} vs reference {l_ref}: "
         f"diff {abs(l_cp - l_ref):.3e} (tol {TRAIN_LOSS_TOL})")
     assert abs(l_cp - l_ref) < TRAIN_LOSS_TOL, (l_cp, l_ref)
+    plan, counts = phase_plan(torch, dev, train["reference"])
+    for kname, n in counts.items():
+        launches[kname] += n
     device = phase_device_times(torch)
     floor = device["floor_ms"]
     log(f"[device] launch floor (zero_ of a one-element tensor): "
@@ -1292,7 +1429,7 @@ def main(argv=None) -> int:
               "checks": checks, "worst_err_by_kernel": worst,
               "timed": timed, "timed_extra": extra,
               "model_max_abs_err": model_err, "serve": serve,
-              "train_parity": train_parity, "train": train,
+              "train_parity": train_parity, "train": train, "plan": plan,
               "launches": launches}
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)

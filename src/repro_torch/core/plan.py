@@ -1,12 +1,13 @@
-"""Distributed training plan (port of the training part of
-``repro/core/plan.py``).
+"""Distributed training and serving plans (port of ``repro/core/plan.py``):
+the output of the port's automatic parallel planner (``core/planner.py``).
 
 ``StagePlacement`` and ``ParallelPlan`` field for field, with the same
-validation, tick algebra and ``to_dict``/``from_dict``/``describe``, so a
-plan searched by the JAX planner reads the same here.  The port's trainer
-executes the pp = 1 plans (the reference route and the cp ring); a pp > 1
-plan needs the pipeline runtime (ROADMAP.md queue A, item 5).  The serving
-plan classes wait for queue A, item 2.
+validation, tick algebra and ``to_dict``/``from_dict``/``describe``, and
+the serving classes ``ServingSLO``, ``TrafficProfile`` and ``ServingPlan``,
+so a plan searched by either package reads the same in the other.  The
+port's trainer executes the pp = 1 plans (the reference route and the cp
+ring); a pp > 1 plan needs the pipeline runtime (ROADMAP.md queue A, item
+A5).
 """
 from __future__ import annotations
 
@@ -14,18 +15,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
-# Transports a ParallelPlan may route the heterogeneous boundary over
-# (``repro/core/cluster.py``'s list).
-TRANSPORTS = ("gpu", "cpu")
-
-
-def validate_transport(name: str) -> str:
-    if name not in TRANSPORTS:
-        raise ValueError(
-            f"unknown transport {name!r}; valid transports: {TRANSPORTS} "
-            "('gpu' = GPU-direct RDMA across the boundary, 'cpu' = "
-            "CPU-staged PCIe+ethernet path)")
-    return name
+from repro_torch.core.cluster import validate_transport
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,3 +246,74 @@ class ParallelPlan:
                 f"dp={per_stage(self.dps)} "
                 f"mbs={self.micro_bs} m={self.micro_batches} "
                 f"sched={sched} seg={seg}{cp}")
+
+
+# ------------------------------------------------------------- serving -----
+@dataclasses.dataclass(frozen=True)
+class ServingSLO:
+    """Latency service-level objective the serving planner optimizes
+    against: time-to-first-token and time-per-output-token budgets, both
+    in seconds."""
+    ttft_s: float
+    tpot_s: float
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrafficProfile:
+    """The request mix a serving placement is sized for: mean prompt /
+    generation lengths (tokens) and the offered request rate (req/s).
+    The engine re-derives an OBSERVED profile from its admission stream;
+    drift between the two is the serving replan signal."""
+    prompt_len: int
+    gen_len: int
+    request_rate: float
+
+    @property
+    def prefill_decode_ratio(self) -> float:
+        """Prefill-heaviness: prompt tokens per generated token — the
+        scalar the drift detector thresholds on."""
+        return self.prompt_len / max(self.gen_len, 1)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingPlan:
+    """The serving planner's output: where prefill and decode run.
+
+    ``prefill_group``/``decode_group`` index ``ClusterSpec.groups``; when
+    they differ the placement is DISAGGREGATED (prompt KV migrates over
+    the boundary link after prefill, HexiScale-style asymmetric
+    islands); when equal the island time-shares both roles and decode
+    pays a prefill-interference duty cycle."""
+    prefill_group: int
+    prefill_tp: int
+    decode_group: int
+    decode_tp: int
+    decode_batch: int          # continuous-batching slot count per replica
+    max_len: int               # per-sequence cache budget (prompt + gen)
+    transport: str = "gpu"
+
+    def __post_init__(self):
+        validate_transport(self.transport)
+
+    @property
+    def disaggregated(self) -> bool:
+        return self.prefill_group != self.decode_group
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ServingPlan":
+        return cls(**d)
+
+    def describe(self) -> str:
+        mode = "disagg" if self.disaggregated else "coloc"
+        return (f"prefill=g{self.prefill_group}xtp{self.prefill_tp} "
+                f"decode=g{self.decode_group}xtp{self.decode_tp}"
+                f"xb{self.decode_batch} max_len={self.max_len} {mode}")

@@ -714,3 +714,33 @@ def test_smoke_trainer_on_card_matches_cpu(dev, route):
     assert counts["ring_step_bwd"] == 3 * L * (3 if route == "cp" else 1)
     torch.testing.assert_close(torch.tensor(losses[1]),
                                torch.tensor(losses[0]), **MODEL_TOL)
+
+
+def test_profile_runner_layers_on_card(dev):
+    """The profile runner's layer probes at the SMOKE width on the card:
+    CUDA-event times, positive per-layer fwd/bwd, and exactly the kernel
+    launches of ``warmup + reps`` forward and step calls at depths 1, 2."""
+    from repro_torch.profile import ProfiledCostModel, ProfileStore, runner
+
+    kind = runner.device_kind(dev)
+    assert kind == torch.cuda.get_device_name(dev).lower().replace(" ", "-")
+    store = ProfileStore()
+    ops.reset_launch_counts()
+    runner.bench_layers(store, kind, "llama3-8b", seqs=(256,),
+                        micro_bss=(2,), warmup=2, reps=5, verbose=False,
+                        device=dev)
+    counts, n = ops.launch_counts(), 7
+    want = dict.fromkeys(counts, 0)
+    for L in (1, 2):
+        for k, per in (("rmsnorm", 2 * (2 * L + 1)), ("swiglu", 2 * L),
+                       ("flash_attention", 2 * L),
+                       ("rmsnorm_bwd", 2 * L + 1), ("swiglu_bwd", L),
+                       ("ring_step_bwd", L)):
+            want[k] += per * n
+    assert counts == want
+    shape = {"arch": "llama3-8b", "seq_len": 256, "micro_bs": 2, "tp": 1}
+    step = store.get(kind, "layer_step", shape).value
+    assert step["fwd_s"] > 0 and step["bwd_s"] > 0
+    cfg = registry.get_config("llama3-8b")
+    assert ProfiledCostModel(store).layer_time(kind, cfg, 256, 2, 1) == \
+        (step["fwd_s"], step["bwd_s"])

@@ -38,13 +38,19 @@ Phases, each raising on failure so the script exits non-zero:
               tokens equal decode_sequential's, logits are finite; each path
               reports its own peak memory
   6. train    llama3-8b SMOKE fp32, 3 Trainer steps on the card against 3 on
-              the CPU from one state, on the cp route (chunks 40/31/25) and
-              the reference route (losses within 1e-4); then llama3-8b at
-              full width and 4 layers (bf16, seed 0, seq 4096, batch 1): 3
-              steps of the cp route (cp 4, chunks 1383/1057/884/772), then 3
-              of the reference route, each with finite losses, exact launch
-              counts, its step times, tokens/s and peak memory; the two
-              step-0 losses agree within 2e-2
+              the CPU from one state, on the cp route (chunks 40/31/25), the
+              reference route and the pipeline over an interleaved plan
+              (vpp 2, virtual stages of 2/1/1/0 of 4 SMOKE layers; losses
+              within 1e-4); then llama3-8b at full width and 4 layers (bf16,
+              seed 0, seq 4096): 3 steps of the cp route (batch 1, cp 4,
+              chunks 1383/1057/884/772), 3 of the reference route (batch 1),
+              and 3 of the pipeline route (batch 4) through the planner's
+              non-uniform pp 2 plan on the train CLI's two-kind cluster,
+              each with finite losses, exact launch counts, its step times,
+              tokens/s and peak memory; the cp and reference step-0 losses
+              agree within 2e-2, and the pipeline's step-0 loss lies within
+              2e-2 of the reference loss on its 4 sequences; the ICCL tap
+              takes one stage hop a tick
   6b. plan   the port's planner and profile runner on the card: the cp
               chunks above come from its cp_split; llama3-8b's per-layer
               forward and backward at full width, seq 4096, measured
@@ -63,7 +69,7 @@ Phases, each raising on failure so the script exits non-zero:
               the profiler never slows the launches of this one.
               rmsnorm_bwd must run as one kernel a call
 Then one JSON line with every kernel (launches summed over the serve and
-train runs; rmsnorm and swiglu have a second row at their decode shape,
+train runs (cp, reference, pp) and phase 6b; rmsnorm and swiglu have a second row at their decode shape,
 which takes the launches made inside decode steps, the first row the rest;
 the scan's row is its S1000 timing; each row with its library call's device
 time and the floor), the card line, and the last line
@@ -133,7 +139,12 @@ TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 3
 TRAIN_CP, CP_SPLIT = 4, dict(attn=1 / TRAIN_SEQ, lin=0.5)
 CP_CHUNKS: tuple = ()
 SMOKE_CP_CHUNKS = (40, 31, 25)
-TRAIN_LOSS_TOL = 2e-2   # cp vs reference step-0 loss, bf16
+TRAIN_LOSS_TOL = 2e-2   # cp, pp vs reference step-0 loss, bf16
+# the pipeline route: the planner's pp 2 plan on the train CLI's two-kind
+# cluster for 4 sequences of TRAIN_SEQ; the SMOKE parity phase also runs
+# an interleaved plan (vpp 2, a zero-layer chunk) at 4 SMOKE layers
+PP_STAGES, PP_BATCH = 2, 4
+SMOKE_VPP_LAYERS = (2, 1, 1, 0)
 
 
 def log(msg: str) -> None:
@@ -1067,27 +1078,48 @@ def _cp_plan(chunks, global_batch: int, n_layers: int):
 
 
 # ------------------------------------------------------------- phase 6 ---
+def _vpp_plan(chunk_layers, global_batch: int, seq_len: int):
+    """A two-stage interleaved plan (vpp 2) whose virtual stages take
+    ``chunk_layers``, one sequence a microbatch."""
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    pp = PP_STAGES
+    n = [sum(chunk_layers[c * pp + s] for c in range(2)) for s in range(pp)]
+    return ParallelPlan(stages=(StagePlacement(0, n[0], 1, 1),
+                                StagePlacement(1, n[1], 1, 1, True)),
+                        micro_bs=1, global_batch=global_batch,
+                        seq_len=seq_len, schedule="interleaved-1f1b", vpp=2,
+                        chunk_layers=tuple(chunk_layers))
+
+
 def phase_train_parity(torch, dev):
     """SMOKE fp32: 3 Trainer steps with the kernels on the card against 3
-    with the plain versions on the CPU, from one state, on both routes."""
+    with the plain versions on the CPU, from one state, on each route: cp,
+    reference, and the pipeline over an interleaved plan with a zero-layer
+    chunk (4 SMOKE layers, 4 microbatches)."""
     from repro_torch.models import registry
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.steps import init_train_state
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     b = registry.get_bundle("llama3-8b", smoke=True)
-    state = init_train_state(b, seed=0, device="cpu")
-    cfg = TrainerConfig(global_batch=2, seq_len=sum(SMOKE_CP_CHUNKS))
+    b4 = registry.get_bundle("llama3-8b", smoke=True,
+                             num_layers=sum(SMOKE_VPP_LAYERS))
+    seq = sum(SMOKE_CP_CHUNKS)
+    cfg = TrainerConfig(global_batch=2, seq_len=seq)
     opt = AdamWConfig(lr=1e-2, warmup_steps=2)
     out = {}
-    for route, plan in (("cp", _cp_plan(SMOKE_CP_CHUNKS, 2,
-                                        b.cfg.num_layers)),
-                        ("reference", None)):
+    for route, bundle, plan, tcfg in (
+            ("cp", b, _cp_plan(SMOKE_CP_CHUNKS, 2, b.cfg.num_layers), cfg),
+            ("reference", b, None, cfg),
+            ("pp vpp 2", b4, _vpp_plan(SMOKE_VPP_LAYERS, PP_BATCH, seq),
+             TrainerConfig(global_batch=PP_BATCH, seq_len=seq))):
+        state = init_train_state(bundle, seed=0, device="cpu")
         losses = {}
         for d in ("cpu", dev):
-            t = Trainer(b, cfg, plan=plan, opt_cfg=opt, state=state,
+            t = Trainer(bundle, tcfg, plan=plan, opt_cfg=opt, state=state,
                         device=d)
             assert t._cp_active() == (route == "cp")
+            assert t._pipeline_active() == route.startswith("pp")
             losses[str(d)] = t.run(TRAIN_STEPS)["losses"]
         cpu, gpu = losses["cpu"], losses[str(dev)]
         err = max(abs(a - g) for a, g in zip(cpu, gpu))
@@ -1150,6 +1182,93 @@ def phase_train(torch, dev, route: str):
         "plan": plan.describe() if plan else None,
     }
     log(f"[train] {route} report {json.dumps(summary)}")
+    del t
+    return summary, launches
+
+
+def phase_train_pp(torch, dev, smi: str):
+    """llama3-8b at full width, TRAIN_LAYERS layers, bf16, PP_BATCH
+    sequences of TRAIN_SEQ: TRAIN_STEPS steps through the planner's
+    non-uniform pp plan, with exact launch counts (only the valid slots'
+    real layers run; each block forward twice under remat), the ICCL
+    tap's stage hops, and the step-0 loss against the reference loss on
+    the same sequences (forward only, one microbatch at a time)."""
+    from repro_torch.iccl import communicator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import search_plan
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import steps
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    b = registry.get_bundle("llama3-8b", num_layers=TRAIN_LAYERS)
+    plan = search_plan(b.cfg, PP_STAGES, PP_BATCH, TRAIN_SEQ)
+    vl, m = plan.virtual_layers, plan.micro_batches
+    log(f"[train] pp route plan (planner.search, the train CLI's two-kind "
+        f"cluster): {plan.describe()}, virtual layers {vl}, m {m}")
+    assert plan.pp == PP_STAGES and len(set(vl)) > 1, plan.describe()
+    t0 = time.perf_counter()
+    t = Trainer(b, TrainerConfig(global_batch=PP_BATCH, seq_len=TRAIN_SEQ),
+                plan=plan, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    assert t._pipeline_active() and not t._cp_active()
+    n_params = sum(x.numel() for x in tree_leaves(t.state["params"]))
+    state_gb = torch.cuda.memory_allocated(dev) / 1e9
+    batch = t._device_batch(t.data.batch_at(t.step))
+    ref_loss = steps.make_loss_fn(b)
+    with torch.no_grad():
+        ref = sum(float(ref_loss(t.state["params"],
+                                 {k: v[j] for k, v in batch.items()})[0])
+                  for j in range(m)) / m
+    del batch
+    log(f"[train] pp route: llama3-8b {TRAIN_LAYERS} layers, "
+        f"{n_params / 1e9:.3f} B params, train state {state_gb:.2f} GB, "
+        f"init {init_s:.1f} s; reference loss on step 0's {PP_BATCH} "
+        f"sequences {ref}")
+    hops = []
+    communicator.set_collective_sink(lambda *note: hops.append(note))
+    ops.reset_launch_counts()
+    try:
+        out = t.run(TRAIN_STEPS)
+    finally:
+        communicator.set_collective_sink(None)
+    launches = ops.launch_counts()
+    L, n = sum(vl), TRAIN_STEPS
+    expect = dict.fromkeys(launches, 0)
+    expect.update(rmsnorm=m * (4 * L + 1) * n, flash_attention=2 * m * L * n,
+                  swiglu=2 * m * L * n, rmsnorm_bwd=m * (2 * L + 1) * n,
+                  swiglu_bwd=m * L * n, ring_step_bwd=m * L * n)
+    losses, step_s = out["losses"], out["step_s"]
+    steady = step_s[1:]
+    tok_s = PP_BATCH * TRAIN_SEQ * len(steady) / sum(steady)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    ticks = m + len(vl) - 1
+    log(f"[train] pp route losses {losses} step_s {step_s}")
+    log(f"[train] pp launches {launches} expected {expect}")
+    log(f"[train] pp route on {smi}: step s {step_s[0]:.4f} / "
+        f"{step_s[1]:.4f} / {step_s[2]:.4f}, tok/s (steps 1-2) {tok_s:.1f}, "
+        f"peak {peak:.2f} GB")
+    log(f"[train] pp step-0 loss {losses[0]} vs reference {ref}: diff "
+        f"{abs(losses[0] - ref):.3e} (tol {TRAIN_LOSS_TOL}); ICCL notes "
+        f"{len(hops)} ({ticks} pp_shift a step expected)")
+    assert all(map(math.isfinite, losses)), losses
+    assert launches == expect, (launches, expect)
+    assert abs(losses[0] - ref) < TRAIN_LOSS_TOL, (losses[0], ref)
+    assert [h[0] for h in hops] == ["pp_shift"] * ticks * n, hops[:4]
+    summary = {
+        "route": "pp", "layers": L, "seq": TRAIN_SEQ,
+        "global_batch": PP_BATCH, "params": n_params, "losses": losses,
+        "reference_loss_step0": ref, "step_s": step_s, "tok_s_steady": tok_s,
+        "init_s": init_s, "state_gb": state_gb, "peak_mem_gb": peak,
+        "launches": launches, "expected_launches": expect,
+        "iccl_notes_a_step": len(hops) // n, "plan": plan.describe(),
+        "virtual_layers": list(vl), "micro_batches": m,
+    }
+    log(f"[train] pp report {json.dumps(summary)}")
     del t
     return summary, launches
 
@@ -1375,6 +1494,9 @@ def main(argv=None) -> int:
         train[route], counts = phase_train(torch, dev, route)
         for kname, n in counts.items():
             launches[kname] += n
+    train["pp"], counts = phase_train_pp(torch, dev, smi)
+    for kname, n in counts.items():
+        launches[kname] += n
     l_cp, l_ref = train["cp"]["losses"][0], train["reference"]["losses"][0]
     log(f"[train] step-0 loss cp {l_cp} vs reference {l_ref}: "
         f"diff {abs(l_cp - l_ref):.3e} (tol {TRAIN_LOSS_TOL})")

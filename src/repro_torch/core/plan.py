@@ -5,9 +5,9 @@ the output of the port's automatic parallel planner (``core/planner.py``).
 validation, tick algebra and ``to_dict``/``from_dict``/``describe``, and
 the serving classes ``ServingSLO``, ``TrafficProfile`` and ``ServingPlan``,
 so a plan searched by either package reads the same in the other.  The
-port's trainer executes the pp = 1 plans (the reference route and the cp
-ring); a pp > 1 plan needs the pipeline runtime (ROADMAP.md queue A, item
-A5).
+port's trainer executes pp = 1 plans (the reference route and the cp
+ring) and pp > 1 plans (the pipeline, ``parallel/pipeline.py``) on one
+device; stages on separate ranks are ROADMAP.md queue A, item A5b.
 """
 from __future__ import annotations
 

@@ -1,15 +1,23 @@
-"""Training CLI (port of the plain route of ``repro/launch/train.py``).
+"""Training CLI (port of the plain and ``--pp`` routes of
+``repro/launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --layers 4 \
         --seq 4096 --global-batch 1
+    PYTHONPATH=src python -m repro_torch.launch.train --layers 4 \
+        --seq 4096 --global-batch 4 --pp 2
 
 Trains ``--arch`` (random weights from seed 0) on the synthetic token
 pipeline with AdamW (``--lr``, 20 warmup steps, as the JAX CLI) on
 ``--device`` (default ``cuda``; no silent fall back to the CPU), through
-the reference loss.  The cp ring is reached, as in the JAX package,
-through ``Trainer(plan=...)``.  Prints ``[train] step=.. loss=..
-tok/s=..`` every ``LOG_EVERY`` steps and, last, a JSON summary.
+the reference loss.  ``--pp N`` asks the planner for an N-stage plan on
+the JAX CLI's two-kind cluster (one AMD and one GPU-A accelerator; tp 1,
+micro_bs 1 or 2), prints it as ``[train] plan: ...`` and trains through
+its pipeline on this one device.  The cp ring is reached, as in the JAX
+package, through ``Trainer(plan=...)``.  Prints ``[train] step=..
+loss=.. tok/s=..`` every ``LOG_EVERY`` steps and, last, a JSON summary.
+Left for ROADMAP A6: ``--degrade``, ``--adapt``, ``--lose``/``--join``,
+telemetry, checkpoints and observability.
 """
 from __future__ import annotations
 
@@ -19,6 +27,8 @@ import time
 
 import torch
 
+from repro_torch.core import cluster as cluster_mod
+from repro_torch.core import planner
 from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.optim.adamw import AdamWConfig, tree_leaves
@@ -26,6 +36,19 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.utils.device import resolve_device
 
 LOG_EVERY = 10
+
+
+def search_plan(cfg, pp: int, global_batch: int, seq_len: int):
+    """The planner's best ``pp``-stage plan for this workload on the JAX
+    CLI's cluster (one AMD and one GPU-A node, one accelerator each),
+    searched as the JAX CLI searches (``repro/launch/train.py:182-195``)."""
+    cluster = cluster_mod.ClusterSpec(groups=(
+        cluster_mod.NodeGroup(cluster_mod.AMD, 1, accel_per_node=1),
+        cluster_mod.NodeGroup(cluster_mod.GPU_A, 1, accel_per_node=1)))
+    return planner.search(
+        cluster, cfg, global_batch=global_batch, seq_len=seq_len,
+        pp_options=[pp], tp_options=[1], micro_bs_options=[1, 2],
+        require_fit=False, include_tp_comm=False).plan
 
 
 def main(argv=None):
@@ -39,17 +62,24 @@ def main(argv=None):
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--pp", type=int, default=0,
+                    help="train a planner-searched pp-stage pipeline "
+                         "(0 = the reference loss)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     overrides = {"num_layers": args.layers} if args.layers else {}
     bundle = registry.get_bundle(args.arch, smoke=args.smoke, **overrides)
+    plan = None
+    if args.pp:
+        plan = search_plan(bundle.cfg, args.pp, args.global_batch, args.seq)
+        print(f"[train] plan: {plan.describe()}", flush=True)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t = Trainer(bundle, TrainerConfig(global_batch=args.global_batch,
                                       seq_len=args.seq),
-                opt_cfg=AdamWConfig(lr=args.lr, warmup_steps=20),
+                plan=plan, opt_cfg=AdamWConfig(lr=args.lr, warmup_steps=20),
                 device=dev)
     n_params = sum(x.numel() for x in tree_leaves(t.state["params"]))
     print(f"[train] arch={bundle.cfg.name} params={n_params / 1e6:.1f}M "
@@ -74,6 +104,9 @@ def main(argv=None):
                         if dev.type == "cuda" else None),
         # the CPU runs the plain versions: no kernel launches there
         "kernel_launches": ops.launch_counts(),
+        "pp": plan.pp if plan else None,
+        "virtual_layers": list(plan.virtual_layers) if plan else None,
+        "micro_batches": plan.micro_batches if plan else None,
     }
     print(json.dumps(summary))
 

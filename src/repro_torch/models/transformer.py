@@ -107,8 +107,10 @@ def lm_features(params: dict, tokens, cfg: ModelConfig):
     """The forward WITHOUT the unembed: (features (B,S,D) after the final
     norm, unembed weight (D,V), aux_loss), so a loss can run the head over
     sequence chunks (``train.steps.make_loss_fn`` with ``cfg.loss_chunk``).
-    ``cfg.remat`` is not honoured over the blocks: the port keeps every
-    block's activations (each kernel then launches once per pass)."""
+    ``cfg.remat`` is not honoured over the blocks here (ROADMAP.md queue A,
+    item A4): the reference loss keeps every block's activations (each
+    kernel then launches once per pass).  The pipeline loss
+    (``parallel/pipeline.py``) honours it."""
     check_supported(cfg)
     x = _embed(params, tokens, cfg)
     block = _ssm_block if cfg.family == "ssm" else _block

@@ -13,9 +13,11 @@ projection, the residual and the MLP.
 
 Every rank runs all cp steps: there is no causal skip at the level of
 ranks, as in the SPMD program.  A step whose keys all lie in a rank's
-future leaves its carry unchanged; the kernel skips its tiles.  The
-communicator bookkeeping of the JAX ring is not ported (ROADMAP.md queue
-A, item 5); neither is a ring across cards (item 8).
+future leaves its carry unchanged; the kernel skips its tiles.  Each
+layer notes the ring's cp - 1 hops of K and of V to the ICCL tap
+(``iccl/communicator.py``): the notes the JAX ring makes while its block,
+a ``lax.scan`` body, is traced once.  A ring across cards is not ported
+(ROADMAP.md queue A, item A8).
 
 Numerics: the loss is ``steps.make_loss_fn``'s (CE with z-loss plus
 ``AUX_COEF`` times aux) and matches it within float tolerance (2e-5 fp32;
@@ -27,6 +29,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.iccl.communicator import _note
 from repro_torch.kernels import ops
 from repro_torch.kernels.ring_attention import (chunk_starts, pad_chunks,
                                                 unpad_chunks)
@@ -71,6 +74,9 @@ def make_cp_loss_fn(cfg: ModelConfig, cp_chunks: Sequence[int]) -> LossFn:
         """One attention block on the (cp, B, Cmax, D) rank layout."""
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         q, k, v = _qkv(p["attn"], h, cfg, pos)
+        for _ in range(cp - 1):   # the KV blocks' hops around the ring
+            _note("cp_ring", "pod", k)
+            _note("cp_ring", "pod", v)
         o = ops.ring_attention(q, k, v, chunks, causal=True)
         x = x + o.reshape(*x.shape[:-1], H * hd) @ p["attn"]["wo"]
         h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)

@@ -18,7 +18,7 @@ ops and shapes, so ``ProfiledCostModel`` serves either package's profile:
 
 On the card each timed call sits between a pair of CUDA events, then a
 synchronize; on the CPU ``time.perf_counter`` brackets it.  Collectives
-need ``torch.distributed`` and the communicator (ROADMAP A5): with one
+need ``torch.distributed`` and the communicator (ROADMAP A5b): with one
 device they are skipped, as the JAX runner skips them.
 
 Usage:
@@ -166,7 +166,7 @@ def bench_layers(store: ProfileStore, dev: str, arch: str,
     if tp != 1:
         raise NotImplementedError(
             "tensor parallelism waits for the port's pipeline and "
-            "communicator (ROADMAP.md queue A, item A5)")
+            "communicator (ROADMAP.md queue A, item A5b)")
     device = resolve_device(device)
     cfg0 = registry.get_config(arch, smoke=smoke)
     a = len(cfg0.block_pattern) if cfg0.block_pattern else 1
@@ -200,12 +200,12 @@ def bench_layers(store: ProfileStore, dev: str, arch: str,
 # ------------------------------------------------------------ collectives --
 def bench_collectives(verbose: bool = True):
     """Collectives run over ``torch.distributed`` with the port's
-    communicator, which waits for ROADMAP A5; nothing is measured yet."""
+    communicator, which waits for ROADMAP A5b; nothing is measured yet."""
     n = torch.cuda.device_count() if torch.cuda.is_available() else 1
     if verbose:
         print("  collectives: single device — skipped" if n < 2 else
               f"  collectives: {n} devices — the torch.distributed "
-              "communicator is not ported yet (ROADMAP A5), skipped")
+              "communicator is not ported yet (ROADMAP A5b), skipped")
 
 
 # -------------------------------------------------------------------- cli --

@@ -9,12 +9,15 @@ synthetic batches:
     attention);
   * a pp = 1, cp > 1 plan for this workload: the cp ring loss
     (``parallel/context.py``), same state and train step;
-  * a pp > 1 plan for this workload raises: the pipeline runtime is not
-    ported (ROADMAP.md queue A, item 5).
+  * a pp > 1 plan for this workload: the pipeline loss
+    (``parallel/pipeline.py``) over the plan's microbatches, virtual
+    stage layers, vpp and stage tp widths, same state and train step; the
+    batch arrives microbatched ``(m, B_tick, ...)``.  As in the JAX
+    trainer, the plan's cp and per-stage dp stay advisory under pp > 1.
 
 Left out of the JAX trainer, each a ROADMAP item: checkpoints and restart,
 stage telemetry, straggler detection, replanning and migration,
-adaptation and observability (queue A, item 6).
+adaptation and observability (queue A, item A6).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.models.registry import ArchBundle
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.parallel import context
+from repro_torch.parallel import context, pipeline
 from repro_torch.train import steps as steps_mod
 from repro_torch.utils.device import (DeviceLike, resolve_device,
                                       synchronize)
@@ -98,12 +101,14 @@ class Trainer:
         return True
 
     def _build(self):
-        if self._pipeline_active():
-            raise NotImplementedError(
-                f"plan {self.plan.describe()}: pipeline execution (pp > 1) "
-                "is not ported yet (ROADMAP.md queue A, item 5)")
         loss_fn = None
-        if self._cp_active():
+        if self._pipeline_active():
+            plan = self.plan
+            loss_fn = pipeline.make_pp_loss_fn(
+                self.bundle.cfg, plan.pp, plan.micro_batches,
+                layers_per_stage=list(plan.virtual_layers), vpp=plan.vpp,
+                stage_tp=list(plan.tps))
+        elif self._cp_active():
             loss_fn = context.make_cp_loss_fn(self.bundle.cfg,
                                               self.plan.cp_chunk_sizes)
         self.train_step = steps_mod.make_train_step(
@@ -111,8 +116,14 @@ class Trainer:
 
     # ------------------------------------------------------------- run ----
     def _device_batch(self, np_batch: Dict[str, np.ndarray]):
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in np_batch.items()}
+        m = self.plan.micro_batches if self._pipeline_active() else None
+
+        def put(v):
+            if m is not None:   # the pipeline consumes (m, B_tick, ...)
+                v = v.reshape(m, v.shape[0] // m, *v.shape[1:])
+            return torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+
+        return {k: put(v) for k, v in np_batch.items()}
 
     def run(self, n_steps: int) -> Dict[str, Any]:
         """``n_steps`` train steps; returns {"losses", "step", "step_s"}

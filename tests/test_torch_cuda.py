@@ -19,8 +19,8 @@ one key tile or ring hop left out 1e-1 and more; ``chip_smoke.py`` reads
 both on every run).  fp32 attention runs on the
 FMA kernels; the ring hop backward sums dq over key tiles with fp32
 atomics, whose order changes the last bits only, inside 2e-5.  The SMOKE
-models, and three SMOKE train steps on each route, on the card are held
-against the CPU at 1e-4.
+models, three SMOKE train steps on each route, and the SMOKE pipeline
+loss and its gradients on the card are held against the CPU at 1e-4.
 """
 import pytest
 
@@ -714,6 +714,40 @@ def test_smoke_trainer_on_card_matches_cpu(dev, route):
     assert counts["ring_step_bwd"] == 3 * L * (3 if route == "cp" else 1)
     torch.testing.assert_close(torch.tensor(losses[1]),
                                torch.tensor(losses[0]), **MODEL_TOL)
+
+
+@pytest.mark.parametrize("vpp,layers", [(1, [3, 1]), (2, [2, 1, 1, 0])])
+def test_smoke_pp_loss_and_grads_on_card_match_cpu(dev, vpp, layers):
+    """The pipeline loss (SMOKE llama3-8b at 4 layers, fp32, m 4) and its
+    gradients on the card against the same call on the CPU, with the
+    launches of its valid slots only: each block forward twice (remat)."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.pipeline import make_pp_loss_fn
+
+    b = registry.get_bundle("llama3-8b", smoke=True, num_layers=4)
+    params = b.init(b.cfg, seed=0, device="cpu")
+    data = SyntheticTokens(vocab_size=b.cfg.vocab_size, seq_len=64,
+                           global_batch=8).batch_at(0)
+    m, L = 4, 4
+    loss_fn = make_pp_loss_fn(b.cfg, 2, m, layers_per_stage=layers, vpp=vpp)
+    out = []
+    for d in ("cpu", dev):
+        p = adamw.tree_map(lambda t: t.to(d).requires_grad_(), params)
+        batch = {k: torch.from_numpy(v.reshape(m, 2, -1)).to(d)
+                 for k, v in data.items()}
+        ops.reset_launch_counts()
+        loss, _ = loss_fn(p, batch)
+        grads = torch.autograd.grad(loss, adamw.tree_leaves(p))
+        out.append((loss.detach().cpu(), [g.cpu() for g in grads]))
+    assert ops.launch_counts() == dict(
+        rmsnorm=m * (4 * L + 1), rmsnorm_bwd=m * (2 * L + 1),
+        swiglu=2 * m * L, swiglu_bwd=m * L, flash_attention=2 * m * L,
+        ssm_scan=0, ring_step=0, ring_step_bwd=m * L)
+    (cpu_loss, cpu_grads), (card_loss, card_grads) = out
+    torch.testing.assert_close(card_loss, cpu_loss, **MODEL_TOL)
+    for g, w in zip(card_grads, cpu_grads):
+        torch.testing.assert_close(g, w, **MODEL_TOL)
 
 
 def test_profile_runner_layers_on_card(dev):

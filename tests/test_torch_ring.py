@@ -5,6 +5,9 @@ host ring ``ring_flash_attention`` with ``jax.grad``.  Also
 ``torch.autograd.gradcheck`` of the port's four autograd functions in
 fp64, and the kernel wrappers' refusal of inputs that need a gradient.
 
+Also the cp loss's ICCL notes against those JAX's sink takes while the
+JAX cp loss is traced.
+
 Tolerances are the JAX package's (tests/test_kernels.py:15-17 and
 tests/test_context_parallel.py): fp32 2e-5, bf16 2e-2 (one rounding of
 the inputs), gradients through the ring 2e-4, a fully masked hop 1e-6.
@@ -18,13 +21,20 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.iccl import communicator as jcomm  # noqa: E402
 from repro.kernels import ring_attention as jra  # noqa: E402
+from repro.models import registry as jreg  # noqa: E402
+from repro.parallel import context as jcontext  # noqa: E402
+from repro_torch.iccl import communicator as tcomm  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ring_attention as tra  # noqa: E402
 from repro_torch.kernels import rmsnorm as trn  # noqa: E402
 from repro_torch.kernels import ssm_scan as tss  # noqa: E402
 from repro_torch.kernels import swiglu as tsg  # noqa: E402
+from repro_torch.models import convert  # noqa: E402
+from repro_torch.models import registry as treg  # noqa: E402
+from repro_torch.parallel import context  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -351,3 +361,34 @@ def test_kernel_wrapper_refuses_inputs_that_need_grad(kernel):
         fn(*needs)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA kernel"):
         fn(*needs)
+
+
+@pytest.mark.parametrize("chunks", [(20, 12), (40, 31, 25)])
+def test_cp_ring_tap_notes_match_jax_trace(chunks):
+    """Each layer of the port's cp loss notes the ring's cp - 1 hops of K
+    and of V: the notes JAX's sink takes while the JAX cp loss is traced,
+    whose layers are one ``lax.scan`` body traced once."""
+    jb = jreg.get_bundle("llama3-8b", smoke=True)
+    tb = treg.get_bundle("llama3-8b", smoke=True)
+    jparams = jb.init(jax.random.PRNGKey(0), jb.cfg)
+    tparams = convert.from_jax(jax.tree.map(np.asarray, jparams),
+                               device="cpu")
+    batch = jreg.make_batch(jb.cfg, batch=2, seq=sum(chunks))
+    tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    jnotes, tnotes = [], []
+    jcomm.set_collective_sink(lambda *a: jnotes.append(a))
+    try:
+        jax.eval_shape(jcontext.make_cp_loss_fn(jb.cfg, None, chunks),
+                       jparams, batch)
+    finally:
+        jcomm.set_collective_sink(None)
+    tcomm.set_collective_sink(lambda *a: tnotes.append(a))
+    try:
+        with torch.no_grad():
+            context.make_cp_loss_fn(tb.cfg, chunks)(tparams, tbatch)
+    finally:
+        tcomm.set_collective_sink(None)
+    cfg, cp = tb.cfg, len(chunks)
+    kv_bytes = cp * 2 * max(chunks) * cfg.n_kv_heads * cfg.hd * 4
+    assert jnotes == [("cp_ring", "pod", kv_bytes)] * 2 * (cp - 1)
+    assert tnotes == jnotes * cfg.num_layers

@@ -331,16 +331,21 @@ def test_trainer_steps_match_jax_train_step(smoke4, route):
 
 
 def test_trainer_routes(smoke4):
-    """pp > 1 raises (the pipeline is ROADMAP queue A, item 5); a model
-    outside the cp scope and a cp = 1 plan keep the reference route; a
-    plan for another workload stays advisory."""
+    """A pp > 1 plan for this workload takes the pipeline route, its batch
+    microbatched (m, B_tick, S); a model outside the cp scope and a cp = 1
+    plan keep the reference route; a plan for another workload stays
+    advisory."""
     _, _, tb, _ = smoke4
     cfg = TrainerConfig(global_batch=GB, seq_len=SEQ)
     pp2 = ParallelPlan(stages=(StagePlacement(0, 2, 1, 1),
                                StagePlacement(1, 2, 1, 1, True)),
                        micro_bs=1, global_batch=GB, seq_len=SEQ)
-    with pytest.raises(NotImplementedError, match="queue A, item 5"):
-        Trainer(tb, cfg, plan=pp2, device="cpu")
+    t = Trainer(tb, cfg, plan=pp2, device="cpu")
+    assert t._pipeline_active() and not t._cp_active()
+    tokens = t._device_batch(t.data.batch_at(0))["tokens"]
+    assert tokens.shape == (pp2.micro_batches, GB // pp2.micro_batches, SEQ)
+    other_pp = TrainerConfig(global_batch=GB, seq_len=2 * SEQ)
+    assert not Trainer(tb, other_pp, plan=pp2, device="cpu")._pipeline_active()
     swa = treg.bundle_for(dataclasses.replace(tb.cfg, window=8))
     assert not Trainer(swa, cfg, plan=_cp_plan(),
                        device="cpu")._cp_active()

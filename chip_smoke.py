@@ -50,7 +50,16 @@ Phases, each raising on failure so the script exits non-zero:
               tokens/s and peak memory; the cp and reference step-0 losses
               agree within 2e-2, and the pipeline's step-0 loss lies within
               2e-2 of the reference loss on its 4 sequences; the ICCL tap
-              takes one stage hop a tick
+              takes one stage hop a tick.  Then pp_ranks: the same plan,
+              state seed and batches with its transport replaced by "cpu",
+              each stage in its own process on this card
+              (parallel/launch.run_ranks, gloo): step-0 loss within 1e-5
+              of the pp route's, steps 1-2 within 2e-2, each rank's exact
+              launch counts summing to the pp route's, one isend_irecv note
+              a hop (2 m a step), each rank's in-flight peak the
+              simulator's; the step time, tokens/s, each rank's peak
+              memory, and the host-staged hop's time beside the
+              cpu_staged transport's price
   6b. plan   the port's planner and profile runner on the card: the cp
               chunks above come from its cp_split; llama3-8b's per-layer
               forward and backward at full width, seq 4096, measured
@@ -69,7 +78,8 @@ Phases, each raising on failure so the script exits non-zero:
               the profiler never slows the launches of this one.
               rmsnorm_bwd must run as one kernel a call
 Then one JSON line with every kernel (launches summed over the serve and
-train runs (cp, reference, pp) and phase 6b; rmsnorm and swiglu have a second row at their decode shape,
+train runs (cp, reference, pp, pp_ranks: both ranks) and phase 6b;
+rmsnorm and swiglu have a second row at their decode shape,
 which takes the launches made inside decode steps, the first row the rest;
 the scan's row is its S1000 timing; each row with its library call's device
 time and the floor), the card line, and the last line
@@ -145,6 +155,12 @@ TRAIN_LOSS_TOL = 2e-2   # cp, pp vs reference step-0 loss, bf16
 # an interleaved plan (vpp 2, a zero-layer chunk) at 4 SMOKE layers
 PP_STAGES, PP_BATCH = 2, 4
 SMOKE_VPP_LAYERS = (2, 1, 1, 0)
+# the pp_ranks route: the same plan with each stage in its own process on
+# the one card, over gloo through pinned host memory.  The forward does the
+# pp route's operations in its order and a hop copies bits, so step 0's
+# loss agrees to fp32 rounding; later steps differ by the gradient sums'
+# order (each microbatch's backward apart, the norm summed over ranks)
+RANKS_LOSS0_TOL, RANKS_TIMEOUT_S, HOP_REPS = 1e-5, 300, 20
 
 
 def log(msg: str) -> None:
@@ -1273,6 +1289,119 @@ def phase_train_pp(torch, dev, smi: str):
     return summary, launches
 
 
+def _rank_launches(n_layers: int, last: bool, m: int, steps: int) -> dict:
+    """A pp stage's launches over ``steps`` steps of m microbatches: each
+    block forward twice under remat and backward once, the final norm on
+    the last stage."""
+    return {"rmsnorm": steps * m * (4 * n_layers + last),
+            "flash_attention": steps * m * 2 * n_layers,
+            "swiglu": steps * m * 2 * n_layers,
+            "rmsnorm_bwd": steps * m * (2 * n_layers + last),
+            "swiglu_bwd": steps * m * n_layers,
+            "ring_step_bwd": steps * m * n_layers}
+
+
+def phase_train_pp_ranks(torch, dev, smi: str, pp: dict):
+    """The pp route's plan with each stage in its own process on this card:
+    PP_STAGES ranks from ``run_ranks`` over gloo, the plan's transport
+    replaced by "cpu" (NCCL cannot put two ranks on one device).  Checked
+    against the pp route's losses and launches; then the host-staged hop
+    alone, a ping-pong of one activation between the two ranks."""
+    from repro_torch.core.simulator import peak_activation_microbatches
+    from repro_torch.iccl.transports import default_registry
+    from repro_torch.launch.train import search_plan
+    from repro_torch.models import registry
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = registry.get_config("llama3-8b", num_layers=TRAIN_LAYERS)
+    found = search_plan(cfg, PP_STAGES, PP_BATCH, TRAIN_SEQ)
+    plan = dataclasses.replace(found, transport="cpu")
+    vl, m, n = plan.virtual_layers, plan.micro_batches, TRAIN_STEPS
+    log(f"[train] pp_ranks plan: {found.describe()}, transport "
+        f"{found.transport!r} replaced by 'cpu' (two ranks on one card)")
+    t0 = time.perf_counter()
+    res = run_ranks(rank_programs.pp_train, PP_STAGES, device=str(dev),
+                    timeout_s=RANKS_TIMEOUT_S,
+                    args=(dict(arch="llama3-8b", num_layers=TRAIN_LAYERS),
+                          plan.to_dict(), n))
+    wall = time.perf_counter() - t0
+    losses = res[-1]["losses"]
+    step_s = [max(r["step_s"][i] for r in res) for i in range(n)]
+    steady = step_s[1:]
+    tok_s = PP_BATCH * TRAIN_SEQ * len(steady) / sum(steady)
+    diffs = [abs(a - b) for a, b in zip(losses, pp["losses"])]
+    act = torch.empty((), dtype=cfg.adtype)
+    hop_bytes = (plan.tokens_per_tick * TRAIN_SEQ * cfg.d_model
+                 * act.element_size())
+    hops = [h for r in res for h in r["notes"] if h[0] == "isend_irecv"]
+    others = sorted({tuple(h) for r in res for h in r["notes"]} - set(hops))
+    launches = {k: sum(r["launches"][k] for r in res) for k in pp["launches"]}
+    for r in res:
+        log(f"[train] pp_ranks rank {r['rank']} (stage {r['stage']}, "
+            f"{r['n_params'] / 1e9:.3f} B params, state "
+            f"{r['state_gb']:.2f} GB, init {r['init_s']:.1f} s): step s "
+            f"{r['step_s']}, peak {r['peak_gb']:.2f} GB, in-flight peak "
+            f"{r['peak_inflight']}, launches {r['launches']}")
+    log(f"[train] pp_ranks losses {losses} vs pp route {pp['losses']}: "
+        f"diffs {diffs}; run_ranks wall {wall:.1f} s")
+    log(f"[train] pp_ranks on {smi}: step s {step_s[0]:.4f} / "
+        f"{step_s[1]:.4f} / {step_s[2]:.4f}, tok/s (steps 1-2) "
+        f"{tok_s:.1f}, peak GB {[round(r['peak_gb'], 2) for r in res]}; "
+        f"isend_irecv notes {len(hops)} ({2 * m * (PP_STAGES - 1) * n} "
+        f"expected), other notes {others}")
+    assert all(r["losses"] == losses for r in res), [r["losses"] for r in res]
+    assert all(map(math.isfinite, losses)), losses
+    assert diffs[0] < RANKS_LOSS0_TOL, (losses[0], pp["losses"][0])
+    assert max(diffs[1:]) < TRAIN_LOSS_TOL, diffs
+    for r in res:
+        s = r["stage"]
+        want = dict.fromkeys(r["launches"], 0)
+        want.update(_rank_launches(vl[s], s == PP_STAGES - 1, m, n))
+        assert r["launches"] == want, (s, r["launches"], want)
+        assert r["peak_inflight"] == peak_activation_microbatches(
+            s, PP_STAGES, m, plan.schedule, plan.eager_slack), r
+    assert launches == pp["launches"], (launches, pp["launches"])
+    assert [tuple(h) for h in hops] == \
+        [("isend_irecv", "cpu", hop_bytes)] * (2 * m * (PP_STAGES - 1) * n)
+
+    t0 = time.perf_counter()
+    timed = run_ranks(rank_programs.hop_times, 2, device=str(dev),
+                      timeout_s=RANKS_TIMEOUT_S,
+                      args=((plan.tokens_per_tick, TRAIN_SEQ, cfg.d_model),
+                            str(act.dtype).split(".")[-1], "cpu",
+                            HOP_REPS))
+    hop_s = timed[0]["hop_s"]
+    mean = sum(hop_s) / len(hop_s)
+    price = default_registry()["cpu_staged"].p2p_time(hop_bytes)
+    log(f"[train] pp_ranks host-staged hop of {hop_bytes / 1e6:.2f} MB on "
+        f"{smi}: mean {mean * 1e3:.3f} ms over {len(hop_s)} round trips "
+        f"(min {min(hop_s) * 1e3:.3f}, max {max(hop_s) * 1e3:.3f}), "
+        f"{hop_bytes / mean / 1e9:.3f} GB/s; cpu_staged.p2p_time "
+        f"{price * 1e3:.3f} ms; bit for bit {timed[0]['exact']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert timed[0]["exact"] and timed[0]["nbytes"] == hop_bytes
+    summary = {
+        "route": "pp_ranks", "plan": found.describe(), "transport": "cpu",
+        "ranks": PP_STAGES, "losses": losses, "pp_losses": pp["losses"],
+        "loss_diffs": diffs, "step_s": step_s, "tok_s_steady": tok_s,
+        "rank_step_s": [r["step_s"] for r in res],
+        "rank_peak_gb": [r["peak_gb"] for r in res],
+        "rank_state_gb": [r["state_gb"] for r in res],
+        "rank_params": [r["n_params"] for r in res],
+        "rank_launches": [r["launches"] for r in res], "launches": launches,
+        "peak_inflight": [r["peak_inflight"] for r in res],
+        "order": [r["order"] for r in res],
+        "isend_irecv_notes_a_step": len(hops) // n, "hop_bytes": hop_bytes,
+        "hop_s": hop_s, "hop_mean_s": mean, "hop_gbps": hop_bytes / mean / 1e9,
+        "cpu_staged_p2p_s": price, "run_ranks_wall_s": wall,
+    }
+    log(f"[train] pp_ranks report {json.dumps(summary)}")
+    return summary, launches
+
+
 # ------------------------------------------------------------ phase 6b ---
 PROFILE_SEQS, PROFILE_MBS = (TRAIN_SEQ,), (1,)
 PROFILE_WARMUP, PROFILE_REPS = 2, 5
@@ -1495,6 +1624,10 @@ def main(argv=None) -> int:
         for kname, n in counts.items():
             launches[kname] += n
     train["pp"], counts = phase_train_pp(torch, dev, smi)
+    for kname, n in counts.items():
+        launches[kname] += n
+    train["pp_ranks"], counts = phase_train_pp_ranks(torch, dev, smi,
+                                                     train["pp"])
     for kname, n in counts.items():
         launches[kname] += n
     l_cp, l_ref = train["cp"]["losses"][0], train["reference"]["losses"][0]

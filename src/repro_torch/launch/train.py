@@ -6,6 +6,8 @@
         --seq 4096 --global-batch 1
     PYTHONPATH=src python -m repro_torch.launch.train --layers 4 \
         --seq 4096 --global-batch 4 --pp 2
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --smoke --device cpu --pp 2
 
 Trains ``--arch`` (random weights from seed 0) on the synthetic token
 pipeline with AdamW (``--lr``, 20 warmup steps, as the JAX CLI) on
@@ -13,19 +15,31 @@ pipeline with AdamW (``--lr``, 20 warmup steps, as the JAX CLI) on
 the reference loss.  ``--pp N`` asks the planner for an N-stage plan on
 the JAX CLI's two-kind cluster (one AMD and one GPU-A accelerator; tp 1,
 micro_bs 1 or 2), prints it as ``[train] plan: ...`` and trains through
-its pipeline on this one device.  The cp ring is reached, as in the JAX
-package, through ``Trainer(plan=...)``.  Prints ``[train] step=..
-loss=.. tok/s=..`` every ``LOG_EVERY`` steps and, last, a JSON summary.
-Left for ROADMAP A6: ``--degrade``, ``--adapt``, ``--lose``/``--join``,
-telemetry, checkpoints and observability.
+its pipeline on this one device.  Under ``torchrun`` (``WORLD_SIZE`` > 1)
+each process is one rank of the same plan, ``WORLD_SIZE = pp * dp``: it
+joins the process group (gloo, with NCCL beside it when the plan's
+transport is ``gpu`` on the cards), runs on ``cuda:LOCAL_RANK %
+device_count`` (or the CPU with ``--device cpu``) and holds its stage of
+its replica; the stages hop over the plan's transport.  The search still
+places dp 1 a stage; with dp > 1 each stage is widened to dp replicas of
+the same microbatch size (the search over dp is ROADMAP.md queue A, item
+A5c).  The cp ring is reached, as in the JAX package, through
+``Trainer(plan=...)``.  Rank 0 prints ``[train] step=.. loss=.. tok/s=..``
+every ``LOG_EVERY`` steps and, last, a JSON summary (with every rank's
+peak memory under torchrun).  Left for ROADMAP A6: ``--degrade``,
+``--adapt``, ``--lose``/``--join``, telemetry, checkpoints and
+observability.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import cluster as cluster_mod
 from repro_torch.core import planner
@@ -69,21 +83,55 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        if not args.pp or world % args.pp:
+            ap.error(f"under torchrun WORLD_SIZE {world} must be a multiple "
+                     f"of --pp (got {args.pp})")
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
+                               % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
     overrides = {"num_layers": args.layers} if args.layers else {}
     bundle = registry.get_bundle(args.arch, smoke=args.smoke, **overrides)
     plan = None
     if args.pp:
         plan = search_plan(bundle.cfg, args.pp, args.global_batch, args.seq)
-        print(f"[train] plan: {plan.describe()}", flush=True)
+        dp = world // args.pp
+        if dp > 1:
+            plan = dataclasses.replace(plan, stages=tuple(
+                dataclasses.replace(st, dp=dp) for st in plan.stages))
+            if args.global_batch % plan.tokens_per_tick:
+                ap.error(f"--global-batch {args.global_batch} does not "
+                         f"split into dp {dp} x micro_bs {plan.micro_bs}")
+    if world > 1:
+        dist.init_process_group(
+            "gloo" if dev.type == "cpu" or plan.transport == "cpu"
+            else "cpu:gloo,cuda:nccl")
+    try:
+        _train(args, bundle, plan, dev, world)
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
+
+
+def _train(args, bundle, plan, dev, world: int) -> None:
+    rank = dist.get_rank() if world > 1 else 0
+    log = print if rank == 0 else (lambda *a, **k: None)
+    if plan is not None:
+        log(f"[train] plan: {plan.describe()}", flush=True)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t = Trainer(bundle, TrainerConfig(global_batch=args.global_batch,
                                       seq_len=args.seq),
                 plan=plan, opt_cfg=AdamWConfig(lr=args.lr, warmup_steps=20),
                 device=dev)
+    if world > 1 and t.grid is None:
+        raise RuntimeError(f"plan {plan.describe()} does not run on ranks")
     n_params = sum(x.numel() for x in tree_leaves(t.state["params"]))
-    print(f"[train] arch={bundle.cfg.name} params={n_params / 1e6:.1f}M "
-          f"device={dev} start_step={t.step}", flush=True)
+    log(f"[train] arch={bundle.cfg.name} params={n_params / 1e6:.1f}M "
+        f"device={dev} start_step={t.step}"
+        + (f" rank 0 of {world}" if world > 1 else ""), flush=True)
     ops.reset_launch_counts()
     t0 = time.time()
     done, losses = 0, []
@@ -92,23 +140,31 @@ def main(argv=None):
         losses += t.run(chunk)["losses"]
         done += chunk
         tok_s = done * args.global_batch * args.seq / (time.time() - t0)
-        print(f"[train] step={t.step} loss={losses[-1]:.4f} "
-              f"tok/s={tok_s:.0f}", flush=True)
+        log(f"[train] step={t.step} loss={losses[-1]:.4f} "
+            f"tok/s={tok_s:.0f}", flush=True)
+    tok_s = done * args.global_batch * args.seq / (time.time() - t0)
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else None)
+    peaks = [peak]
+    if world > 1:
+        peaks = [None] * world
+        dist.all_gather_object(peaks, peak)
     summary = {
         "final_loss": losses[-1], "steps": t.step,
         "params_m": round(n_params / 1e6, 1), "device": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
-        "tok_s": done * args.global_batch * args.seq / (time.time() - t0),
-        "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
-                        if dev.type == "cuda" else None),
+        "tok_s": tok_s, "peak_mem_gb": peak,
         # the CPU runs the plain versions: no kernel launches there
         "kernel_launches": ops.launch_counts(),
         "pp": plan.pp if plan else None,
         "virtual_layers": list(plan.virtual_layers) if plan else None,
         "micro_batches": plan.micro_batches if plan else None,
+        "world": world, "dp": plan.dps[0] if plan else 1,
+        "transport": plan.transport if plan else None,
+        "rank_peak_mem_gb": peaks,
     }
-    print(json.dumps(summary))
+    log(json.dumps(summary))
 
 
 if __name__ == "__main__":

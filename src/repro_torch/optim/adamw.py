@@ -13,7 +13,7 @@ state it started from copies it first (``Trainer`` does).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -69,14 +69,17 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
-                 cfg: AdamWConfig):
+                 cfg: AdamWConfig, grad_norm: Optional[torch.Tensor] = None):
     """Returns (new_params, new_state, metrics) as the JAX function does,
     but updates IN PLACE: the returned trees hold the tensors of
     ``params`` and ``state``, so the update needs no second copy of the
     fp32 state (30 GB for llama3-8b at 4 layers).  Each in-place op rounds
-    as the JAX expression it replaces."""
+    as the JAX expression it replaces.  ``grad_norm`` is the global norm
+    for clipping when ``grads`` hold only part of the model (a pipeline
+    rank's stage, its norm summed over the stages' ranks); None takes it
+    from ``grads``."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = _schedule(cfg, count)
     cf = count.float()

@@ -29,24 +29,41 @@ between the canonical layout and the JAX package's stacked pp layout
 ``(pp[, vpp], Lmax, ...)``: a JAX pp state converts with
 ``convert.from_jax`` followed by the unstack.
 
+The rank route runs the same plans with each stage in its own process
+(``PPRankStep``): rank ``(stage, replica)`` of ``groups.RankGrid`` holds
+only its stage's contiguous layers, plus the embedding on stage 0 and the
+final norm and unembedding on the last (``split_state_for_rank``,
+``init_rank_state``), and runs its stage's static share of the plan's
+schedule: ``cap`` forwards, then one backward and one forward in turn,
+then the remaining backwards, ``cap`` the simulator's in-flight peak
+(``core/simulator.peak_activation_microbatches``).  Activations go to the
+next stage and their gradients back through the ``pod`` axis's
+``Communicator`` on the plan's transport; each replica takes its rows of
+every microbatch, and gradients are averaged over ``data``.
+
 Scope: the uniform dense (attention) stack.  Mamba training waits for the
-scan's backward kernel (ROADMAP.md queue A, item 9).  Stage tp and
-activation sharding are bookkeeping on one card (ROADMAP A5b runs stages
-on separate ranks).
+scan's backward kernel (ROADMAP.md queue A, item 9).  On one card, stage
+tp and activation sharding are bookkeeping; on ranks, interleaved
+schedules, a stage tp above 1 and tied embeddings wait for ROADMAP.md
+queue A, item A5c.
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.iccl.communicator import _note
+from repro_torch.core.plan import ParallelPlan
+from repro_torch.core.simulator import peak_activation_microbatches
+from repro_torch.iccl.communicator import Communicator, P2PWork, _note
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.transformer import _block, _embed, _unembed
-from repro_torch.optim.adamw import tree_map
+from repro_torch.optim import adamw
+from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.parallel.groups import RankGrid
 from repro_torch.train.steps import LossFn, cross_entropy, with_aux
 
 
@@ -219,3 +236,273 @@ def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
         return with_aux(loss_sum / m, torch.zeros_like(loss_sum))
 
     return loss_fn
+
+
+# ---------------------------------------------------------- the ranks ----
+A5C = "ROADMAP.md queue A, item A5c"
+
+
+def check_rank_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
+    """Raise ValueError when ``plan`` falls outside the rank route's scope:
+    a pp > 1 plan of the dense stack, vpp 1, tp 1 and one dp width."""
+    check_pp_supported(cfg)
+    if plan.pp < 2:
+        raise ValueError(f"the rank route runs pp > 1 plans, got pp "
+                         f"{plan.pp}")
+    if plan.vpp > 1 or plan.schedule == "interleaved-1f1b":
+        raise ValueError(f"{plan.schedule} with vpp={plan.vpp} on ranks "
+                         f"waits for {A5C}")
+    if any(tp != 1 for tp in plan.tps):
+        raise ValueError(f"stage tp {plan.tps} on ranks: tensor "
+                         f"parallelism within a stage waits for {A5C}")
+    if cfg.tie_embeddings:
+        raise ValueError(f"{cfg.name}: tied embeddings would be one tensor "
+                         f"on stage 0 and the last stage; on ranks they "
+                         f"wait for {A5C}")
+    if plan.cp > 1:
+        raise ValueError(f"cp={plan.cp} across ranks waits for ROADMAP.md "
+                         "queue A, item A8")
+    if len(set(plan.dps)) > 1:
+        raise ValueError(f"stage dp widths {plan.dps} differ; the rank grid "
+                         "has one dp")
+
+
+LayersLike = Union[ParallelPlan, Sequence[int]]
+
+
+def _stage_layers(plan_or_layers: LayersLike) -> List[int]:
+    if isinstance(plan_or_layers, ParallelPlan):
+        return list(plan_or_layers.virtual_layers)
+    return [int(n) for n in plan_or_layers]
+
+
+def stage_tree(tree: Dict[str, Any], layers: Sequence[int],
+               stage: int) -> Dict[str, Any]:
+    """Stage ``stage``'s part of a canonical tree, cloned: its contiguous
+    layers of the block stacks, the embedding on stage 0, and the rest
+    (the final norm, the unembedding) on the last stage."""
+    start, n = sum(layers[:stage]), layers[stage]
+    first, last = stage == 0, stage == len(layers) - 1
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if k == "blocks":
+            out[k] = tree_map(lambda a: a[start:start + n].clone(), v)
+        elif (first if k == "embed" else last):
+            out[k] = tree_map(torch.clone, v)
+    return out
+
+
+def gather_stage_trees(trees: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """The canonical tree from the stages' ``stage_tree``s, in stage
+    order."""
+    out = {k: v for k, v in trees[0].items() if k != "blocks"}
+    out.update((k, v) for k, v in trees[-1].items()
+               if k not in ("blocks", "embed"))
+    # the stacks last, as ``init_lm`` makes the tree
+    out["blocks"] = tree_map(lambda *a: torch.cat(a), trees[0]["blocks"],
+                             *(t["blocks"] for t in trees[1:]))
+    return out
+
+
+def split_state_for_rank(state: Dict[str, Any], plan_or_layers: LayersLike,
+                         stage: int) -> Dict[str, Any]:
+    """What stage ``stage`` owns of a whole train state
+    (``steps.init_train_state``'s layout): its parameters and their fp32
+    master, m and v, cloned; the step and the AdamW count."""
+    layers = _stage_layers(plan_or_layers)
+    opt = {k: v.clone() if k == "count" else stage_tree(v, layers, stage)
+           for k, v in state["opt"].items()}
+    return {"params": stage_tree(state["params"], layers, stage),
+            "opt": opt, "step": state["step"].clone()}
+
+
+def gather_rank_states(states: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """The inverse of ``split_state_for_rank``: the whole state from the
+    stages' states, in stage order."""
+    opt = {k: states[0]["opt"][k] if k == "count"
+           else gather_stage_trees([s["opt"][k] for s in states])
+           for k in states[0]["opt"]}
+    return {"params": gather_stage_trees([s["params"] for s in states]),
+            "opt": opt, "step": states[0]["step"]}
+
+
+def init_rank_state(bundle, plan_or_layers: LayersLike, stage: int,
+                    seed: int = 0, device=None) -> Dict[str, Any]:
+    """``split_state_for_rank(steps.init_train_state(bundle, seed), ...)``
+    without the whole fp32 state: ``init_lm`` draws every leaf from one
+    generator in a fixed order, so the rank draws the whole parameter tree
+    (bf16 at full width), keeps its stage's part and only then makes the
+    optimizer state."""
+    full = bundle.init(bundle.cfg, seed=seed, device=device)
+    params = stage_tree(full, _stage_layers(plan_or_layers), stage)
+    del full
+    first = tree_leaves(params)[0]
+    return {"params": params,
+            "opt": adamw.init_opt_state(
+                params, keep_master=bundle.cfg.param_dtype != "float32"),
+            "step": torch.zeros((), dtype=torch.int32, device=first.device)}
+
+
+def rank_schedule(stage: int, n_stages: int, n_microbatches: int,
+                  schedule: str = "1f1b",
+                  eager_slack: int = 2) -> List[Tuple[str, int]]:
+    """Stage ``stage``'s static order of forwards ``("F", j)`` and
+    backwards ``("B", j)``: ``cap`` forwards, then one backward and one
+    forward in turn, then the remaining backwards.  ``cap`` is the
+    simulator's in-flight peak (``min(m, pp - s)`` for 1f1b, plus
+    ``eager_slack`` for 1f1b-eager, m for gpipe), at most m."""
+    m = n_microbatches
+    cap = min(m, peak_activation_microbatches(stage, n_stages, m, schedule,
+                                              eager_slack))
+    order = [("F", j) for j in range(cap)]
+    nf = cap
+    for j in range(m):
+        order.append(("B", j))
+        if nf < m:
+            order.append(("F", nf))
+            nf += 1
+    return order
+
+
+class PPRankStep:
+    """One train step of this rank's stage of a pp plan: the rank route.
+
+    ``loss_and_grads(params, batch)`` runs the stage's ``rank_schedule``
+    over this replica's microbatches ``(m, B_tick / dp, S)``.  A forward
+    takes its input from the embedding (stage 0) or from the previous
+    stage, runs the stage's layers (each under ``torch.utils.checkpoint``
+    when ``cfg.remat``, as the one-card loss) and sends the activation on;
+    the last stage computes the final norm, the unembedding and the
+    cross-entropy, scaled by 1/m.  A backward takes the activation's
+    gradient from the next stage (or starts from the loss) and sends its
+    input's gradient back.  Each boundary of the schedule posts the
+    previous op's send and the next op's receive together, receive first,
+    so two stages that send to each other at once cannot deadlock; under
+    ``1f1b-eager`` the activation sends complete in the background and
+    are waited on at the end of the step.  The order never depends on
+    timing, so the gradients are the same from run to run.
+
+    ``__call__(state, batch)`` then averages the gradients over ``data``,
+    sums the squared global norm over ``pod``, applies AdamW with that
+    norm, and reports the last stage's loss on every rank (summed over
+    ``pod``, where only the last stage holds it, then averaged over
+    ``data``).  ``peak_inflight`` is the most microbatches whose
+    activations this rank held at once."""
+
+    def __init__(self, cfg: ModelConfig, plan: ParallelPlan, grid: RankGrid,
+                 opt_cfg: Optional[adamw.AdamWConfig] = None):
+        check_rank_plan(cfg, plan)
+        if (grid.pp, grid.dp) != (plan.pp, plan.dps[0]):
+            raise ValueError(f"the rank grid (pp {grid.pp}, dp {grid.dp}) "
+                             f"does not hold plan {plan.describe()}")
+        self.cfg, self.plan, self.grid = cfg, plan, grid
+        self.opt_cfg = opt_cfg or adamw.AdamWConfig()
+        self.m = plan.micro_batches
+        self.stage = grid.stage
+        self.n_layers = plan.virtual_layers[grid.stage]
+        self.order = rank_schedule(grid.stage, plan.pp, self.m,
+                                   plan.schedule, plan.eager_slack)
+        self.pod = Communicator("pod", plan.transport)
+        self.data = Communicator("data", plan.transport)
+        self.async_sends = plan.schedule == "1f1b-eager"
+        self.peak_inflight = 0
+        self._block = functools.partial(_block, cfg=cfg)
+        if cfg.remat:
+            # a process's first checkpoint call imports torch._dynamo (~6 s
+            # on the card's host), and stage s + 1's first forward waits on
+            # stage s's: imported here, the ranks pay it at once, not in turn
+            import torch._dynamo  # noqa: F401
+
+    def _hop(self, send: Optional[Tuple[torch.Tensor, int]],
+             src: Optional[int], like: torch.Tensor,
+             posted: List[P2PWork]) -> Optional[torch.Tensor]:
+        """One boundary: ``send`` = (tensor, stage) and a receive from
+        stage ``src``, in one ``isend_irecv`` over ``pod``."""
+        if send is None and src is None:
+            return None
+        s = self.stage
+        perm = ([(s, send[1])] if send is not None else []) + \
+            ([(src, s)] if src is not None else [])
+        work = self.pod.isend_irecv_async(
+            send[0] if send is not None else like, perm)
+        if self.async_sends and send is not None and send[1] > s:
+            posted.append(work)     # an activation: waited on at the end
+            got = work.result()
+        else:
+            got = work.wait()
+        return got if src is not None else None
+
+    def _run_layers(self, layers, x: torch.Tensor) -> torch.Tensor:
+        for p in layers:
+            x = (checkpoint(self._block, p, x, use_reentrant=False)
+                 if self.cfg.remat else self._block(p, x))
+        return x
+
+    def loss_and_grads(self, params: Dict[str, Any],
+                       batch: Dict[str, torch.Tensor]):
+        """(this replica's loss on the last stage, 0 elsewhere; the
+        gradients of this rank's parameters)."""
+        cfg, s, m = self.cfg, self.stage, self.m
+        first, last = s == 0, s == self.plan.pp - 1
+        tokens, labels = batch["tokens"], batch["labels"]
+        if tokens.shape[0] != m:
+            raise ValueError(f"the batch holds {tokens.shape[0]} "
+                             f"microbatches, the plan {m}")
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        leaves = tree_leaves(p)
+        layers = _layer_views(p["blocks"], self.n_layers)
+        like = torch.empty(tokens.shape[1:] + (cfg.d_model,),
+                           dtype=cfg.adtype, device=leaves[0].device)
+        ce_sum = torch.zeros((), dtype=torch.float32, device=like.device)
+        saved: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        send: Optional[Tuple[torch.Tensor, int]] = None
+        posted: List[P2PWork] = []
+        for kind, j in self.order:
+            src = (s - 1 if kind == "F" and not first else
+                   s + 1 if kind == "B" and not last else None)
+            got = self._hop(send, src, like, posted)
+            send = None
+            if kind == "F":
+                x = _embed(p, tokens[j], cfg) if first else \
+                    got.requires_grad_()
+                y = self._run_layers(layers, x)
+                if last:
+                    h = rmsnorm(p["final_norm"], y, cfg.norm_eps)
+                    ce = cross_entropy(_unembed(p, h, cfg), labels[j])
+                    ce_sum = ce_sum + ce.detach()
+                    y = ce / m
+                else:
+                    send = (y.detach(), s + 1)
+                saved[j] = (x, y)
+                self.peak_inflight = max(self.peak_inflight, len(saved))
+            else:
+                x, y = saved.pop(j)
+                y.backward(None if last else got)
+                if not first:
+                    send = (x.grad, s - 1)
+        self._hop(send, None, like, posted)
+        for work in posted:
+            work.wait()
+        grads = tree_map(
+            lambda t: torch.zeros_like(t) if t.grad is None else t.grad, p)
+        return ce_sum / m, grads
+
+    def __call__(self, state: Dict[str, Any],
+                 batch: Dict[str, torch.Tensor]):
+        dp = self.grid.dp
+        params = state["params"]
+        loss, grads = self.loss_and_grads(params, batch)
+        if dp > 1:
+            grads = tree_map(lambda g: self.data.iallreduce(g) / dp, grads)
+        sq = sum(torch.sum(torch.square(g.float()))
+                 for g in tree_leaves(grads))
+        gnorm = torch.sqrt(self.pod.iallreduce(sq))
+        params, opt, om = adamw.adamw_update(params, grads, state["opt"],
+                                             self.opt_cfg, grad_norm=gnorm)
+        loss = self.pod.iallreduce(loss)
+        if dp > 1:
+            loss = self.data.iallreduce(loss) / dp
+        metrics = {"ce": loss, "aux": torch.zeros_like(loss), "loss": loss,
+                   **om}
+        return {"params": params, "opt": opt,
+                "step": state["step"] + 1}, metrics

@@ -1,0 +1,219 @@
+"""Programs for ``launch.run_ranks``: what the tests and ``chip_smoke.py``
+run on local ranks.
+
+Each is a module-level function ``fn(rank, world, *args)`` (spawn pickles
+it by name) that takes numpy or plain Python and returns the same, so a
+rank imports nothing but ``repro_torch``.  The device is the one
+``run_ranks`` set: the current CUDA device, or the CPU.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.plan import ParallelPlan, StagePlacement
+from repro_torch.iccl import communicator
+from repro_torch.iccl.communicator import Communicator
+from repro_torch.kernels import ops
+from repro_torch.models import registry
+from repro_torch.optim.adamw import AdamWConfig, tree_leaves, tree_map
+from repro_torch.parallel import groups, pipeline
+from repro_torch.profile import runner
+from repro_torch.profile.store import ProfileStore
+from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def _device() -> torch.device:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _torch_tree(tree, device):
+    return tree_map(lambda a: torch.as_tensor(np.asarray(a)).to(device),
+                    tree)
+
+
+def _numpy_tree(tree):
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+class _Notes(list):
+    """The ICCL tap's notes while installed (a ``with`` block)."""
+
+    def __enter__(self):
+        communicator.set_collective_sink(lambda *note: self.append(note))
+        return self
+
+    def __exit__(self, *exc):
+        communicator.set_collective_sink(None)
+
+
+def comm_ops(rank: int, world: int, xs: np.ndarray,
+             split: int) -> Dict[str, np.ndarray]:
+    """Every ``Communicator`` method over axis ``x`` (all ranks), rank r
+    holding ``xs[r]``: iallreduce with and without ``compress``,
+    iallgather tiled and stacked, ireducescatter, ialltoall of ``xs[r]``
+    reshaped ``(world, -1)`` (split 1, concat 0), isend_irecv over a
+    reversing permutation, and shift by 1 with and without ``wrap``.
+    ``split`` is the length ireducescatter splits (a length that does not
+    divide over the ranks makes this rank raise)."""
+    groups.bind_world_axis("x", _device())
+    comm = Communicator("x")
+    x = torch.as_tensor(xs[rank]).to(_device())
+    rev = [(i, world - 1 - i) for i in range(world)]
+    out = {
+        "iallreduce": comm.iallreduce(x),
+        "iallreduce_compress": Communicator("x", compress=True).iallreduce(x),
+        "iallgather": comm.iallgather(x),
+        "iallgather_stacked": comm.iallgather(x, axis=0, tiled=False),
+        "ireducescatter": comm.ireducescatter(x[:split]),
+        "ialltoall": comm.ialltoall(x.reshape(world, -1), 1, 0),
+        "isend_irecv": comm.isend_irecv(x, rev),
+        "shift": comm.shift(x, 1),
+        "shift_wrap": comm.shift(x, 1, wrap=True),
+    }
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    out["index"], out["size"] = comm.index(), comm.size()
+    return out
+
+
+def p2p_once(rank: int, world: int, perms: Sequence[Sequence[Tuple[int, int]]]
+             ) -> np.ndarray:
+    """One ``isend_irecv`` of four ``rank + 1``s over axis ``x``, rank r
+    passing ``perms[r]``: what it received."""
+    groups.bind_world_axis("x", _device())
+    x = torch.full((4,), rank + 1.0, device=_device())
+    return Communicator("x").isend_irecv(x, perms[rank]).cpu().numpy()
+
+
+def pp_loss_and_grads(rank: int, world: int, bundle_kw: Dict[str, Any],
+                      params: Dict[str, Any], batch: Dict[str, np.ndarray],
+                      cases: Sequence[Tuple[Sequence[int], str, int]],
+                      transport: str = "gpu") -> List[Dict[str, Any]]:
+    """``PPRankStep.loss_and_grads`` of a pp = ``world`` pipeline, one
+    replica, on the whole canonical ``params`` (numpy) and the microbatched
+    ``batch`` ``(m, B_tick, S)``, for each case (virtual layers, schedule,
+    eager slack) with its hops on ``transport``: the loss every rank
+    reports, this rank's gradients, its in-flight peak and schedule, and
+    the ICCL notes it made."""
+    bundle = registry.get_bundle(**bundle_kw)
+    dev = _device()
+    grid = groups.make_rank_grid(world, 1, dev)
+    whole = _torch_tree(params, dev)
+    tb = _torch_tree(batch, dev)
+    m, bt, seq = batch["tokens"].shape
+    out = []
+    for layers, schedule, slack in cases:
+        plan = ParallelPlan(
+            stages=tuple(StagePlacement(s, n, 1, 1, s == world - 1)
+                         for s, n in enumerate(layers)),
+            micro_bs=bt, global_batch=m * bt, seq_len=seq,
+            transport=transport,
+            schedule=schedule, eager_slack=slack)
+        step = pipeline.PPRankStep(bundle.cfg, plan, grid)
+        own = pipeline.stage_tree(whole, layers, grid.stage)
+        with _Notes() as notes:
+            loss, grads = step.loss_and_grads(own, tb)
+        loss = step.pod.iallreduce(loss)
+        out.append({"loss": float(loss), "grads": _numpy_tree(grads),
+                    "stage": grid.stage, "peak_inflight": step.peak_inflight,
+                    "order": step.order, "notes": list(notes)})
+    return out
+
+
+def trainer_steps(rank: int, world: int, bundle_kw: Dict[str, Any],
+                  plan: Dict[str, Any], state: Dict[str, Any], steps: int,
+                  opt: Dict[str, Any]) -> Dict[str, Any]:
+    """``steps`` ``Trainer`` steps on the rank route from the whole
+    ``state`` (numpy): the losses, and this rank's parameters and second
+    moments afterwards."""
+    bundle = registry.get_bundle(**bundle_kw)
+    p = ParallelPlan.from_dict(plan)
+    t = Trainer(bundle, TrainerConfig(global_batch=p.global_batch,
+                                      seq_len=p.seq_len),
+                plan=p, opt_cfg=AdamWConfig(**opt),
+                state=(None if state is None
+                       else _torch_tree(state, torch.device("cpu"))),
+                device=_device())
+    out = t.run(steps)
+    return {"losses": out["losses"], "step": out["step"],
+            "stage": t.grid.stage, "replica": t.grid.replica,
+            "params": _numpy_tree(t.state["params"]),
+            "v": _numpy_tree(t.state["opt"]["v"])}
+
+
+def collectives(rank: int, world: int, payloads: Sequence[int]
+                ) -> List[Dict[str, Any]]:
+    """``profile.runner.bench_collectives`` on every rank into a store of
+    its own: the entries written."""
+    store = ProfileStore()
+    runner.bench_collectives(store, "cpu", payloads, warmup=0, reps=1,
+                             verbose=False, device=_device())
+    return [e.to_dict() for e in store.entries()]
+
+
+def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
+             plan: Dict[str, Any], steps: int) -> Dict[str, Any]:
+    """``steps`` ``Trainer`` steps of a pp plan on the rank route from a
+    fresh state (seed 0), with what this rank saw: the losses and step
+    times, its kernel launches, the ICCL notes, its in-flight peak, and
+    its state and peak memory (GB, on the card)."""
+    dev = _device()
+    bundle = registry.get_bundle(**bundle_kw)
+    p = ParallelPlan.from_dict(plan)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    t = Trainer(bundle, TrainerConfig(global_batch=p.global_batch,
+                                      seq_len=p.seq_len),
+                plan=p, device=dev)
+    if cuda:
+        torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated(dev) / 1e9 if cuda else None
+    ops.reset_launch_counts()
+    with _Notes() as notes:
+        out = t.run(steps)
+    launches = ops.launch_counts()
+    return {"rank": rank, "stage": t.grid.stage, "losses": out["losses"],
+            "step_s": out["step_s"], "launches": launches,
+            "notes": list(notes), "peak_inflight": t.train_step.peak_inflight,
+            "order": t.train_step.order, "init_s": init_s,
+            "n_params": sum(x.numel() for x in tree_leaves(t.state["params"])),
+            "state_gb": state_gb,
+            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if cuda else None)}
+
+
+def hop_times(rank: int, world: int, shape: Sequence[int], dtype: str,
+              transport: str, reps: int) -> Dict[str, Any]:
+    """One-way hop times of a ``shape`` tensor of ``dtype`` between ranks
+    0 and 1 over axis ``pod`` on ``transport``, from ``reps`` round trips
+    timed on rank 0 (host clock, the card synchronized), after two
+    untimed; and whether every hop copied the tensor bit for bit."""
+    dev = _device()
+    groups.make_rank_grid(world, 1, dev)
+    comm = Communicator("pod", transport)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    x = torch.randn(tuple(shape), generator=gen, device=dev).to(
+        getattr(torch, dtype))
+    exact, times = True, []
+    for i in range(reps + 2):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        y = comm.isend_irecv(x, [(0, 1)])       # rank 0 -> 1
+        y = comm.isend_irecv(y if rank == 1 else x, [(1, 0)])
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if i >= 2:
+            times.append((time.perf_counter() - t0) / 2)
+        exact = exact and (rank != 0 or torch.equal(y, x))
+    return {"rank": rank, "hop_s": times, "exact": exact,
+            "nbytes": x.numel() * x.element_size()}

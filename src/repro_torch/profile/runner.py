@@ -16,10 +16,15 @@ ops and shapes, so ``ProfiledCostModel`` serves either package's profile:
                 (seq_len, micro_bs); ``smoke=False`` profiles the arch at
                 its full width.
 
+  * collectives — psum, all_gather and ppermute through the ICCL
+                ``Communicator`` over every rank of an initialised
+                ``torch.distributed`` group (gloo for CPU tensors, NCCL for
+                the cards), and the ``link`` / ``ring_hop`` bandwidth of
+                the largest ppermute; with one process or one device they
+                are skipped, as the JAX runner skips them on one device.
+
 On the card each timed call sits between a pair of CUDA events, then a
-synchronize; on the CPU ``time.perf_counter`` brackets it.  Collectives
-need ``torch.distributed`` and the communicator (ROADMAP A5b): with one
-device they are skipped, as the JAX runner skips them.
+synchronize; on the CPU ``time.perf_counter`` brackets it.
 
 Usage:
     python -m repro_torch.profile.runner --quick --device cpu --out p.json
@@ -33,6 +38,7 @@ import time
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.models import registry
@@ -165,8 +171,8 @@ def bench_layers(store: ProfileStore, dev: str, arch: str,
     """Per-layer fwd/bwd time from two depth probes (a vs 2a)."""
     if tp != 1:
         raise NotImplementedError(
-            "tensor parallelism waits for the port's pipeline and "
-            "communicator (ROADMAP.md queue A, item A5b)")
+            "tensor parallelism within a stage waits for ROADMAP.md queue "
+            "A, item A5c")
     device = resolve_device(device)
     cfg0 = registry.get_config(arch, smoke=smoke)
     a = len(cfg0.block_pattern) if cfg0.block_pattern else 1
@@ -198,29 +204,83 @@ def bench_layers(store: ProfileStore, dev: str, arch: str,
 
 
 # ------------------------------------------------------------ collectives --
-def bench_collectives(verbose: bool = True):
-    """Collectives run over ``torch.distributed`` with the port's
-    communicator, which waits for ROADMAP A5b; nothing is measured yet."""
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 1
-    if verbose:
-        print("  collectives: single device — skipped" if n < 2 else
-              f"  collectives: {n} devices — the torch.distributed "
-              "communicator is not ported yet (ROADMAP A5b), skipped")
+def bench_collectives(store: ProfileStore, dev: str,
+                      payload_bytes: Sequence[int], warmup: int = 2,
+                      reps: int = 5, verbose: bool = True,
+                      device: DeviceLike = None):
+    """The JAX runner's collective entries, measured over every rank of the
+    initialised process group (each rank calls this at once, with its own
+    ``device``), on axis ``x`` as the JAX runner's one-axis mesh: for each
+    payload, psum, all_gather and a ring ppermute of an fp32 array whose
+    shard (one rank's part) is ``nbytes``, timed on every rank and averaged
+    over the ranks, with the JAX runner's wire bytes; then ``link`` and
+    ``ring_hop`` ``{"scope": "intra"}`` from the largest ppermute.  Every
+    rank writes the same entries.  The communicator keeps its default
+    transport: CPU tensors take gloo, CUDA tensors NCCL (a rank a card)."""
+    from repro_torch.iccl.communicator import Communicator
+    from repro_torch.parallel.groups import bind_world_axis
+    n = (dist.get_world_size()
+         if dist.is_available() and dist.is_initialized() else 1)
+    if n < 2:
+        if verbose:
+            print("  collectives: single device — skipped")
+        return
+    device = resolve_device(device)
+    bind_world_axis("x", device)
+    comm = Communicator(axis="x")
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    cases = {
+        "psum": (comm.iallreduce,
+                 lambda nb: 2.0 * (n - 1) / n * nb),        # ring wire bytes
+        "all_gather": (lambda y: comm.iallgather(y, axis=0),
+                       lambda nb: (n - 1) * nb),   # receives n-1 shards
+        "ppermute": (lambda y: comm.isend_irecv(y, perm),
+                     lambda nb: float(nb)),
+    }
+    link_gbps = None
+    for nbytes in payload_bytes:
+        n_f32 = max(nbytes // 4 // n * n, n)
+        x = torch.ones((n_f32 // n,), dtype=torch.float32, device=device)
+        shard_bytes = x.numel() * x.element_size()
+        for name, (fn, wire) in cases.items():
+            t, s = timeit(lambda: fn(x), warmup, reps, device=device)
+            t, s = (comm.iallreduce(torch.tensor([t, s], dtype=torch.float64,
+                                                 device=device)) / n).tolist()
+            gbps = wire(shard_bytes) * 8.0 / t / 1e9
+            store.put(dev, f"collective_{name}",
+                      {"nbytes": shard_bytes, "n_dev": n},
+                      {"time_s": t, "std": s, "gbps": gbps})
+            if name == "ppermute":
+                link_gbps = gbps   # largest payload wins (last iteration)
+            if verbose:
+                print(f"  coll   {name:12s} shard={shard_bytes/1e6:7.3f}MB "
+                      f"n={n} t={t*1e3:8.3f}ms eff={gbps:8.2f}Gb/s")
+    if link_gbps is not None:
+        # measured intra-island p2p bandwidth -> the predictor's link model
+        store.put(dev, "link", {"scope": "intra"}, {"gbps": link_gbps})
+        # the context-parallel ring hop IS a collective-permute: the same
+        # measurement serves ProfiledCostModel.ring_hop_gbps
+        store.put(dev, "ring_hop", {"scope": "intra"}, {"gbps": link_gbps})
 
 
 # -------------------------------------------------------------------- cli --
 def run(arch: str = "llama3-8b", quick: bool = False, out: str = None,
         tp_options: Sequence[int] = (1,), verbose: bool = True,
         device: DeviceLike = None) -> ProfileStore:
-    """The JAX runner's sweep, on one device."""
+    """The JAX runner's sweep on this process's device; the collectives
+    run when this process is one of two or more ranks of an initialised
+    process group (each rank calls ``run``)."""
     device = resolve_device(device)
     dev = device_kind(device)
     store = (ProfileStore.open(out) if out
              else ProfileStore.for_device(dev))
     if quick:
-        seqs, micro_bss, warmup, reps = (64, 128), (1, 2), 1, 3
+        seqs, micro_bss, payloads = (64, 128), (1, 2), (1 << 20,)
+        warmup, reps = 1, 3
     else:
-        seqs, micro_bss, warmup, reps = (128, 256, 512), (1, 2, 4), 2, 7
+        seqs, micro_bss = (128, 256, 512), (1, 2, 4)
+        payloads = (1 << 20, 8 << 20, 64 << 20)
+        warmup, reps = 2, 7
     if verbose:
         print(f"[profile] device_kind={dev} device={device} "
               f"torch={torch.__version__} -> {store.path}")
@@ -230,7 +290,8 @@ def run(arch: str = "llama3-8b", quick: bool = False, out: str = None,
         bench_layers(store, dev, arch, seqs, micro_bss, tp=tp,
                      warmup=warmup, reps=reps, verbose=verbose,
                      device=device)
-    bench_collectives(verbose)
+    bench_collectives(store, dev, payloads, warmup=warmup, reps=reps,
+                      verbose=verbose, device=device)
     path = store.save()
     if verbose:
         print(f"[profile] {len(store)} entries -> {path}")

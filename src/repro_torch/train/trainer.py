@@ -9,11 +9,18 @@ synthetic batches:
     attention);
   * a pp = 1, cp > 1 plan for this workload: the cp ring loss
     (``parallel/context.py``), same state and train step;
-  * a pp > 1 plan for this workload: the pipeline loss
+  * a pp > 1 plan for this workload on one process: the pipeline loss
     (``parallel/pipeline.py``) over the plan's microbatches, virtual
     stage layers, vpp and stage tp widths, same state and train step; the
     batch arrives microbatched ``(m, B_tick, ...)``.  As in the JAX
-    trainer, the plan's cp and per-stage dp stay advisory under pp > 1.
+    trainer, the plan's cp and per-stage dp stay advisory there;
+  * the same plan with ``torch.distributed`` initialised over
+    ``world = pp * dp`` > 1 processes: the rank route.  This rank holds
+    one stage of one replica (``parallel/groups.make_rank_grid``), its
+    part of the state (``pipeline.init_rank_state``, or
+    ``pipeline.split_state_for_rank`` of a whole ``state=``) and its rows
+    of every microbatch of the global batch, and steps with
+    ``pipeline.PPRankStep``; every rank reports the step's loss.
 
 Left out of the JAX trainer, each a ROADMAP item: checkpoints and restart,
 stage telemetry, straggler detection, replanning and migration,
@@ -27,13 +34,14 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.plan import ParallelPlan
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.models.registry import ArchBundle
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.parallel import context, pipeline
+from repro_torch.parallel import context, groups, pipeline
 from repro_torch.train import steps as steps_mod
 from repro_torch.utils.device import (DeviceLike, resolve_device,
                                       synchronize)
@@ -65,8 +73,17 @@ class Trainer:
             global_batch=cfg.global_batch, family=bundle.cfg.family,
             d_model=bundle.cfg.d_model,
             n_vision_tokens=bundle.cfg.n_vision_tokens)
+        self.grid: Optional[groups.RankGrid] = None
         self._build()
-        if state is None:
+        if self.grid is not None:
+            stage = self.grid.stage
+            self.state = (
+                pipeline.init_rank_state(bundle, plan, stage,
+                                         device=self.device)
+                if state is None else adamw.tree_map(
+                    lambda t: t.to(self.device),
+                    pipeline.split_state_for_rank(state, plan, stage)))
+        elif state is None:
             self.state = steps_mod.init_train_state(bundle,
                                                     device=self.device)
         else:   # a copy: the step updates its state in place
@@ -85,6 +102,12 @@ class Trainer:
                 and plan.seq_len == self.cfg.seq_len
                 and self.cfg.global_batch % plan.tokens_per_tick == 0)
 
+    def _ranks_active(self) -> bool:
+        """The pipeline runs with its stages on the ranks of an initialised
+        process group."""
+        return (self._pipeline_active() and dist.is_available()
+                and dist.is_initialized() and dist.get_world_size() > 1)
+
     def _cp_active(self) -> bool:
         """A pp == 1, cp > 1 plan matching this workload runs the ring loss
         in place of the reference loss; models outside its scope keep the
@@ -102,6 +125,16 @@ class Trainer:
 
     def _build(self):
         loss_fn = None
+        if self._ranks_active():
+            plan, world = self.plan, dist.get_world_size()
+            if world % plan.pp:
+                raise ValueError(f"world size {world} is no multiple of the "
+                                 f"plan's pp {plan.pp}")
+            self.grid = groups.make_rank_grid(plan.pp, world // plan.pp,
+                                              self.device)
+            self.train_step = pipeline.PPRankStep(
+                self.bundle.cfg, plan, self.grid, self.opt_cfg)
+            return
         if self._pipeline_active():
             plan = self.plan
             loss_fn = pipeline.make_pp_loss_fn(
@@ -121,6 +154,10 @@ class Trainer:
         def put(v):
             if m is not None:   # the pipeline consumes (m, B_tick, ...)
                 v = v.reshape(m, v.shape[0] // m, *v.shape[1:])
+            if self.grid is not None:   # this replica's rows of each
+                b = v.shape[1] // self.grid.dp
+                r = self.grid.replica
+                v = v[:, r * b:(r + 1) * b]
             return torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
 
         return {k: put(v) for k, v in np_batch.items()}

@@ -778,3 +778,84 @@ def test_profile_runner_layers_on_card(dev):
     cfg = registry.get_config("llama3-8b")
     assert ProfiledCostModel(store).layer_time(kind, cfg, 256, 2, 1) == \
         (step["fwd_s"], step["bwd_s"])
+
+
+# ------------------------------------------------------- the rank route ----
+RANK_SCHEDULES = ("1f1b", "1f1b-eager", "gpipe")
+
+
+def _pp_rank_case():
+    """SMOKE llama3-8b at 4 layers (fp32), 4 microbatches of 2 x 32, and
+    the one-process pipeline's loss and gradients over (3, 1) on the CPU
+    (``tests/test_torch_pipeline.py`` holds those to JAX).  The kernel
+    library is built here first, so that the ranks only load it."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import build
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import pipeline
+
+    build.build()
+    b = registry.get_bundle("llama3-8b", smoke=True, num_layers=4)
+    params = b.init(b.cfg, seed=0, device="cpu")
+    data = SyntheticTokens(vocab_size=b.cfg.vocab_size, seq_len=32,
+                           global_batch=8).batch_at(0)
+    batch = {k: v.reshape(4, 2, 32) for k, v in data.items()}
+    p = adamw.tree_map(lambda t: t.clone().requires_grad_(), params)
+    loss, _ = pipeline.make_pp_loss_fn(b.cfg, 2, 4, [3, 1])(
+        p, {k: torch.from_numpy(v) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, adamw.tree_leaves(p))
+    it = iter(grads)
+    want = adamw.tree_map(lambda _: next(it), p)
+    return (adamw.tree_map(lambda t: t.numpy(), params), batch,
+            float(loss.detach()), want)
+
+
+def _check_rank_grads(res, loss, want):
+    from repro_torch.core.simulator import peak_activation_microbatches
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import pipeline
+
+    for i, schedule in enumerate(RANK_SCHEDULES):
+        case = [r[i] for r in res]
+        for c in case:
+            assert abs(c["loss"] - loss) < MODEL_TOL["atol"]
+            assert c["peak_inflight"] == peak_activation_microbatches(
+                c["stage"], 2, 4, schedule, 1)
+        got = pipeline.gather_stage_trees([
+            adamw.tree_map(torch.from_numpy, c["grads"]) for c in case])
+        for g, w in zip(adamw.tree_leaves(got), adamw.tree_leaves(want)):
+            torch.testing.assert_close(g, w, **MODEL_TOL)
+
+
+@pytest.mark.parametrize("transport", ["cpu", "gpu"])
+def test_pp_ranks_on_cards_match_cpu(dev, transport):
+    """A pp 2 rank step under each schedule, its stages in two processes:
+    host-staged over gloo on one card (``cpu``), or over NCCL with a card
+    a rank (``gpu``, skipped below two cards)."""
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+
+    if transport == "gpu" and torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs a card a rank: two CUDA devices")
+    params, batch, loss, want = _pp_rank_case()
+    res = run_ranks(
+        rank_programs.pp_loss_and_grads, 2, timeout_s=300,
+        backend="gloo" if transport == "cpu" else "cpu:gloo,cuda:nccl",
+        device=f"cuda:{dev.index}" if transport == "cpu" else "cuda",
+        args=(dict(arch="llama3-8b", smoke=True, num_layers=4), params,
+              batch, [([3, 1], s, 1) for s in RANK_SCHEDULES], transport))
+    _check_rank_grads(res, loss, want)
+
+
+def test_gpu_transport_on_one_card_raises(dev):
+    """Two ranks on one card asked for NCCL: the run fails, naming the
+    host-staged transport, and nothing takes another path."""
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+
+    params, batch, _, _ = _pp_rank_case()
+    with pytest.raises(RuntimeError, match="transport='cpu'"):
+        run_ranks(rank_programs.pp_loss_and_grads, 2, timeout_s=300,
+                  device=f"cuda:{dev.index}",
+                  args=(dict(arch="llama3-8b", smoke=True, num_layers=4),
+                        params, batch, [([3, 1], "1f1b", 1)], "gpu"))

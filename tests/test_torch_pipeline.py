@@ -20,6 +20,8 @@ port's loss on the canonical ``(L, ...)`` tree:
   * the ``Trainer`` on the planner's non-uniform plan for llama3-8b, three
     steps against JAX's jitted ``make_train_step(loss_fn=make_pp_loss_fn)``
     on the stacked state over the same batches: losses, then parameters;
+    at a global batch of 8, the pp and the reference route over seeds and
+    learning rates, parameters screened by sqrt(v) after every step;
   * the train CLI's ``--pp``.
 """
 import dataclasses
@@ -40,6 +42,7 @@ from repro.optim import adamw as jadamw  # noqa: E402
 from repro.parallel import pipeline as jpp  # noqa: E402
 from repro.parallel.sharding import ShardingRules  # noqa: E402
 from repro.train import steps as jsteps  # noqa: E402
+from repro_torch.core.plan import ParallelPlan, StagePlacement  # noqa: E402
 from repro_torch.iccl import communicator as tcomm  # noqa: E402
 from repro_torch.iccl import transports as ttransports  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
@@ -280,7 +283,75 @@ def test_trainer_pp_steps_match_jax_train_step():
         assert float(err[v.sqrt() >= GRAD_TOL].max()) < GRAD_TOL
 
 
-# ---------------------------------------------------------- the CLI ----
+# At a global batch of 8 the screen above, by sqrt(v) after the last step,
+# lets through elements whose gradient was rounding noise at an earlier
+# step: they moved by up to lr then, and keep that when their gradient
+# grows.  The reference route, which has no pipeline, parts from JAX the
+# same way, and the parting scales with lr.  Screened by sqrt(v) after
+# every step, the rest hold to GRAD_TOL.  Run with -s for the readings.
+@pytest.mark.parametrize("route,seed,lr", [
+    ("pp", 0, 1e-2), ("pp", 1, 1e-2), ("pp", 2, 1e-2),
+    ("reference", 0, 1e-2), ("pp", 0, 1e-3)])
+def test_trainer_batch8_parts_from_jax_only_where_a_gradient_was_noise(
+        route, seed, lr):
+    gb, vl, m = 8, [3, 1], 4
+    opt = dict(OPT, lr=lr)
+    jb, tb = _models()
+    plan = ParallelPlan(stages=(StagePlacement(0, 3, 1, 1),
+                                StagePlacement(1, 1, 1, 1, True)),
+                        micro_bs=gb // m, global_batch=gb, seq_len=SEQ,
+                        schedule="1f1b-eager", eager_slack=1)
+    rules = ShardingRules(jb.cfg, tp=1, dp_axes=("data",))
+    start = jsteps.init_train_state(jb, jax.random.PRNGKey(seed))
+    state, split, join = start, (lambda b: b), (
+        lambda tree: convert.from_jax(_np(tree), device="cpu"))
+    loss_fn = None
+    if route == "pp":
+        loss_fn = jpp.make_pp_loss_fn(jb.cfg, None, 2, m,
+                                      layers_per_stage=vl, stage_tp=[1, 1])
+        stack = lambda tree: jpp.stack_blocks_for_stages(tree, 2, vl)  # noqa
+        state = dict(start, params=stack(start["params"]),
+                     opt=dict(start["opt"], m=stack(start["opt"]["m"]),
+                              v=stack(start["opt"]["v"])))
+        split = lambda b: {k: v.reshape(m, gb // m, *v.shape[1:])  # noqa
+                           for k, v in b.items()}
+        join = lambda tree: tpp.unstack_blocks_for_stages(  # noqa: E731
+            convert.from_jax(_np(tree), device="cpu"), 2, vl)
+    step = jax.jit(jsteps.make_train_step(jb, rules,
+                                          jadamw.AdamWConfig(**opt),
+                                          loss_fn=loss_fn))
+    data = JTokens(vocab_size=jb.cfg.vocab_size, seq_len=SEQ,
+                   global_batch=gb)
+    want, rms_min = [], None
+    for i in range(3):
+        state, metrics = step(state, split(data.batch_at(i)))
+        want.append(float(metrics["loss"]))
+        rms = [v.sqrt() for v in adamw.tree_leaves(join(state["opt"]["v"]))]
+        rms_min = rms if rms_min is None else [
+            torch.minimum(a, b) for a, b in zip(rms_min, rms)]
+    t = Trainer(tb, TrainerConfig(global_batch=gb, seq_len=SEQ),
+                plan=plan if route == "pp" else None,
+                opt_cfg=adamw.AdamWConfig(**opt),
+                state=convert.from_jax(_np(start), device="cpu"),
+                device="cpu")
+    np.testing.assert_allclose(t.run(3)["losses"], want, rtol=1e-4,
+                               atol=1e-4)
+    part = {"the last step": 0.0, "every step": 0.0}
+    for g, w, v, lo in zip(adamw.tree_leaves(t.state["params"]),
+                           adamw.tree_leaves(join(state["params"])),
+                           adamw.tree_leaves(join(state["opt"]["v"])),
+                           rms_min):
+        err = (g - w).abs()
+        assert float(err.max()) < 2 * 3 * lr
+        for when, rms in (("the last step", v.sqrt()), ("every step", lo)):
+            if (rms >= GRAD_TOL).any():
+                part[when] = max(part[when],
+                                 float(err[rms >= GRAD_TOL].max()))
+    print(f"batch 8, {route}, seed {seed}, lr {lr}: largest parting where "
+          f"sqrt(v) >= {GRAD_TOL} after " + ", after ".join(
+              f"{when} {x:.3e}" for when, x in part.items()))
+    assert part["every step"] < GRAD_TOL
+
 def test_train_cli_pp_runs_the_planners_plan(capsys):
     train_cli.main(["--smoke", "--device", "cpu", "--pp", "2",
                     "--global-batch", "4", "--seq", "16", "--steps", "2"])

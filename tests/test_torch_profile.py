@@ -244,9 +244,13 @@ def test_timeit_is_the_jax_runners_trimmed_mean(monkeypatch):
 
 
 def test_device_kind_and_collectives_on_cpu(capsys):
+    """One process, one device: both runners skip the collectives (the
+    port's run over ranks in tests/test_torch_ranks.py)."""
     assert t_runner.device_kind("cpu") == j_runner.device_kind() == "cpu"
-    t_runner.bench_collectives()
+    store = t_store.ProfileStore()
+    t_runner.bench_collectives(store, "cpu", (1 << 20,), device="cpu")
     assert "single device — skipped" in capsys.readouterr().out
+    assert len(store) == 0
 
 
 def test_runner_defaults_to_cuda(monkeypatch):

@@ -59,7 +59,19 @@ Phases, each raising on failure so the script exits non-zero:
               a hop (2 m a step), each rank's in-flight peak the
               simulator's; the step time, tokens/s, each rank's peak
               memory, and the host-staged hop's time beside the
-              cpu_staged transport's price
+              cpu_staged transport's price.  Then tp_ranks: the
+              reference cell (batch 1, seed 0, its batches) as a pp 1
+              plan whose one stage's 4 layers, embedding and unembedding
+              are split over 2 model ranks (tp 2, the Megatron split of
+              parallel/sharding.py), the two ranks in two processes on
+              this card (run_ranks, gloo, transport "cpu"): every step's
+              loss within 2e-2 of the reference route's, each rank's
+              launch counts equal to the reference route's, kernel by
+              kernel (every norm on each rank, flash and swiglu on its
+              own heads and columns), 4 L + 4 iallreduce notes a step
+              (4 L + 2 of an activation's 33.55 MB) and one iallgather;
+              each rank's peak memory, the step time, tokens/s, and one
+              host-staged all-reduce of an activation's time
   6b. plan   the port's planner and profile runner on the card: the cp
               chunks above come from its cp_split; llama3-8b's per-layer
               forward and backward at full width, seq 4096, measured
@@ -78,7 +90,8 @@ Phases, each raising on failure so the script exits non-zero:
               the profiler never slows the launches of this one.
               rmsnorm_bwd must run as one kernel a call
 Then one JSON line with every kernel (launches summed over the serve and
-train runs (cp, reference, pp, pp_ranks: both ranks) and phase 6b;
+train runs (cp, reference, pp, pp_ranks and tp_ranks: every rank) and
+phase 6b;
 rmsnorm and swiglu have a second row at their decode shape,
 which takes the launches made inside decode steps, the first row the rest;
 the scan's row is its S1000 timing; each row with its library call's device
@@ -161,6 +174,13 @@ SMOKE_VPP_LAYERS = (2, 1, 1, 0)
 # loss agrees to fp32 rounding; later steps differ by the gradient sums'
 # order (each microbatch's backward apart, the norm summed over ranks)
 RANKS_LOSS0_TOL, RANKS_TIMEOUT_S, HOP_REPS = 1e-5, 300, 20
+# the tp_ranks route: the reference cell (batch 1, seeds, batches) as a pp 1
+# plan of one stage, its 4 layers, embedding and unembedding split over 2
+# model ranks (parallel/sharding.py), the two ranks in two processes on the
+# one card, their all-reduces host-staged over gloo.  The bf16 row-parallel
+# products round their partial sums apart from the unsharded product's, so
+# every step is held at TRAIN_LOSS_TOL of the reference route's
+TP_RANKS = 2
 
 
 def log(msg: str) -> None:
@@ -752,6 +772,35 @@ def phase_train_kernels(torch, dev, name, device_only=False):
             flash_in = dict(q=qf.detach(), k=kf.detach(), v=vf.detach(),
                             do=dof, o=of, lse=lse_k, err=err)
 
+    # the tp_ranks route's shapes: each of its TP_RANKS model ranks runs
+    # the flash forward and backward on its 16 q and 4 kv heads, and swiglu
+    # forward and backward on its 7168 columns of d_ff (its norms are the
+    # reference route's)
+    Ht, Hkt, Ft = 32 // TP_RANKS, 8 // TP_RANKS, 14336 // TP_RANKS
+    tp_label = f"B1 S{S} H{Ht} Hk{Hkt} hd128 (tp_ranks)"
+    qt_, kt_, vt_ = (randn(1, S, n_, 128, dtype=bf).requires_grad_()
+                     for n_ in (Ht, Hkt, Hkt))
+    dot_ = randn(1, S, Ht, 128, dtype=bf)
+    tp_in = (qt_, kt_, vt_)
+    compare("ring_step_bwd", f"flash backward {tp_label} bf16",
+            torch.autograd.grad(ops.flash_attention(*tp_in), tp_in, dot_),
+            torch.autograd.grad(ref.flash_attention(*tp_in), tp_in, dot_),
+            BF16_TOL, rel=True)
+    with torch.no_grad():
+        o_t, lse_t = fa.flash_attention(*tp_in, return_lse=True)
+        o_tr, lse_tr = ref.flash_attention(*tp_in, return_lse=True)
+    compare("flash_attention", f"{tp_label} bf16", (o_t,), (o_tr,),
+            BF16_TOL, rel=True)
+    compare("flash_attention", f"lse {tp_label} bf16", (lse_t,), (lse_tr,),
+            FP32_TOL)
+    del o_tr, lse_tr
+    gt_, ut_, dht_ = (randn(S, Ft, dtype=bf) for _ in range(3))
+    compare("swiglu", f"{S}x{Ft} bf16 (tp_ranks)", (sg.swiglu(gt_, ut_),),
+            (ref.swiglu(gt_, ut_),), BF16_TOL)
+    compare("swiglu_bwd", f"{S}x{Ft} bf16 (dg,du) (tp_ranks)",
+            sg.swiglu_bwd(gt_, ut_, dht_), ref.swiglu_bwd(gt_, ut_, dht_),
+            BF16_TOL)
+
     # rmsnorm_bwd and swiglu_bwd at the training shapes (4096 tokens)
     x, sc, dy = (randn(TRAIN_SEQ, 4096, dtype=bf), randn(4096, dtype=bf),
                  randn(TRAIN_SEQ, 4096, dtype=bf))
@@ -923,6 +972,52 @@ def phase_train_kernels(torch, dev, name, device_only=False):
              "rel_readings": readings}
     log(f"[kernels] time ring_step_bwd    cp4 {CP_CHUNKS} bf16 per launch: "
         f"kernel {cp_bwd_ms:.4f} ms, bound {cp_bwd_bound:.4f} ms")
+    # the tp_ranks shapes (CUDA events): the kernels beside SDPA, forward
+    # and backward (the flash backward as a one-rank ring_step_bwd from the
+    # kernel's o and lse), and their bounds
+    q1, k1, v1, do1 = (t.detach()[None] for t in (*tp_in, dot_))
+    o1, lse1 = o_t[None], lse_t[None]
+    dl1 = (do1.float() * o1.float()).sum(-1)
+    acc1 = (torch.zeros(q1.shape, device=dev),
+            torch.zeros(k1.shape, device=dev),
+            torch.zeros(k1.shape, device=dev))
+    qs1, ks1, vs1 = (t.detach().transpose(1, 2).requires_grad_()
+                     for t in tp_in)
+    sd_out = F.scaled_dot_product_attention(qs1, ks1, vs1, is_causal=True,
+                                            enable_gqa=True)
+    pairs_tp = S * (S + 1) // 2
+    tp_rows = {
+        "flash_attention": (
+            lambda: fa.flash_attention(*(t.detach() for t in tp_in)),
+            lambda: F.scaled_dot_product_attention(
+                qs1.detach(), ks1.detach(), vs1.detach(), is_causal=True,
+                enable_gqa=True),
+            2 * S * (Ht + Hkt) * 128 * el, 4 * pairs_tp * Ht * 128),
+        "ring_step_bwd": (
+            lambda: ra.ring_step_bwd(q1, k1, v1, do1, lse1, dl1, *acc1,
+                                     [(0, 0, 0, S, S)]),
+            lambda: torch.autograd.grad(sd_out, (qs1, ks1, vs1),
+                                        dot_.transpose(1, 2),
+                                        retain_graph=True),
+            (2 * S * Ht * 128 + 2 * S * Hkt * 128) * el + 2 * S * Ht * f4
+            + 2 * (S * Ht * 128 + 2 * S * Hkt * 128) * f4,
+            10 * pairs_tp * Ht * 128),
+        "swiglu": (lambda: sg.swiglu(gt_, ut_), None, 3 * S * Ft * el, 0),
+        "swiglu_bwd": (lambda: sg.swiglu_bwd(gt_, ut_, dht_), None,
+                       5 * S * Ft * el, 12 * S * Ft),
+    }
+    extra["tp_ranks_shapes"] = {}
+    for kname, (fn, lib, nbytes, nops) in tp_rows.items():
+        peak = bf16_peak if "ring" in kname or "flash" in kname else \
+            fp32_peak
+        row = {"shape": tp_label if "swiglu" not in kname
+               else f"({S}, {Ft}) bf16", "ms": event_ms(fn),
+               "library_ms": event_ms(lib) if lib else None,
+               "bound_ms": max(nbytes / bw, nops / peak) * 1e3}
+        extra["tp_ranks_shapes"][kname] = row
+        log(f"[kernels] time {kname:15s} {row['shape']}: kernel "
+            f"{row['ms']:.4f} ms, library {row['library_ms']} ms, bound "
+            f"{row['bound_ms']:.4f} ms")
     return checks, timed, extra
 
 
@@ -1402,6 +1497,115 @@ def phase_train_pp_ranks(torch, dev, smi: str, pp: dict):
     return summary, launches
 
 
+def _tp_allreduces(n_layers: int) -> int:
+    """``iallreduce`` notes a step of a pp 1, dp 1 tensor-parallel rank
+    whose vocab and kv heads are split: forward, the embedding (1), each
+    block's attention and MLP outputs (2 L) and the CE's sum of exp and
+    gold logit (1); backward, each block's two column-parallel inputs
+    (2 L) and the unembedding's (1); then the clipping norm's squares of
+    the split leaves (1)."""
+    return 4 * n_layers + 4
+
+
+def phase_train_tp_ranks(torch, dev, smi: str, ref: dict):
+    """The reference cell with its model split over TP_RANKS model ranks in
+    as many processes on this card (a pp 1 plan, tp 2, transport "cpu":
+    NCCL cannot put two ranks on one device).  Checked against the
+    reference route's losses and launches; then one host-staged
+    all-reduce of an activation alone."""
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    from repro_torch.models import registry
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = registry.get_config("llama3-8b", num_layers=TRAIN_LAYERS)
+    L, n = TRAIN_LAYERS, TRAIN_STEPS
+    plan = ParallelPlan(
+        stages=(StagePlacement(0, L, 1, TP_RANKS, True),), micro_bs=1,
+        global_batch=1, seq_len=TRAIN_SEQ, transport="cpu")
+    log(f"[train] tp_ranks plan: {plan.describe()}, transport 'cpu' (two "
+        f"ranks on one card)")
+    t0 = time.perf_counter()
+    res = run_ranks(rank_programs.pp_train, TP_RANKS, device=str(dev),
+                    timeout_s=RANKS_TIMEOUT_S,
+                    args=(dict(arch="llama3-8b", num_layers=L),
+                          plan.to_dict(), n))
+    wall = time.perf_counter() - t0
+    losses = res[0]["losses"]
+    step_s = [max(r["step_s"][i] for r in res) for i in range(n)]
+    steady = step_s[1:]
+    tok_s = TRAIN_SEQ * len(steady) / sum(steady)
+    diffs = [abs(a - b) for a, b in zip(losses, ref["losses"])]
+    act = torch.empty((1, TRAIN_SEQ, cfg.d_model), dtype=cfg.adtype,
+                      device="meta")
+    act_bytes = act.numel() * act.element_size()
+    launches = {k: sum(r["launches"][k] for r in res) for k in ref["launches"]}
+    want_ar = _tp_allreduces(L) * n
+    for r in res:
+        log(f"[train] tp_ranks rank {r['rank']} (model rank "
+            f"{r['model_rank']}, {r['n_params'] / 1e9:.3f} B params, state "
+            f"{r['state_gb']:.2f} GB, init {r['init_s']:.1f} s): step s "
+            f"{r['step_s']}, peak {r['peak_gb']:.2f} GB, launches "
+            f"{r['launches']}")
+    notes = [[tuple(x) for x in r["notes"]] for r in res]
+    ar = [[x for x in ns if x[0] == "iallreduce"] for ns in notes]
+    big = [sum(1 for x in a if x[2] == act_bytes) for a in ar]
+    others = sorted({x for ns in notes for x in ns
+                     if x[0] not in ("iallreduce", "iallgather")})
+    log(f"[train] tp_ranks losses {losses} vs reference {ref['losses']}: "
+        f"diffs {diffs}; run_ranks wall {wall:.1f} s")
+    log(f"[train] tp_ranks on {smi}: step s {step_s[0]:.4f} / "
+        f"{step_s[1]:.4f} / {step_s[2]:.4f}, tok/s (steps 1-2) {tok_s:.1f}, "
+        f"peak GB {[round(r['peak_gb'], 2) for r in res]}; iallreduce notes "
+        f"a rank {[len(a) for a in ar]} ({want_ar} expected: "
+        f"{_tp_allreduces(L)} a step), of them {act_bytes / 1e6:.2f} MB "
+        f"{big}, other notes {others}")
+    assert all(r["losses"] == losses for r in res), [r["losses"] for r in res]
+    assert all(map(math.isfinite, losses)), losses
+    assert max(diffs) < TRAIN_LOSS_TOL, (losses, ref["losses"])
+    for r in res:
+        assert r["launches"] == ref["launches"], (r["launches"],
+                                                   ref["launches"])
+    assert [len(a) for a in ar] == [want_ar] * TP_RANKS, ar[0][:8]
+    assert big == [(4 * L + 2) * n] * TP_RANKS, big
+    assert [sum(1 for x in ns if x[0] == "iallgather") for ns in notes] == \
+        [n] * TP_RANKS
+    assert not others, others
+
+    t0 = time.perf_counter()
+    timed = run_ranks(rank_programs.allreduce_times, TP_RANKS,
+                      device=str(dev), timeout_s=RANKS_TIMEOUT_S,
+                      args=(tuple(act.shape), str(act.dtype).split(".")[-1],
+                            "cpu", HOP_REPS))
+    ar_s = timed[0]["s"]
+    mean = sum(ar_s) / len(ar_s)
+    log(f"[train] tp_ranks host-staged all-reduce of {act_bytes / 1e6:.2f} "
+        f"MB over {TP_RANKS} ranks on {smi}: mean {mean * 1e3:.3f} ms over "
+        f"{len(ar_s)} calls (min {min(ar_s) * 1e3:.3f}, max "
+        f"{max(ar_s) * 1e3:.3f}); exact {[t['exact'] for t in timed]}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert all(t["exact"] for t in timed)
+    assert timed[0]["nbytes"] == act_bytes
+    summary = {
+        "route": "tp_ranks", "plan": plan.describe(), "transport": "cpu",
+        "ranks": TP_RANKS, "losses": losses,
+        "reference_losses": ref["losses"], "loss_diffs": diffs,
+        "step_s": step_s, "tok_s_steady": tok_s,
+        "rank_step_s": [r["step_s"] for r in res],
+        "rank_peak_gb": [r["peak_gb"] for r in res],
+        "rank_state_gb": [r["state_gb"] for r in res],
+        "rank_params": [r["n_params"] for r in res],
+        "rank_launches": [r["launches"] for r in res], "launches": launches,
+        "iallreduce_notes_a_step": len(ar[0]) // n,
+        "allreduce_bytes": act_bytes, "allreduce_s": ar_s,
+        "allreduce_mean_s": mean, "run_ranks_wall_s": wall,
+    }
+    log(f"[train] tp_ranks report {json.dumps(summary)}")
+    return summary, launches
+
+
 # ------------------------------------------------------------ phase 6b ---
 PROFILE_SEQS, PROFILE_MBS = (TRAIN_SEQ,), (1,)
 PROFILE_WARMUP, PROFILE_REPS = 2, 5
@@ -1628,6 +1832,10 @@ def main(argv=None) -> int:
         launches[kname] += n
     train["pp_ranks"], counts = phase_train_pp_ranks(torch, dev, smi,
                                                      train["pp"])
+    for kname, n in counts.items():
+        launches[kname] += n
+    train["tp_ranks"], counts = phase_train_tp_ranks(torch, dev, smi,
+                                                     train["reference"])
     for kname, n in counts.items():
         launches[kname] += n
     l_cp, l_ref = train["cp"]["losses"][0], train["reference"]["losses"][0]

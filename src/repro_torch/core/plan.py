@@ -7,9 +7,10 @@ the serving classes ``ServingSLO``, ``TrafficProfile`` and ``ServingPlan``,
 so a plan searched by either package reads the same in the other.  The
 port's trainer executes pp = 1 plans (the reference route and the cp
 ring) and pp > 1 plans (the pipeline, ``parallel/pipeline.py``) on one
-device, or with each stage on its own ranks (``world = pp * dp``), the
-stage hops on the plan's ``transport``; tensor parallelism within a stage
-is ROADMAP.md queue A, item A5c.
+device, or with each stage on its own ranks (``world = pp * dp * tp``),
+the stage hops and the stage's tensor-parallel all-reduces on the plan's
+``transport``; stages of mixed tp widths are ROADMAP.md queue A, item
+A5c.
 """
 from __future__ import annotations
 

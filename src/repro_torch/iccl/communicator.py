@@ -23,7 +23,7 @@ compress)`` with the JAX methods, names and results: ``iallreduce`` (sum),
 every device of the axis executes as part of one program.  The port's run
 when called, on this rank, over the ``torch.distributed`` group bound to
 the axis name (``bind_axis``; ``parallel/groups.make_rank_grid`` binds
-``pod`` and ``data``), and return when this rank's result is in hand.
+``model``, ``pod`` and ``data``), and return when this rank's result is in hand.
 Collectives need every rank of the axis to call them in the same order.
 A point-to-point call acts only on the pairs of ``perm`` this rank is in,
 so ranks may pass different pairs: each posts its receive, then its send,
@@ -117,8 +117,8 @@ def bind_axis(axis: str, group: Any, ranks: Sequence[int],
 def axis_group(axis: str) -> AxisGroup:
     if axis not in _AXES:
         raise ValueError(f"no process group is bound to axis {axis!r} "
-                         "(parallel/groups.make_rank_grid binds 'pod' and "
-                         "'data')")
+                         "(parallel/groups.make_rank_grid binds 'model', "
+                         "'pod' and 'data')")
     return _AXES[axis]
 
 

@@ -21,8 +21,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.iccl.communicator import Communicator
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 
 def _he(gen: torch.Generator, shape, dtype, fan_in: int) -> torch.Tensor:
@@ -85,9 +87,11 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
 def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor):
     """x: (..., S, D) -> q (..., S, H, hd), k/v (..., S, Hk, hd); ``pos``
     broadcastable to x's leading dims and S (the cp route passes each
-    rank's global positions, (cp, 1, Cmax))."""
+    rank's global positions, (cp, 1, Cmax)).  H and Hk are the heads the
+    weights hold: a model rank's share under tensor parallelism."""
     lead = x.shape[:-1]
-    H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    H, Hk = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     q = (x @ p["wq"]).view(*lead, H, hd)
     k = (x @ p["wk"]).view(*lead, Hk, hd)
     v = (x @ p["wv"]).view(*lead, Hk, hd)
@@ -99,17 +103,46 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor):
     return q, k, v
 
 
+def _local_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+              n_q: int, model_rank: int):
+    """The kv heads that this model rank's ``n_q`` q heads read, of k/v
+    replicated over the ranks: global q head h reads kv head
+    h // (H / Hk), so a contiguous run of kv heads, which the flash kernel
+    maps onto the local q heads as GQA again."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    lo = model_rank * n_q // group
+    hi = ((model_rank + 1) * n_q - 1) // group + 1
+    n = hi - lo
+    if n_q % n or any((model_rank * n_q + i) // group - lo != i // (n_q // n)
+                      for i in range(n_q)):
+        raise ValueError(f"{cfg.name}: {n_q} q heads a rank do not map onto "
+                         f"whole kv heads (H {cfg.n_heads}, Hk "
+                         f"{cfg.n_kv_heads})")
+    return k[..., lo:hi, :], v[..., lo:hi, :]
+
+
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
               causal: bool = True, pos_offset: int = 0,
-              return_kv: bool = False):
+              return_kv: bool = False,
+              model: Optional[Communicator] = None):
     """Full-sequence attention (prefill).  ``cfg.attn_chunk`` is moot: the
-    flash kernel never materializes the (Sq, Sk) scores."""
+    flash kernel never materializes the (Sq, Sk) scores.  With a ``model``
+    communicator and q heads split over it (``parallel/sharding.py``),
+    this rank runs its heads: x goes in through ``copy_to_model`` and the
+    ``wo`` product's partial sums leave through ``reduce_from_model``."""
     B, S, _ = x.shape
+    hd = cfg.hd
+    n_q = p["wq"].shape[-1] // hd
+    split = model if n_q != cfg.n_heads else None
+    x = copy_to_model(x, split)
     pos = torch.arange(S, device=x.device) + pos_offset
     q, k, v = _qkv(p, x, cfg, pos)
-    o = ops.flash_attention(q, k, v, causal=causal, window=cfg.window,
+    kq, vq = k, v
+    if split is not None and k.shape[-2] == cfg.n_kv_heads:
+        kq, vq = _local_kv(k, v, cfg, n_q, split.index())
+    o = ops.flash_attention(q, kq, vq, causal=causal, window=cfg.window,
                             softcap=cfg.attn_logit_softcap)
-    out = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+    out = reduce_from_model(o.reshape(B, S, n_q * hd) @ p["wo"], split)
     if return_kv:
         return out, k, v
     return out
@@ -181,15 +214,21 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
             "w_down": _he_stacked(gen, n, (F, D), cfg.pdtype)}
 
 
-def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
+        model: Optional[Communicator] = None) -> torch.Tensor:
+    """With a ``model`` communicator and d_ff split over it, this rank's
+    columns of ``w_gate``/``w_up`` and rows of ``w_down``, between
+    ``copy_to_model`` and ``reduce_from_model``."""
     if cfg.act != "swiglu":
         raise NotImplementedError(
             f"activation {cfg.act!r} is not ported yet (ROADMAP.md queue A, "
             "item 1)")
+    split = model if p["w_gate"].shape[-1] != cfg.d_ff else None
+    x = copy_to_model(x, split)
     # g/u leave the matmul in x.dtype: in bf16 they are rounded once, where
     # JAX keeps them fp32 (preferred_element_type).  The swiglu kernel
     # upcasts, computes silu(g)*u in fp32 and writes x.dtype directly.
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     h = ops.swiglu(g, u, out_dtype=x.dtype)
-    return h @ p["w_down"]
+    return reduce_from_model(h @ p["w_down"], split)

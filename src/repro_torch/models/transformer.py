@@ -19,15 +19,17 @@ where JAX accumulates straight into fp32.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.iccl.communicator import Communicator
 from repro_torch.models import mamba
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_he, attention, decode_attention,
                                        init_attention, init_kv_cache,
                                        init_mlp, init_rmsnorm, mlp, rmsnorm)
+from repro_torch.parallel import tensor
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -75,26 +77,45 @@ def layer(blocks: dict, i: int) -> dict:
 
 
 # --------------------------------------------------------------- forward ---
-def _embed(params: dict, tokens: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
-    tokens = torch.as_tensor(tokens, device=params["embed"].device)
-    return params["embed"][tokens.long()].to(cfg.adtype)
+# ``model``: the model axis's communicator on a tensor-parallel rank, which
+# holds its share of each leaf the sharding rules split
+# (``parallel/sharding.py``); None leaves every path as it is.
+def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+           model: Optional[Communicator] = None) -> torch.Tensor:
+    table = params["embed"]
+    tokens = torch.as_tensor(tokens, device=table.device)
+    if model is not None and table.shape[0] != cfg.vocab_size:
+        return tensor.vocab_parallel_embed(table, tokens, cfg.adtype, model)
+    return table[tokens.long()].to(cfg.adtype)
 
 
 def _unembed_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["unembed"]
 
 
-def _unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return (x @ _unembed_weight(params, cfg)).float()
+def vocab_model(w: torch.Tensor, cfg: ModelConfig,
+                model: Optional[Communicator]) -> Optional[Communicator]:
+    """``model`` when the unembedding ``w`` holds a vocab slice, else
+    None: the communicator of the logits' cross-entropy."""
+    return model if w.shape[-1] != cfg.vocab_size else None
+
+
+def _unembed(params: dict, x: torch.Tensor, cfg: ModelConfig,
+             model: Optional[Communicator] = None) -> torch.Tensor:
+    """fp32 logits; this rank's vocab slice of them when the unembedding
+    is split over ``model``."""
+    w = _unembed_weight(params, cfg)
+    x = tensor.copy_to_model(x, vocab_model(w, cfg, model))
+    return (x @ w).float()
 
 
 def _block(p: dict, x: torch.Tensor, cfg: ModelConfig,
-           return_kv: bool = False):
+           return_kv: bool = False,
+           model: Optional[Communicator] = None):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    o, k, v = attention(p["attn"], h, cfg, return_kv=True)
+    o, k, v = attention(p["attn"], h, cfg, return_kv=True, model=model)
     x = x + o
-    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, model)
     return (x, k, v) if return_kv else x
 
 
@@ -103,19 +124,27 @@ def _ssm_block(p: dict, x: torch.Tensor, cfg: ModelConfig):
                                  cfg)
 
 
-def lm_features(params: dict, tokens, cfg: ModelConfig):
+def lm_features(params: dict, tokens, cfg: ModelConfig,
+                model: Optional[Communicator] = None):
     """The forward WITHOUT the unembed: (features (B,S,D) after the final
     norm, unembed weight (D,V), aux_loss), so a loss can run the head over
     sequence chunks (``train.steps.make_loss_fn`` with ``cfg.loss_chunk``).
     ``cfg.remat`` is not honoured over the blocks here (ROADMAP.md queue A,
     item A4): the reference loss keeps every block's activations (each
     kernel then launches once per pass).  The pipeline loss
-    (``parallel/pipeline.py``) honours it."""
+    (``parallel/pipeline.py``) honours it.  On a tensor-parallel rank
+    (``model``) the features are whole and the weight is this rank's
+    vocab slice, (D, V / tp), when the rules split the vocab."""
     check_supported(cfg)
-    x = _embed(params, tokens, cfg)
-    block = _ssm_block if cfg.family == "ssm" else _block
+    if model is not None and cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over the ssm stack waits for "
+            "its training kernels (ROADMAP.md queue A, item 9)")
+    x = _embed(params, tokens, cfg, model)
     for i in range(cfg.num_layers):
-        x = block(layer(params["blocks"], i), x, cfg)
+        p = layer(params["blocks"], i)
+        x = (_ssm_block(p, x, cfg) if cfg.family == "ssm"
+             else _block(p, x, cfg, model=model))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, _unembed_weight(params, cfg), aux

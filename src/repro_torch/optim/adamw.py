@@ -62,9 +62,29 @@ def _schedule(cfg: AdamWConfig, count: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
+def _sq_sum(leaves) -> torch.Tensor:
+    return sum(torch.sum(torch.square(x.float())) for x in leaves)
+
+
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    return torch.sqrt(_sq_sum(tree_leaves(tree)))
+
+
+def model_sq_norm(grads: Any, split: Any, model) -> torch.Tensor:
+    """The squared global norm of the model from one tensor-parallel
+    rank's gradients: the squares of the leaves ``split`` marks (a tree of
+    bools: the sharding rules split them over the ranks) summed over
+    ``model`` (a ``Communicator``), the replicated leaves, equal on every
+    rank, counted once.  With ``model`` None every leaf is the rank's
+    own (``split`` is not read)."""
+    if model is None:
+        return _sq_sum(tree_leaves(grads))
+    pairs = list(zip(tree_leaves(grads), tree_leaves(split)))
+    mine = _sq_sum([g for g, s in pairs if s])
+    if not torch.is_tensor(mine):       # no split leaf on this rank
+        mine = torch.zeros((), dtype=torch.float32,
+                           device=tree_leaves(grads)[0].device)
+    return model.iallreduce(mine) + _sq_sum(g for g, s in pairs if not s)
 
 
 @torch.no_grad()

@@ -2,14 +2,17 @@
 ``("pod", "data", "model")`` mesh of ``repro/launch/mesh.py:19-24``).
 
 The JAX package lays its devices out on a mesh and names the axes; the
-pipeline's stage dimension is sharded over ``pod`` and the batch over
-``data``.  The port's ranks form the same grid, ``world = pp * dp`` in
-row-major ``(pod, data)`` order: rank ``r`` is stage ``r // dp`` and
-replica ``r % dp``.  ``model`` is 1: tensor parallelism within a stage is
-ROADMAP.md queue A, item A5c.  ``make_rank_grid`` makes one
-``torch.distributed`` group for each pod column (the stages of one
-replica) and each data row (the replicas of one stage), and binds this
-rank's two to the axis names for ``iccl.communicator.Communicator``.
+pipeline's stage dimension is sharded over ``pod``, the batch over
+``data`` and each stage's tensors over ``model``.  The port's ranks form
+the same grid, ``world = pp * dp * tp`` in the mesh's row-major order:
+``rank = (stage * dp + replica) * tp + model_rank``, so a stage's tp ranks
+sit next to each other, as on one node.  ``make_rank_grid`` makes one
+``torch.distributed`` group for each model row (the tp ranks of one
+replica of one stage), each pod column (the stages of one replica at one
+model rank) and each data row (the replicas of one stage at one model
+rank), and binds this rank's three to the axis names for
+``iccl.communicator.Communicator``.  Left for ROADMAP.md queue A, item
+A5c: stages of mixed tp widths (the ``pp_reshard`` boundary).
 """
 from __future__ import annotations
 
@@ -22,29 +25,41 @@ import torch.distributed as dist
 
 from repro_torch.iccl.communicator import bind_axis
 
+
 @dataclasses.dataclass(frozen=True)
 class RankGrid:
     pp: int
     dp: int
+    tp: int
     rank: int
 
     @property
     def stage(self) -> int:
-        return self.rank // self.dp
+        return self.rank // (self.dp * self.tp)
 
     @property
     def replica(self) -> int:
-        return self.rank % self.dp
+        return self.rank // self.tp % self.dp
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.tp
 
 
-def _pod_ranks(pp: int, dp: int, replica: int) -> Tuple[int, ...]:
-    """The stages of one replica, in stage order."""
-    return tuple(s * dp + replica for s in range(pp))
+def _rank(grid: RankGrid, stage: int, replica: int, model_rank: int) -> int:
+    return (stage * grid.dp + replica) * grid.tp + model_rank
 
 
-def _data_ranks(dp: int, stage: int) -> Tuple[int, ...]:
-    """The replicas of one stage."""
-    return tuple(stage * dp + r for r in range(dp))
+def _axes(grid: RankGrid) -> List[Tuple[str, Tuple[int, ...]]]:
+    """Every group of the grid, (axis, global ranks in axis order), in the
+    order every rank makes them."""
+    pp, dp, tp = grid.pp, grid.dp, grid.tp
+    return ([("model", tuple(_rank(grid, s, r, i) for i in range(tp)))
+             for s in range(pp) for r in range(dp)]
+            + [("pod", tuple(_rank(grid, s, r, i) for s in range(pp)))
+               for r in range(dp) for i in range(tp)]
+            + [("data", tuple(_rank(grid, s, r, i) for r in range(dp)))
+               for s in range(pp) for i in range(tp)])
 
 
 def device_key(device: torch.device) -> str:
@@ -67,22 +82,23 @@ def bind_world_axis(axis: str, device: torch.device) -> None:
               "nccl" in str(dist.get_backend()))
 
 
-def make_rank_grid(pp: int, dp: int, device: torch.device) -> RankGrid:
+def make_rank_grid(pp: int, dp: int, device: torch.device,
+                   tp: int = 1) -> RankGrid:
     """The grid of this process group (every rank calls this at once) with
-    the ``pod`` and ``data`` axes bound; ``device`` is this rank's."""
+    the ``model``, ``pod`` and ``data`` axes bound; ``device`` is this
+    rank's."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("make_rank_grid needs an initialised "
                            "torch.distributed process group")
     world = dist.get_world_size()
-    if world != pp * dp:
-        raise ValueError(f"world size {world} is not pp {pp} x dp {dp}")
-    grid = RankGrid(pp, dp, dist.get_rank())
+    if world != pp * dp * tp:
+        raise ValueError(f"world size {world} is not pp {pp} x dp {dp} x "
+                         f"tp {tp}")
+    grid = RankGrid(pp, dp, tp, dist.get_rank())
     keys = _device_keys(device)
     nccl = "nccl" in str(dist.get_backend())
     mine = []
-    # every rank makes every group, in the same order
-    for axis, ranks in ([("pod", _pod_ranks(pp, dp, r)) for r in range(dp)]
-                        + [("data", _data_ranks(dp, s)) for s in range(pp)]):
+    for axis, ranks in _axes(grid):     # every rank makes every group
         group = dist.new_group(list(ranks))
         if grid.rank in ranks:
             bind_axis(axis, group, ranks, [keys[r] for r in ranks], nccl)

@@ -29,23 +29,30 @@ between the canonical layout and the JAX package's stacked pp layout
 ``(pp[, vpp], Lmax, ...)``: a JAX pp state converts with
 ``convert.from_jax`` followed by the unstack.
 
-The rank route runs the same plans with each stage in its own process
-(``PPRankStep``): rank ``(stage, replica)`` of ``groups.RankGrid`` holds
-only its stage's contiguous layers, plus the embedding on stage 0 and the
-final norm and unembedding on the last (``split_state_for_rank``,
-``init_rank_state``), and runs its stage's static share of the plan's
-schedule: ``cap`` forwards, then one backward and one forward in turn,
-then the remaining backwards, ``cap`` the simulator's in-flight peak
+The rank route runs the same plans with each stage in its own processes
+(``PPRankStep``): rank ``(stage, replica, model_rank)`` of
+``groups.RankGrid`` holds only its stage's contiguous layers, plus the
+embedding on stage 0 and the final norm and unembedding on the last, and
+of each its model rank's share under the sharding rules
+(``parallel/sharding.py``; ``split_state_for_rank``, ``init_rank_state``).
+It runs its stage's static share of the plan's schedule: ``cap``
+forwards, then one backward and one forward in turn, then the remaining
+backwards, ``cap`` the simulator's in-flight peak
 (``core/simulator.peak_activation_microbatches``).  Activations go to the
 next stage and their gradients back through the ``pod`` axis's
-``Communicator`` on the plan's transport; each replica takes its rows of
-every microbatch, and gradients are averaged over ``data``.
+``Communicator`` on the plan's transport, model rank r of one stage to
+model rank r of the next (the activation is whole on every model rank);
+each replica takes its rows of every microbatch, and gradients are
+averaged over ``data``.  Within a stage the tp ranks split every dense
+block Megatron-style over the ``model`` axis (``parallel/tensor.py``).  A
+pp = 1 plan runs the same way with one stage and no hops: the reference
+loss, tensor-parallel.
 
 Scope: the uniform dense (attention) stack.  Mamba training waits for the
 scan's backward kernel (ROADMAP.md queue A, item 9).  On one card, stage
 tp and activation sharding are bookkeeping; on ranks, interleaved
-schedules, a stage tp above 1 and tied embeddings wait for ROADMAP.md
-queue A, item A5c.
+schedules, stages of mixed tp widths (the ``pp_reshard`` boundary) and
+tied embeddings wait for ROADMAP.md queue A, item A5c.
 """
 from __future__ import annotations
 
@@ -60,11 +67,16 @@ from repro_torch.core.simulator import peak_activation_microbatches
 from repro_torch.iccl.communicator import Communicator, P2PWork, _note
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm
-from repro_torch.models.transformer import _block, _embed, _unembed
+from repro_torch.models.registry import bundle_for
+from repro_torch.models.transformer import (_block, _embed, _unembed,
+                                            _unembed_weight, vocab_model)
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.parallel.groups import RankGrid
-from repro_torch.train.steps import LossFn, cross_entropy, with_aux
+from repro_torch.parallel.sharding import (ShardingRules, gather_trees,
+                                           map_with_path, shard_tree)
+from repro_torch.train.steps import (LossFn, cross_entropy, make_loss_fn,
+                                     with_aux)
 
 
 def check_pp_supported(cfg: ModelConfig) -> None:
@@ -244,17 +256,15 @@ A5C = "ROADMAP.md queue A, item A5c"
 
 def check_rank_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
     """Raise ValueError when ``plan`` falls outside the rank route's scope:
-    a pp > 1 plan of the dense stack, vpp 1, tp 1 and one dp width."""
+    a plan of the dense stack, vpp 1, one tp width and one dp width."""
     check_pp_supported(cfg)
-    if plan.pp < 2:
-        raise ValueError(f"the rank route runs pp > 1 plans, got pp "
-                         f"{plan.pp}")
     if plan.vpp > 1 or plan.schedule == "interleaved-1f1b":
         raise ValueError(f"{plan.schedule} with vpp={plan.vpp} on ranks "
                          f"waits for {A5C}")
-    if any(tp != 1 for tp in plan.tps):
-        raise ValueError(f"stage tp {plan.tps} on ranks: tensor "
-                         f"parallelism within a stage waits for {A5C}")
+    if len(set(plan.tps)) > 1:
+        raise ValueError(f"stage tp {plan.tps} on ranks: stages of mixed "
+                         f"tp widths need the pp_reshard boundary, which "
+                         f"waits for {A5C}")
     if cfg.tie_embeddings:
         raise ValueError(f"{cfg.name}: tied embeddings would be one tensor "
                          f"on stage 0 and the last stage; on ranks they "
@@ -304,38 +314,70 @@ def gather_stage_trees(trees: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
     return out
 
 
+def _model_part(tree: Dict[str, Any], rules: Optional[ShardingRules],
+                model_rank: int) -> Dict[str, Any]:
+    if rules is None or rules.tp == 1:
+        return tree
+    return shard_tree(tree, rules, model_rank)
+
+
 def split_state_for_rank(state: Dict[str, Any], plan_or_layers: LayersLike,
-                         stage: int) -> Dict[str, Any]:
-    """What stage ``stage`` owns of a whole train state
-    (``steps.init_train_state``'s layout): its parameters and their fp32
+                         stage: int, rules: Optional[ShardingRules] = None,
+                         model_rank: int = 0) -> Dict[str, Any]:
+    """What rank (stage ``stage``, ``model_rank``) owns of a whole train
+    state (``steps.init_train_state``'s layout): its share under ``rules``
+    (None: the whole stage) of its stage's parameters and their fp32
     master, m and v, cloned; the step and the AdamW count."""
     layers = _stage_layers(plan_or_layers)
-    opt = {k: v.clone() if k == "count" else stage_tree(v, layers, stage)
+
+    def part(tree):
+        return _model_part(stage_tree(tree, layers, stage), rules,
+                           model_rank)
+
+    opt = {k: v.clone() if k == "count" else part(v)
            for k, v in state["opt"].items()}
-    return {"params": stage_tree(state["params"], layers, stage),
-            "opt": opt, "step": state["step"].clone()}
+    return {"params": part(state["params"]), "opt": opt,
+            "step": state["step"].clone()}
 
 
-def gather_rank_states(states: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
-    """The inverse of ``split_state_for_rank``: the whole state from the
-    stages' states, in stage order."""
+def _gather_states(states: Sequence[Dict[str, Any]],
+                   gather) -> Dict[str, Any]:
+    """A state from parts: ``gather`` joins the parts' trees."""
     opt = {k: states[0]["opt"][k] if k == "count"
-           else gather_stage_trees([s["opt"][k] for s in states])
+           else gather([s["opt"][k] for s in states])
            for k in states[0]["opt"]}
-    return {"params": gather_stage_trees([s["params"] for s in states]),
-            "opt": opt, "step": states[0]["step"]}
+    return {"params": gather([s["params"] for s in states]), "opt": opt,
+            "step": states[0]["step"]}
+
+
+def gather_rank_states(states: Sequence[Dict[str, Any]],
+                       rules: Optional[ShardingRules] = None
+                       ) -> Dict[str, Any]:
+    """The inverse of ``split_state_for_rank``: the whole state from one
+    replica's ranks' states, in rank order (stage-major, then model
+    rank; ``rules`` None: one rank a stage)."""
+    tp = 1 if rules is None else rules.tp
+    if tp > 1:
+        states = [_gather_states(states[i:i + tp],
+                                 lambda ts: gather_trees(ts, rules))
+                  for i in range(0, len(states), tp)]
+    return _gather_states(states, gather_stage_trees)
 
 
 def init_rank_state(bundle, plan_or_layers: LayersLike, stage: int,
-                    seed: int = 0, device=None) -> Dict[str, Any]:
+                    seed: int = 0, device=None,
+                    rules: Optional[ShardingRules] = None,
+                    model_rank: int = 0) -> Dict[str, Any]:
     """``split_state_for_rank(steps.init_train_state(bundle, seed), ...)``
     without the whole fp32 state: ``init_lm`` draws every leaf from one
     generator in a fixed order, so the rank draws the whole parameter tree
-    (bf16 at full width), keeps its stage's part and only then makes the
-    optimizer state."""
+    (bf16 at full width), keeps its share of its stage and only then makes
+    the optimizer state."""
     full = bundle.init(bundle.cfg, seed=seed, device=device)
-    params = stage_tree(full, _stage_layers(plan_or_layers), stage)
+    staged = stage_tree(full, _stage_layers(plan_or_layers), stage)
     del full
+    params = _model_part(staged, rules, model_rank)
+    del staged
     first = tree_leaves(params)[0]
     return {"params": params,
             "opt": adamw.init_opt_state(
@@ -365,48 +407,67 @@ def rank_schedule(stage: int, n_stages: int, n_microbatches: int,
 
 
 class PPRankStep:
-    """One train step of this rank's stage of a pp plan: the rank route.
+    """One train step of this rank's share of a plan: the rank route.
 
-    ``loss_and_grads(params, batch)`` runs the stage's ``rank_schedule``
-    over this replica's microbatches ``(m, B_tick / dp, S)``.  A forward
-    takes its input from the embedding (stage 0) or from the previous
-    stage, runs the stage's layers (each under ``torch.utils.checkpoint``
-    when ``cfg.remat``, as the one-card loss) and sends the activation on;
-    the last stage computes the final norm, the unembedding and the
-    cross-entropy, scaled by 1/m.  A backward takes the activation's
-    gradient from the next stage (or starts from the loss) and sends its
-    input's gradient back.  Each boundary of the schedule posts the
-    previous op's send and the next op's receive together, receive first,
-    so two stages that send to each other at once cannot deadlock; under
-    ``1f1b-eager`` the activation sends complete in the background and
-    are waited on at the end of the step.  The order never depends on
-    timing, so the gradients are the same from run to run.
+    With pp > 1, ``loss_and_grads(params, batch)`` runs the stage's
+    ``rank_schedule`` over this replica's microbatches ``(m, B_tick / dp,
+    S)``.  A forward takes its input from the embedding (stage 0) or from
+    the previous stage, runs the stage's layers (each under
+    ``torch.utils.checkpoint`` when ``cfg.remat``, as the one-card loss)
+    and sends the activation on; the last stage computes the final norm,
+    the unembedding and the cross-entropy, scaled by 1/m.  A backward
+    takes the activation's gradient from the next stage (or starts from
+    the loss) and sends its input's gradient back.  Each boundary of the
+    schedule posts the previous op's send and the next op's receive
+    together, receive first, so two stages that send to each other at
+    once cannot deadlock; under ``1f1b-eager`` the activation sends
+    complete in the background and are waited on at the end of the step.
+    The order never depends on timing, so the gradients are the same from
+    run to run.  With pp = 1 it is the reference loss
+    (``steps.make_loss_fn``) over this replica's rows ``(B / dp, S)``,
+    its blocks kept whole as the reference route keeps them (no remat).
+
+    At tp > 1 every layer, the embedding and the loss run on this model
+    rank's shard over the ``model`` axis's communicator, which takes the
+    plan's transport as ``pod`` and ``data`` do; the gradients of the
+    leaves that each rank holds only in part (k/v replicated under split q
+    heads) are summed over ``model``.
 
     ``__call__(state, batch)`` then averages the gradients over ``data``,
-    sums the squared global norm over ``pod``, applies AdamW with that
-    norm, and reports the last stage's loss on every rank (summed over
-    ``pod``, where only the last stage holds it, then averaged over
-    ``data``).  ``peak_inflight`` is the most microbatches whose
-    activations this rank held at once."""
+    takes the squared global norm (split leaves summed over ``model``,
+    replicated ones once, then summed over ``pod``), applies AdamW with
+    that norm, and reports the last stage's loss on every rank (summed
+    over ``pod``, where only the last stage holds it, then averaged over
+    ``data``; every model rank holds the same loss).  ``peak_inflight`` is
+    the most microbatches whose activations this rank held at once."""
 
     def __init__(self, cfg: ModelConfig, plan: ParallelPlan, grid: RankGrid,
                  opt_cfg: Optional[adamw.AdamWConfig] = None):
         check_rank_plan(cfg, plan)
-        if (grid.pp, grid.dp) != (plan.pp, plan.dps[0]):
-            raise ValueError(f"the rank grid (pp {grid.pp}, dp {grid.dp}) "
-                             f"does not hold plan {plan.describe()}")
+        if (grid.pp, grid.dp, grid.tp) != (plan.pp, plan.dps[0],
+                                           plan.tps[0]):
+            raise ValueError(f"the rank grid (pp {grid.pp}, dp {grid.dp}, "
+                             f"tp {grid.tp}) does not hold plan "
+                             f"{plan.describe()}")
         self.cfg, self.plan, self.grid = cfg, plan, grid
         self.opt_cfg = opt_cfg or adamw.AdamWConfig()
         self.m = plan.micro_batches
         self.stage = grid.stage
         self.n_layers = plan.virtual_layers[grid.stage]
-        self.order = rank_schedule(grid.stage, plan.pp, self.m,
-                                   plan.schedule, plan.eager_slack)
         self.pod = Communicator("pod", plan.transport)
         self.data = Communicator("data", plan.transport)
+        self.model = (Communicator("model", plan.transport) if grid.tp > 1
+                      else None)
+        self.rules = ShardingRules(cfg, tp=grid.tp)
         self.async_sends = plan.schedule == "1f1b-eager"
         self.peak_inflight = 0
-        self._block = functools.partial(_block, cfg=cfg)
+        self._block = functools.partial(_block, cfg=cfg, model=self.model)
+        self.order: Optional[List[Tuple[str, int]]] = None
+        if plan.pp == 1:
+            self._loss = make_loss_fn(bundle_for(cfg), self.model)
+            return
+        self.order = rank_schedule(grid.stage, plan.pp, self.m,
+                                   plan.schedule, plan.eager_slack)
         if cfg.remat:
             # a process's first checkpoint call imports torch._dynamo (~6 s
             # on the card's host), and stage s + 1's first forward waits on
@@ -438,19 +499,39 @@ class PPRankStep:
                  if self.cfg.remat else self._block(p, x))
         return x
 
+    def _whole_grads(self, grads: Dict[str, Any]) -> Dict[str, Any]:
+        """Sum over ``model`` the gradients each rank holds in part."""
+        if self.model is None:
+            return grads
+        return map_with_path(
+            lambda path, g: (self.model.iallreduce(g)
+                             if self.rules.partial_grad(path) else g), grads)
+
     def loss_and_grads(self, params: Dict[str, Any],
                        batch: Dict[str, torch.Tensor]):
         """(this replica's loss on the last stage, 0 elsewhere; the
         gradients of this rank's parameters)."""
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        if self.plan.pp == 1:
+            loss, _ = self._loss(p, batch)
+            it = iter(torch.autograd.grad(loss, tree_leaves(p),
+                                          allow_unused=True))
+
+            def take(t):
+                g = next(it)
+                return torch.zeros_like(t) if g is None else g
+
+            return loss.detach(), self._whole_grads(tree_map(take, p))
         cfg, s, m = self.cfg, self.stage, self.m
         first, last = s == 0, s == self.plan.pp - 1
         tokens, labels = batch["tokens"], batch["labels"]
         if tokens.shape[0] != m:
             raise ValueError(f"the batch holds {tokens.shape[0]} "
                              f"microbatches, the plan {m}")
-        p = tree_map(lambda t: t.detach().requires_grad_(), params)
         leaves = tree_leaves(p)
         layers = _layer_views(p["blocks"], self.n_layers)
+        vocab = (vocab_model(_unembed_weight(p, cfg), cfg, self.model)
+                 if last else None)
         like = torch.empty(tokens.shape[1:] + (cfg.d_model,),
                            dtype=cfg.adtype, device=leaves[0].device)
         ce_sum = torch.zeros((), dtype=torch.float32, device=like.device)
@@ -463,12 +544,13 @@ class PPRankStep:
             got = self._hop(send, src, like, posted)
             send = None
             if kind == "F":
-                x = _embed(p, tokens[j], cfg) if first else \
+                x = _embed(p, tokens[j], cfg, self.model) if first else \
                     got.requires_grad_()
                 y = self._run_layers(layers, x)
                 if last:
                     h = rmsnorm(p["final_norm"], y, cfg.norm_eps)
-                    ce = cross_entropy(_unembed(p, h, cfg), labels[j])
+                    ce = cross_entropy(_unembed(p, h, cfg, self.model),
+                                       labels[j], vocab)
                     ce_sum = ce_sum + ce.detach()
                     y = ce / m
                 else:
@@ -485,21 +567,24 @@ class PPRankStep:
             work.wait()
         grads = tree_map(
             lambda t: torch.zeros_like(t) if t.grad is None else t.grad, p)
-        return ce_sum / m, grads
+        return ce_sum / m, self._whole_grads(grads)
 
     def __call__(self, state: Dict[str, Any],
                  batch: Dict[str, torch.Tensor]):
-        dp = self.grid.dp
+        dp, pp = self.grid.dp, self.plan.pp
         params = state["params"]
         loss, grads = self.loss_and_grads(params, batch)
         if dp > 1:
             grads = tree_map(lambda g: self.data.iallreduce(g) / dp, grads)
-        sq = sum(torch.sum(torch.square(g.float()))
-                 for g in tree_leaves(grads))
-        gnorm = torch.sqrt(self.pod.iallreduce(sq))
+        split = map_with_path(
+            lambda path, g: self.rules.split_dim(path, g.dim()) is not None,
+            grads)
+        sq = adamw.model_sq_norm(grads, split, self.model)
+        gnorm = torch.sqrt(self.pod.iallreduce(sq) if pp > 1 else sq)
         params, opt, om = adamw.adamw_update(params, grads, state["opt"],
                                              self.opt_cfg, grad_norm=gnorm)
-        loss = self.pod.iallreduce(loss)
+        if pp > 1:
+            loss = self.pod.iallreduce(loss)
         if dp > 1:
             loss = self.data.iallreduce(loss) / dp
         metrics = {"ce": loss, "aux": torch.zeros_like(loss), "loss": loss,

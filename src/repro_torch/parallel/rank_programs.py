@@ -21,6 +21,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.optim.adamw import AdamWConfig, tree_leaves, tree_map
 from repro_torch.parallel import groups, pipeline
+from repro_torch.parallel.sharding import shard_tree
 from repro_torch.profile import runner
 from repro_torch.profile.store import ProfileStore
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -90,6 +91,40 @@ def p2p_once(rank: int, world: int, perms: Sequence[Sequence[Tuple[int, int]]]
     return Communicator("x").isend_irecv(x, perms[rank]).cpu().numpy()
 
 
+def _loss_and_grads(world: int, bundle_kw: Dict[str, Any],
+                    params: Dict[str, Any], batch: Dict[str, np.ndarray],
+                    layers: Sequence[int], schedule: str, slack: int,
+                    transport: str, tp: int) -> Dict[str, Any]:
+    """One case of ``pp_loss_and_grads`` on a one-replica grid of
+    ``len(layers)`` stages of ``tp`` model ranks (a pp 1 case takes the
+    batch unmicrobatched, ``(B, S)``)."""
+    bundle = registry.get_bundle(**bundle_kw)
+    dev = _device()
+    pp = len(layers)
+    grid = groups.make_rank_grid(pp, 1, dev, tp=tp)
+    tb = _torch_tree(batch, dev)
+    rows = batch["tokens"].shape[-2]
+    n = 1 if pp == 1 else batch["tokens"].shape[0]
+    plan = ParallelPlan(
+        stages=tuple(StagePlacement(s, k, 1, tp, s == pp - 1)
+                     for s, k in enumerate(layers)),
+        micro_bs=rows, global_batch=n * rows,
+        seq_len=batch["tokens"].shape[-1], transport=transport,
+        schedule=schedule, eager_slack=slack)
+    step = pipeline.PPRankStep(bundle.cfg, plan, grid)
+    own = shard_tree(pipeline.stage_tree(_torch_tree(params, dev), layers,
+                                         grid.stage),
+                     step.rules, grid.model_rank)
+    with _Notes() as notes:
+        loss, grads = step.loss_and_grads(own, tb)
+    if pp > 1:
+        loss = step.pod.iallreduce(loss)
+    return {"loss": float(loss), "grads": _numpy_tree(grads),
+            "stage": grid.stage, "model_rank": grid.model_rank,
+            "peak_inflight": step.peak_inflight, "order": step.order,
+            "notes": list(notes)}
+
+
 def pp_loss_and_grads(rank: int, world: int, bundle_kw: Dict[str, Any],
                       params: Dict[str, Any], batch: Dict[str, np.ndarray],
                       cases: Sequence[Tuple[Sequence[int], str, int]],
@@ -100,48 +135,40 @@ def pp_loss_and_grads(rank: int, world: int, bundle_kw: Dict[str, Any],
     eager slack) with its hops on ``transport``: the loss every rank
     reports, this rank's gradients, its in-flight peak and schedule, and
     the ICCL notes it made."""
-    bundle = registry.get_bundle(**bundle_kw)
-    dev = _device()
-    grid = groups.make_rank_grid(world, 1, dev)
-    whole = _torch_tree(params, dev)
-    tb = _torch_tree(batch, dev)
-    m, bt, seq = batch["tokens"].shape
-    out = []
-    for layers, schedule, slack in cases:
-        plan = ParallelPlan(
-            stages=tuple(StagePlacement(s, n, 1, 1, s == world - 1)
-                         for s, n in enumerate(layers)),
-            micro_bs=bt, global_batch=m * bt, seq_len=seq,
-            transport=transport,
-            schedule=schedule, eager_slack=slack)
-        step = pipeline.PPRankStep(bundle.cfg, plan, grid)
-        own = pipeline.stage_tree(whole, layers, grid.stage)
-        with _Notes() as notes:
-            loss, grads = step.loss_and_grads(own, tb)
-        loss = step.pod.iallreduce(loss)
-        out.append({"loss": float(loss), "grads": _numpy_tree(grads),
-                    "stage": grid.stage, "peak_inflight": step.peak_inflight,
-                    "order": step.order, "notes": list(notes)})
-    return out
+    return [_loss_and_grads(world, bundle_kw, params, batch, layers,
+                            schedule, slack, transport, 1)
+            for layers, schedule, slack in cases]
+
+
+def tp_loss_and_grads(rank: int, world: int,
+                      cases: Sequence[Dict[str, Any]]
+                      ) -> List[Dict[str, Any]]:
+    """``pp_loss_and_grads`` for cases with tensor parallelism, each a dict
+    of ``bundle_kw``, ``params``, ``batch``, ``layers`` (``world / tp``
+    stages), ``schedule``, ``slack``, ``transport`` and ``tp``; each
+    rank's gradients are its model rank's share of its stage."""
+    return [_loss_and_grads(world, **case) for case in cases]
 
 
 def trainer_steps(rank: int, world: int, bundle_kw: Dict[str, Any],
                   plan: Dict[str, Any], state: Dict[str, Any], steps: int,
-                  opt: Dict[str, Any]) -> Dict[str, Any]:
+                  opt: Dict[str, Any], tp: int = 0) -> Dict[str, Any]:
     """``steps`` ``Trainer`` steps on the rank route from the whole
-    ``state`` (numpy): the losses, and this rank's parameters and second
-    moments afterwards."""
+    ``state`` (numpy), at ``TrainerConfig.tp`` ``tp`` (0: the plan's
+    stage tp): the losses and gradient norms, and this rank's parameters
+    and second moments afterwards."""
     bundle = registry.get_bundle(**bundle_kw)
     p = ParallelPlan.from_dict(plan)
     t = Trainer(bundle, TrainerConfig(global_batch=p.global_batch,
-                                      seq_len=p.seq_len),
+                                      seq_len=p.seq_len, tp=tp or p.tps[0]),
                 plan=p, opt_cfg=AdamWConfig(**opt),
                 state=(None if state is None
                        else _torch_tree(state, torch.device("cpu"))),
                 device=_device())
     out = t.run(steps)
-    return {"losses": out["losses"], "step": out["step"],
-            "stage": t.grid.stage, "replica": t.grid.replica,
+    return {"losses": out["losses"], "grad_norms": out["grad_norms"],
+            "step": out["step"], "stage": t.grid.stage,
+            "replica": t.grid.replica, "model_rank": t.grid.model_rank,
             "params": _numpy_tree(t.state["params"]),
             "v": _numpy_tree(t.state["opt"]["v"])}
 
@@ -158,10 +185,11 @@ def collectives(rank: int, world: int, payloads: Sequence[int]
 
 def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
              plan: Dict[str, Any], steps: int) -> Dict[str, Any]:
-    """``steps`` ``Trainer`` steps of a pp plan on the rank route from a
-    fresh state (seed 0), with what this rank saw: the losses and step
-    times, its kernel launches, the ICCL notes, its in-flight peak, and
-    its state and peak memory (GB, on the card)."""
+    """``steps`` ``Trainer`` steps of a plan on the rank route (a pp plan,
+    or a pp 1 plan at its stage tp) from a fresh state (seed 0), with what
+    this rank saw: the losses and step times, its kernel launches, the
+    ICCL notes, its in-flight peak, and its state and peak memory (GB, on
+    the card)."""
     dev = _device()
     bundle = registry.get_bundle(**bundle_kw)
     p = ParallelPlan.from_dict(plan)
@@ -170,7 +198,7 @@ def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     t = Trainer(bundle, TrainerConfig(global_batch=p.global_batch,
-                                      seq_len=p.seq_len),
+                                      seq_len=p.seq_len, tp=p.tps[0]),
                 plan=p, device=dev)
     if cuda:
         torch.cuda.synchronize(dev)
@@ -180,7 +208,8 @@ def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
     with _Notes() as notes:
         out = t.run(steps)
     launches = ops.launch_counts()
-    return {"rank": rank, "stage": t.grid.stage, "losses": out["losses"],
+    return {"rank": rank, "stage": t.grid.stage,
+            "model_rank": t.grid.model_rank, "losses": out["losses"],
             "step_s": out["step_s"], "launches": launches,
             "notes": list(notes), "peak_inflight": t.train_step.peak_inflight,
             "order": t.train_step.order, "init_s": init_s,
@@ -217,3 +246,44 @@ def hop_times(rank: int, world: int, shape: Sequence[int], dtype: str,
         exact = exact and (rank != 0 or torch.equal(y, x))
     return {"rank": rank, "hop_s": times, "exact": exact,
             "nbytes": x.numel() * x.element_size()}
+
+
+def allreduce_times(rank: int, world: int, shape: Sequence[int], dtype: str,
+                    transport: str, reps: int) -> Dict[str, Any]:
+    """Times of one ``iallreduce`` of a ``shape`` tensor of ``dtype`` over
+    a ``model`` axis of every rank on ``transport``, ``reps`` calls timed
+    on each rank (host clock, the card synchronized) after two untimed;
+    and whether every sum was exact (each rank adds ``rank + 1`` times
+    one tensor of small integers)."""
+    dev = _device()
+    groups.make_rank_grid(1, 1, dev, tp=world)
+    comm = Communicator("model", transport)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    x = torch.randint(-4, 5, tuple(shape), generator=gen, device=dev).to(
+        getattr(torch, dtype))
+    mine, want = x * (rank + 1), x * (world * (world + 1) // 2)
+    exact, times = True, []
+    for i in range(reps + 2):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        y = comm.iallreduce(mine)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+        exact = exact and torch.equal(y, want)
+    return {"rank": rank, "s": times, "exact": exact,
+            "nbytes": x.numel() * x.element_size()}
+
+
+def layer_probes(rank: int, world: int, arch: str, seqs: Sequence[int],
+                 micro_bss: Sequence[int], warmup: int, reps: int,
+                 smoke: bool, transport: str):
+    """``profile.runner.probe_times`` of the tensor-parallel loss on a
+    ``model`` axis of every rank over ``transport``: this rank's times."""
+    dev = _device()
+    groups.make_rank_grid(1, 1, dev, tp=world)
+    return runner.probe_times(arch, seqs, micro_bss, warmup, reps, smoke,
+                              dev, model=Communicator("model", transport))

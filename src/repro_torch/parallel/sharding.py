@@ -1,0 +1,153 @@
+"""Tensor-parallel sharding rules (port of the tp mode of
+``repro/parallel/sharding.py``).
+
+Megatron-style tensor parallelism over the ``model`` axis.  The JAX
+package states, for every parameter leaf, a ``PartitionSpec`` that GSPMD
+then realises; the port's ranks hold their shards themselves, so the same
+table here answers "which dim of this leaf is split over ``model``, or
+None", with the JAX package's divisibility resolution:
+
+  * attention q/o projections split the head dim iff n_heads % tp == 0,
+    else the whole attention is replicated;
+  * GQA k/v projections split iff n_kv_heads % tp == 0, else KV is
+    replicated across the model ranks (each rank then computes every kv
+    head and uses those its own q heads read);
+  * MoE expert tensors split the FFN dim, or the expert dim when
+    n_experts % tp == 0 and ``ep``;
+  * vocab-parallel embedding and unembedding;
+  * SSM / RG-LRU inner dims split over ``model``.
+
+A split dim is cut into ``tp`` contiguous slices: model rank r holds slice
+r (``shard_tree``; ``gather_trees`` concatenates them back).  The fsdp
+mode and ZeRO-1's moment sharding are ROADMAP.md queue A, item A5c.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+
+
+def _divisible(n: int, k: int) -> bool:
+    return k > 0 and n % k == 0
+
+
+class ShardingRules:
+    """The tp mode of the JAX ``ShardingRules``: ``split_dim(path, ndim)``
+    is the dim its ``_leaf_spec`` names ``model`` in, or None."""
+
+    def __init__(self, cfg: ModelConfig, *, tp: int, ep: bool = False):
+        self.cfg = cfg
+        self.tp = tp
+        c = cfg
+        self.shard_q = _divisible(c.n_heads, tp)
+        self.shard_kv = _divisible(c.n_kv_heads, tp)
+        self.shard_ff = _divisible(c.d_ff, tp) and c.d_ff > 0
+        self.shard_vocab = _divisible(c.vocab_size, tp)
+        self.shard_inner = _divisible(c.d_inner, tp)
+        self.shard_lru = _divisible(c.lru_width_, tp)
+        self.ep = ep and _divisible(c.n_experts, tp)
+
+    def split_dim(self, path: Tuple[str, ...], ndim: int) -> Optional[int]:
+        name = path[-1]
+        in_moe = "moe" in path
+
+        def col(ok):    # (..., D_in, D_out): the output dim
+            return ndim - 1 if ok else None
+
+        def row(ok):    # (..., D_in, D_out): the input dim
+            return ndim - 2 if ok else None
+
+        if name == "embed":
+            return 0 if self.shard_vocab else None
+        if name == "unembed":
+            return 1 if self.shard_vocab else None
+        if name == "scale":          # norms
+            return None
+        if name == "wq":
+            return col(self.shard_q)
+        if name in ("wk", "wv"):
+            return col(self.shard_kv)
+        if name == "wo":
+            return row(self.shard_q)
+        if in_moe and name in ("w_gate", "w_up", "w_down"):
+            if self.ep:
+                return ndim - 3
+            return (col if name != "w_down" else row)(self.shard_ff)
+        if name == "router":
+            return None
+        if name in ("w_gate", "w_up"):
+            return col(self.shard_ff)
+        if name == "w_down":
+            return row(self.shard_ff)
+        # ---- mamba ----
+        if name in ("in_proj", "dt_proj"):
+            return col(self.shard_inner)
+        if name in ("conv_w", "conv_b"):
+            return col(self.shard_inner or self.shard_lru)
+        if name in ("x_proj", "out_proj"):
+            return row(self.shard_inner)
+        if name in ("dt_bias", "D"):
+            return col(self.shard_inner)
+        if name == "A_log":
+            return row(self.shard_inner)
+        # ---- rg-lru ----
+        if name in ("in_x", "in_gate", "w_input_gate", "w_rec_gate", "lam"):
+            return col(self.shard_lru)
+        if name == "out":
+            return row(self.shard_lru)
+        return None
+
+    def partial_grad(self, path: Tuple[str, ...]) -> bool:
+        """A replicated leaf whose gradient each model rank holds only in
+        part: k/v replicated under split q heads, where each rank's
+        gradient covers the kv heads its q heads read.  The ranks' sum
+        over ``model`` is the gradient."""
+        return (path[-1] in ("wk", "wv") and self.shard_q
+                and not self.shard_kv and self.tp > 1)
+
+
+def map_with_path(fn, tree: Any, prefix: Tuple[str, ...] = ()) -> Any:
+    """``fn(path, leaf)`` over nested dicts of tensors."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, prefix + (k,))
+                for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
+def shard_tree(tree: Dict[str, Any], rules: ShardingRules,
+               model_rank: int) -> Dict[str, Any]:
+    """Model rank ``model_rank``'s part of a parameter-shaped tree
+    (parameters, a master copy, a moment): slice ``model_rank`` of each
+    split dim, cut into ``rules.tp`` contiguous slices, and the replicated
+    leaves, each cloned."""
+    def cut(path, a):
+        d = rules.split_dim(path, a.dim())
+        if d is None:
+            return a.clone()
+        if a.shape[d] % rules.tp:
+            raise ValueError(f"{'/'.join(path)} {tuple(a.shape)}: dim {d} "
+                             f"does not split over tp {rules.tp}")
+        return a.chunk(rules.tp, d)[model_rank].clone()
+
+    return map_with_path(cut, tree)
+
+
+def gather_trees(trees: Sequence[Dict[str, Any]],
+                 rules: ShardingRules) -> Dict[str, Any]:
+    """The inverse of ``shard_tree``: the whole tree from the model ranks'
+    parts, in model-rank order."""
+    def join(path, a):
+        leaves = [a] + [_at(t, path) for t in trees[1:]]
+        d = rules.split_dim(path, a.dim())
+        return a if d is None else torch.cat(leaves, d)
+
+    return map_with_path(join, trees[0])
+
+
+def _at(tree: Dict[str, Any], path: Tuple[str, ...]) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree

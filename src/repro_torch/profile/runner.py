@@ -13,8 +13,10 @@ ops and shapes, so ``ProfiledCostModel`` serves either package's profile:
                 fwd+bwd at two depths (pattern length a and 2a); per-layer
                 time is the difference, the paper's 'profile small,
                 predict big' probe applied to wall time.  Swept over
-                (seq_len, micro_bs); ``smoke=False`` profiles the arch at
-                its full width.
+                (seq_len, micro_bs, tp); ``smoke=False`` profiles the arch
+                at its full width.  At tp > 1 the probes are the
+                tensor-parallel loss on tp local ranks
+                (``parallel/launch.run_ranks``), each timing its share.
 
   * collectives — psum, all_gather and ppermute through the ICCL
                 ``Communicator`` over every rank of an initialised
@@ -35,14 +37,16 @@ from __future__ import annotations
 import argparse
 import statistics
 import time
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.iccl.communicator import Communicator
 from repro_torch.models import registry
 from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import ShardingRules, shard_tree
 from repro_torch.profile.store import ProfileStore
 from repro_torch.train import steps
 from repro_torch.utils.device import DeviceLike, resolve_device
@@ -137,15 +141,25 @@ def bench_kernels(store: ProfileStore, dev: str, seqs: Sequence[int],
 
 
 # ----------------------------------------------------------------- layers --
-def _loss_fns(arch: str, n_layers: int, smoke: bool, device: torch.device):
+# how long the parent waits for the ranks of a tp > 1 probe
+TP_PROBE_TIMEOUT_S = 900.0
+
+
+def _loss_fns(arch: str, n_layers: int, smoke: bool, device: torch.device,
+              model: Optional[Communicator] = None):
     """(cfg, fwd, step) of the reference loss at depth ``n_layers``: fwd is
     the loss without autograd, step its gradient over every parameter leaf
-    (``train.steps.make_train_step``'s ``grads_of``)."""
+    (``train.steps.make_train_step``'s ``grads_of``).  On a
+    tensor-parallel rank (``model``) it is this rank's share of the
+    sharded loss, its collectives included."""
     b = registry.get_bundle(arch, smoke=smoke, num_layers=n_layers)
-    params = adamw.tree_map(lambda p: p.requires_grad_(),
-                            b.init(b.cfg, seed=0, device=device))
+    params = b.init(b.cfg, seed=0, device=device)
+    if model is not None:
+        params = shard_tree(params, ShardingRules(b.cfg, tp=model.size()),
+                            model.index())
+    params = adamw.tree_map(lambda p: p.requires_grad_(), params)
     leaves = adamw.tree_leaves(params)
-    loss = steps.make_loss_fn(b)
+    loss = steps.make_loss_fn(b, model)
 
     def fwd(batch):
         with torch.no_grad():
@@ -164,41 +178,91 @@ def _batch(cfg, mbs: int, seq: int, device: torch.device):
     return {k: torch.as_tensor(v, device=device) for k, v in data.items()}
 
 
-def bench_layers(store: ProfileStore, dev: str, arch: str,
-                 seqs: Sequence[int], micro_bss: Sequence[int], tp: int = 1,
-                 warmup: int = 2, reps: int = 5, verbose: bool = True,
-                 smoke: bool = True, device: DeviceLike = None):
-    """Per-layer fwd/bwd time from two depth probes (a vs 2a)."""
-    if tp != 1:
-        raise NotImplementedError(
-            "tensor parallelism within a stage waits for ROADMAP.md queue "
-            "A, item A5c")
-    device = resolve_device(device)
+def _depths(arch: str, smoke: bool) -> Tuple[int, int]:
     cfg0 = registry.get_config(arch, smoke=smoke)
     a = len(cfg0.block_pattern) if cfg0.block_pattern else 1
-    probes = {L: _loss_fns(arch, L, smoke, device) for L in (a, 2 * a)}
+    return a, 2 * a
+
+
+def probe_times(arch: str, seqs: Sequence[int], micro_bss: Sequence[int],
+                warmup: int, reps: int, smoke: bool, device: torch.device,
+                model: Optional[Communicator] = None
+                ) -> Dict[Tuple[int, int, int], Tuple[float, float]]:
+    """{(seq, micro_bs, depth): (fwd_s, step_s)} of the two depth probes,
+    on this process's device (a model rank's share with ``model``)."""
+    probes = {L: _loss_fns(arch, L, smoke, device, model)
+              for L in _depths(arch, smoke)}
+    out = {}
     for seq in seqs:
         for mbs in micro_bss:
-            per = {}
             for L, (cfg, fwd, step) in probes.items():
                 batch = _batch(cfg, mbs, seq, device)
                 t_f, _ = timeit(lambda: fwd(batch), warmup, reps,
                                 device=device)
                 t_s, _ = timeit(lambda: step(batch), warmup, reps,
                                 device=device)
-                per[L] = (t_f, t_s)
+                out[(seq, mbs, L)] = (t_f, t_s)
+    return out
+
+
+def _tp_probe_times(arch: str, seqs, micro_bss, tp: int, warmup: int,
+                    reps: int, smoke: bool, device: torch.device):
+    """``probe_times`` on ``tp`` local ranks of one stage, its loss
+    tensor-parallel: model rank 0's reading.  On the card the ranks take a
+    card each over NCCL when there are ``tp`` cards; with fewer, they
+    share ``device`` and their all-reduces go through the host."""
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+    where, backend, transport = "cpu", "gloo", "cpu"
+    if device.type == "cuda":
+        from repro_torch.kernels import build
+        build.build()       # the ranks only load the library
+        if torch.cuda.device_count() >= tp:
+            where, backend, transport = "cuda", "cpu:gloo,cuda:nccl", "gpu"
+        else:
+            where = str(device)
+    return run_ranks(rank_programs.layer_probes, tp, backend=backend,
+                     device=where, timeout_s=TP_PROBE_TIMEOUT_S,
+                     args=(arch, list(seqs), list(micro_bss), warmup, reps,
+                           smoke, transport))[0]
+
+
+def bench_layers(store: ProfileStore, dev: str, arch: str,
+                 seqs: Sequence[int], micro_bss: Sequence[int], tp: int = 1,
+                 warmup: int = 2, reps: int = 5, verbose: bool = True,
+                 smoke: bool = True, device: DeviceLike = None):
+    """Per-layer fwd/bwd time from two depth probes (a vs 2a).  At
+    ``tp`` > 1 the probes are the tensor-parallel loss on ``tp`` ranks
+    (the JAX runner's ``--tp``), each rank timing its own share with its
+    all-reduces: one layer of a tp-wide stage, what
+    ``ProfiledCostModel.layer_time(..., tp)`` prices."""
+    device = resolve_device(device)
+    if tp > 1 and registry.get_config(arch, smoke=smoke).family != "dense":
+        raise NotImplementedError(
+            f"{arch}: tensor parallelism runs the dense stack; the others "
+            "wait for their training kernels (ROADMAP.md queue A, item 9)")
+    times = (probe_times(arch, seqs, micro_bss, warmup, reps, smoke, device)
+             if tp == 1 else
+             _tp_probe_times(arch, seqs, micro_bss, tp, warmup, reps, smoke,
+                             device))
+    a, a2 = _depths(arch, smoke)
+    for seq in seqs:
+        for mbs in micro_bss:
+            for L in (a, a2):
+                t_f, t_s = times[(seq, mbs, L)]
                 store.put(dev, "loss_probe",
                           {"arch": arch, "seq_len": seq,
                            "micro_bs": mbs, "tp": tp, "n_layers": L},
                           {"fwd_s": t_f, "step_s": t_s})
-            fwd_layer = max((per[2 * a][0] - per[a][0]) / a, 1e-9)
-            step_layer = max((per[2 * a][1] - per[a][1]) / a, fwd_layer)
+            (f1, s1), (f2, s2) = times[(seq, mbs, a)], times[(seq, mbs, a2)]
+            fwd_layer = max((f2 - f1) / a, 1e-9)
+            step_layer = max((s2 - s1) / a, fwd_layer)
             store.put(dev, "layer_step",
                       {"arch": arch, "seq_len": seq, "micro_bs": mbs,
                        "tp": tp},
                       {"fwd_s": fwd_layer, "bwd_s": step_layer - fwd_layer})
             if verbose:
-                print(f"  layer  {arch:16s} seq={seq:5d} mbs={mbs} "
+                print(f"  layer  {arch:16s} seq={seq:5d} mbs={mbs} tp={tp} "
                       f"fwd/layer={fwd_layer*1e3:8.3f}ms "
                       f"bwd/layer={(step_layer-fwd_layer)*1e3:8.3f}ms")
 
@@ -217,7 +281,6 @@ def bench_collectives(store: ProfileStore, dev: str,
     ``ring_hop`` ``{"scope": "intra"}`` from the largest ppermute.  Every
     rank writes the same entries.  The communicator keeps its default
     transport: CPU tensors take gloo, CUDA tensors NCCL (a rank a card)."""
-    from repro_torch.iccl.communicator import Communicator
     from repro_torch.parallel.groups import bind_world_axis
     n = (dist.get_world_size()
          if dist.is_available() and dist.is_initialized() else 1)

@@ -11,7 +11,12 @@ optional gradient accumulation over microbatches.
 On one card the gold logit is a gather: JAX's one-hot product
 (``repro/train/steps.py:38-39``) exists to keep a vocab-sharded gather out
 of GSPMD and would add a (B, S, V) tensor here; it is the same function
-with the same gradient.
+with the same gradient.  On a tensor-parallel rank (``model``, a
+``Communicator`` over the model axis) the loss runs the rank's shares of
+the blocks and its vocab slice of the logits, and the CE's log-sum-exp
+and gold logit are reduced over the ranks
+(``parallel/tensor.vocab_parallel_lse_gold``): every rank gets the loss
+of the whole model.
 """
 from __future__ import annotations
 
@@ -20,9 +25,11 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.iccl.communicator import Communicator
 from repro_torch.models import transformer
 from repro_torch.models.registry import ArchBundle
 from repro_torch.optim import adamw
+from repro_torch.parallel import tensor
 
 AUX_COEF = 0.01
 Z_COEF = 1e-4
@@ -30,17 +37,23 @@ Z_COEF = 1e-4
 LossFn = Callable[[Any, Dict[str, torch.Tensor]], Any]
 
 
-def _lse_gold(logits: torch.Tensor, labels: torch.Tensor):
+def _lse_gold(logits: torch.Tensor, labels: torch.Tensor,
+              model: Optional[Communicator] = None):
+    """``model``: the communicator over whose ranks the logits' vocab is
+    split (None: whole logits)."""
+    if model is not None:
+        return tensor.vocab_parallel_lse_gold(logits, labels, model)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return lse, gold
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  model: Optional[Communicator] = None) -> torch.Tensor:
     """Stable mean CE over (..., V) fp32 logits, plus the z-loss
     ``Z_COEF * mean(lse^2)``."""
-    lse, gold = _lse_gold(logits, labels)
+    lse, gold = _lse_gold(logits, labels, model)
     return torch.mean(lse - gold) + Z_COEF * torch.mean(torch.square(lse))
 
 
@@ -50,26 +63,33 @@ def with_aux(ce: torch.Tensor, aux: torch.Tensor):
     return ce + AUX_COEF * aux, {"ce": ce, "aux": aux}
 
 
-def _ce_sums(logits: torch.Tensor, labels: torch.Tensor):
+def _ce_sums(logits: torch.Tensor, labels: torch.Tensor,
+             model: Optional[Communicator] = None):
     """(sum of (lse - gold), sum of lse^2, count): chunk-combinable."""
-    lse, gold = _lse_gold(logits, labels)
+    lse, gold = _lse_gold(logits, labels, model)
     return torch.sum(lse - gold), torch.sum(torch.square(lse)), lse.numel()
 
 
-def make_loss_fn(bundle: ArchBundle) -> LossFn:
+def make_loss_fn(bundle: ArchBundle,
+                 model: Optional[Communicator] = None) -> LossFn:
+    """The reference loss; ``model``: this rank's tensor-parallel
+    communicator, its ``params`` the rank's shard
+    (``parallel/sharding.shard_tree``)."""
     cfg = bundle.cfg
 
     def loss_fn(params, batch):
+        feats, w, aux = transformer.lm_features(params, batch["tokens"], cfg,
+                                                model)
+        vocab = transformer.vocab_model(w, cfg, model)
+        feats = tensor.copy_to_model(feats, vocab)
         if cfg.loss_chunk:
-            feats, w, aux = transformer.lm_features(params, batch["tokens"],
-                                                    cfg)
             labels = batch["labels"]
             S = feats.shape[1]
             c = min(cfg.loss_chunk, S)
             n = S // c             # as JAX: a tail shorter than c is dropped
 
             def body(f, lab):
-                ce, z, _ = _ce_sums((f @ w).float(), lab)
+                ce, z, _ = _ce_sums((f @ w).float(), lab, vocab)
                 return ce, z
 
             s_ce = s_z = torch.zeros((), device=feats.device)
@@ -80,8 +100,8 @@ def make_loss_fn(bundle: ArchBundle) -> LossFn:
                 s_ce, s_z = s_ce + ce, s_z + z
             cnt = feats.shape[0] * n * c
             return with_aux(s_ce / cnt + Z_COEF * (s_z / cnt), aux)
-        logits, aux = bundle.forward(params, batch, cfg)
-        return with_aux(cross_entropy(logits, batch["labels"]), aux)
+        logits = (feats @ w).float()
+        return with_aux(cross_entropy(logits, batch["labels"], vocab), aux)
 
     return loss_fn
 

@@ -14,12 +14,16 @@ synthetic batches:
     stage layers, vpp and stage tp widths, same state and train step; the
     batch arrives microbatched ``(m, B_tick, ...)``.  As in the JAX
     trainer, the plan's cp and per-stage dp stay advisory there;
-  * the same plan with ``torch.distributed`` initialised over
-    ``world = pp * dp`` > 1 processes: the rank route.  This rank holds
-    one stage of one replica (``parallel/groups.make_rank_grid``), its
+  * with ``torch.distributed`` initialised over ``world > 1`` processes,
+    that pp > 1 plan, or any workload at ``TrainerConfig.tp > 1``: the
+    rank route over ``world = pp * dp * tp`` ranks (the JAX trainer's
+    ``tp``; without a plan for this workload, one stage of every layer,
+    ``world / tp`` replicas, the model axis on the homogeneous transport).
+    This rank holds its model rank's share of one stage of one replica
+    (``parallel/groups.make_rank_grid``, ``parallel/sharding.py``), its
     part of the state (``pipeline.init_rank_state``, or
     ``pipeline.split_state_for_rank`` of a whole ``state=``) and its rows
-    of every microbatch of the global batch, and steps with
+    of the global batch (of every microbatch when pp > 1), and steps with
     ``pipeline.PPRankStep``; every rank reports the step's loss.
 
 Left out of the JAX trainer, each a ROADMAP item: checkpoints and restart,
@@ -36,8 +40,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.plan import ParallelPlan
+from repro_torch.core.plan import ParallelPlan, StagePlacement
 from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.iccl.communicator import homogeneous_comm
 from repro_torch.models.registry import ArchBundle
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
@@ -51,6 +56,7 @@ from repro_torch.utils.device import (DeviceLike, resolve_device,
 class TrainerConfig:
     global_batch: int = 8
     seq_len: int = 64
+    tp: int = 1
 
 
 class Trainer:
@@ -76,13 +82,16 @@ class Trainer:
         self.grid: Optional[groups.RankGrid] = None
         self._build()
         if self.grid is not None:
-            stage = self.grid.stage
+            g, rplan = self.grid, self.train_step.plan
+            rules = self.train_step.rules
             self.state = (
-                pipeline.init_rank_state(bundle, plan, stage,
-                                         device=self.device)
+                pipeline.init_rank_state(bundle, rplan, g.stage,
+                                         device=self.device, rules=rules,
+                                         model_rank=g.model_rank)
                 if state is None else adamw.tree_map(
                     lambda t: t.to(self.device),
-                    pipeline.split_state_for_rank(state, plan, stage)))
+                    pipeline.split_state_for_rank(state, rplan, g.stage,
+                                                  rules, g.model_rank)))
         elif state is None:
             self.state = steps_mod.init_train_state(bundle,
                                                     device=self.device)
@@ -103,10 +112,30 @@ class Trainer:
                 and self.cfg.global_batch % plan.tokens_per_tick == 0)
 
     def _ranks_active(self) -> bool:
-        """The pipeline runs with its stages on the ranks of an initialised
-        process group."""
-        return (self._pipeline_active() and dist.is_available()
-                and dist.is_initialized() and dist.get_world_size() > 1)
+        """The plan's stages, or a tp > 1 model, run on the ranks of an
+        initialised process group."""
+        return ((self.cfg.tp > 1 or self._pipeline_active())
+                and dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1)
+
+    def _rank_plan(self, world: int) -> ParallelPlan:
+        """The plan the ranks run: this workload's plan, else one stage of
+        every layer over ``world / tp`` replicas of ``tp`` ranks."""
+        plan, tp = self.plan, self.cfg.tp
+        if self._pipeline_active() or (
+                plan is not None and plan.pp == 1
+                and plan.global_batch == self.cfg.global_batch
+                and plan.seq_len == self.cfg.seq_len):
+            return plan
+        if world % tp:
+            raise ValueError(f"world size {world} is no multiple of tp {tp}")
+        dp = world // tp
+        return ParallelPlan(
+            stages=(StagePlacement(0, self.bundle.cfg.num_layers, dp, tp,
+                                   True),),
+            micro_bs=self.cfg.global_batch // dp,
+            global_batch=self.cfg.global_batch, seq_len=self.cfg.seq_len,
+            transport=homogeneous_comm("model").transport)
 
     def _cp_active(self) -> bool:
         """A pp == 1, cp > 1 plan matching this workload runs the ring loss
@@ -126,15 +155,27 @@ class Trainer:
     def _build(self):
         loss_fn = None
         if self._ranks_active():
-            plan, world = self.plan, dist.get_world_size()
-            if world % plan.pp:
-                raise ValueError(f"world size {world} is no multiple of the "
-                                 f"plan's pp {plan.pp}")
-            self.grid = groups.make_rank_grid(plan.pp, world // plan.pp,
-                                              self.device)
+            world, tp = dist.get_world_size(), self.cfg.tp
+            plan = self._rank_plan(world)
+            pipeline.check_rank_plan(self.bundle.cfg, plan)
+            if plan.tps[0] != tp:
+                raise ValueError(f"plan {plan.describe()} has stage tp "
+                                 f"{plan.tps}, the trainer tp {tp}")
+            if world != plan.pp * plan.dps[0] * tp:
+                raise ValueError(f"world size {world} is not pp {plan.pp} x "
+                                 f"dp {plan.dps[0]} x tp {tp}")
+            if self.cfg.global_batch % plan.dps[0]:
+                raise ValueError(f"global batch {self.cfg.global_batch} does "
+                                 f"not split over dp {plan.dps[0]}")
+            self.grid = groups.make_rank_grid(plan.pp, plan.dps[0],
+                                              self.device, tp=tp)
             self.train_step = pipeline.PPRankStep(
                 self.bundle.cfg, plan, self.grid, self.opt_cfg)
             return
+        if self.cfg.tp > 1:
+            raise ValueError(f"TrainerConfig.tp {self.cfg.tp} runs on ranks: "
+                             "initialise torch.distributed over pp x dp x tp "
+                             "processes")
         if self._pipeline_active():
             plan = self.plan
             loss_fn = pipeline.make_pp_loss_fn(
@@ -154,18 +195,21 @@ class Trainer:
         def put(v):
             if m is not None:   # the pipeline consumes (m, B_tick, ...)
                 v = v.reshape(m, v.shape[0] // m, *v.shape[1:])
-            if self.grid is not None:   # this replica's rows of each
-                b = v.shape[1] // self.grid.dp
+            if self.grid is not None:   # this replica's rows (of each)
+                rows = v if m is None else v.swapaxes(0, 1)
+                b = rows.shape[0] // self.grid.dp
                 r = self.grid.replica
-                v = v[:, r * b:(r + 1) * b]
+                rows = rows[r * b:(r + 1) * b]
+                v = rows if m is None else rows.swapaxes(0, 1)
             return torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
 
         return {k: put(v) for k, v in np_batch.items()}
 
     def run(self, n_steps: int) -> Dict[str, Any]:
-        """``n_steps`` train steps; returns {"losses", "step", "step_s"}
-        (each step's wall time, ending when its loss is on the host)."""
-        losses, step_s = [], []
+        """``n_steps`` train steps; returns {"losses", "grad_norms",
+        "step", "step_s"} (each step's wall time, ending when its loss is
+        on the host; the global gradient norm AdamW clipped by)."""
+        losses, norms, step_s = [], [], []
         for _ in range(n_steps):
             t0 = time.perf_counter()
             batch = self._device_batch(self.data.batch_at(self.step))
@@ -173,6 +217,8 @@ class Trainer:
             losses.append(float(metrics["loss"]))
             synchronize(self.device)
             step_s.append(time.perf_counter() - t0)
+            norms.append(float(metrics["grad_norm"]))
             self.step += 1
             self.data.state.step = self.step
-        return {"losses": losses, "step": self.step, "step_s": step_s}
+        return {"losses": losses, "grad_norms": norms, "step": self.step,
+                "step_s": step_s}

@@ -859,3 +859,88 @@ def test_gpu_transport_on_one_card_raises(dev):
                   device=f"cuda:{dev.index}",
                   args=(dict(arch="llama3-8b", smoke=True, num_layers=4),
                         params, batch, [([3, 1], "1f1b", 1)], "gpu"))
+
+
+# ------------------------------------------ tensor parallelism on ranks ----
+def _tp_rank_cases(transport: str):
+    """The pp 1 tp 2 case (``(8, 32)`` tokens) and the pp 2 x tp 2 cases
+    under 1f1b and gpipe (4 microbatches of 2 x 32) of
+    ``rank_programs.tp_loss_and_grads`` on ``_pp_rank_case``'s SMOKE
+    weights and tokens, with the CPU's unsharded loss and gradients of
+    each (``tests/test_torch_tp.py`` holds those to JAX)."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    params, batch, pp_loss, pp_want = _pp_rank_case()
+    kw = dict(arch="llama3-8b", smoke=True, num_layers=4)
+    flat = {k: v.reshape(8, 32) for k, v in batch.items()}
+    b = registry.get_bundle(**kw)
+    p = adamw.tree_map(lambda t: torch.from_numpy(t).requires_grad_(),
+                       params)
+    loss, _ = steps.make_loss_fn(b)(
+        p, {k: torch.from_numpy(v) for k, v in flat.items()})
+    it = iter(torch.autograd.grad(loss, adamw.tree_leaves(p)))
+    want = adamw.tree_map(lambda _: next(it), p)
+    case = dict(bundle_kw=kw, params=params, tp=2, transport=transport,
+                slack=1)
+    pp1 = dict(case, batch=flat, layers=[4], schedule="1f1b")
+    pp2 = [dict(case, batch=batch, layers=[3, 1], schedule=s)
+           for s in ("1f1b", "gpipe")]
+    return (pp1, float(loss.detach()), want), (pp2, pp_loss, pp_want)
+
+
+def _check_tp_grads(res, pp: int, loss, want):
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import pipeline, sharding
+
+    rules = sharding.ShardingRules(
+        registry.get_config("llama3-8b", smoke=True, num_layers=4), tp=2)
+    for r in res:
+        assert abs(r["loss"] - loss) < MODEL_TOL["atol"]
+    got = pipeline.gather_stage_trees([sharding.gather_trees(
+        [adamw.tree_map(torch.from_numpy, r["grads"])
+         for r in res[s * 2:(s + 1) * 2]], rules) for s in range(pp)])
+    for g, w in zip(adamw.tree_leaves(got), adamw.tree_leaves(want)):
+        torch.testing.assert_close(g, w, **MODEL_TOL)
+
+
+def test_tp_ranks_on_one_card_match_cpu(dev):
+    """pp 1 tp 2, the two model ranks on one card, their all-reduces
+    host-staged over gloo: the kernels on each rank's heads and columns
+    give the CPU's unsharded loss and gradients."""
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+
+    (case, loss, want), _ = _tp_rank_cases("cpu")
+    res = run_ranks(rank_programs.tp_loss_and_grads, 2, timeout_s=300,
+                    device=f"cuda:{dev.index}", args=([case],))
+    _check_tp_grads([r[0] for r in res], 1, loss, want)
+
+
+def test_pp2_tp2_ranks_on_cards_match_cpu(dev):
+    """pp 2 x tp 2 over NCCL, a card a rank (skipped below four cards),
+    under 1f1b and gpipe."""
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("pp 2 x tp 2 over NCCL needs a card a rank: four CUDA "
+                    "devices")
+    _, (cases, loss, want) = _tp_rank_cases("gpu")
+    res = run_ranks(rank_programs.tp_loss_and_grads, 4, timeout_s=300,
+                    backend="cpu:gloo,cuda:nccl", device="cuda",
+                    args=(cases,))
+    for i in range(len(cases)):
+        _check_tp_grads([r[i] for r in res], 2, loss, want)
+
+
+def test_gpu_transport_tp_on_one_card_raises(dev):
+    """Two model ranks on one card asked for NCCL: the run fails, naming
+    the host-staged transport, and nothing takes another path."""
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+
+    (case, _, _), _ = _tp_rank_cases("gpu")
+    with pytest.raises(RuntimeError, match="axis 'model'.*transport='cpu'"):
+        run_ranks(rank_programs.tp_loss_and_grads, 2, timeout_s=300,
+                  device=f"cuda:{dev.index}", args=([case],))

@@ -71,7 +71,26 @@ Phases, each raising on failure so the script exits non-zero:
               own heads and columns), 4 L + 4 iallreduce notes a step
               (4 L + 2 of an activation's 33.55 MB) and one iallgather;
               each rank's peak memory, the step time, tokens/s, and one
-              host-staged all-reduce of an activation's time
+              host-staged all-reduce of an activation's time.  Then pp
+              vpp: the planner's interleaved plan (vpp 2, pinned by
+              planner.search(schedule="interleaved-1f1b", vpp_options=[2])
+              on the same cluster) at 8 layers, batch 4, checked as the pp
+              route; pp_ranks vpp: that plan's two stages in two
+              processes on this card, checked as pp_ranks (step 0 within
+              1e-5, the wrap hop included in 2 m (V - 1) isend_irecv
+              notes a step, in-flight peaks the interleaved caps); the
+              reference route at batch 2 (reference b2); and dp_ranks:
+              the reference cell at batch 2 as a pp 1 plan of 2 replicas
+              in two processes on this card, one sequence each, ZeRO-1
+              over data (transport "cpu"): every step's loss within 2e-2
+              of reference b2's, each rank's launches the reference
+              route's, an iallreduce a gradient leaf and the loss's and an
+              iallgather a split leaf a step, each rank's optimizer bytes
+              1/2 of the whole state's over the split leaves; every
+              step's gradient norm and each leaf's fp32 master move from
+              the initial parameters (the replicas' slices together)
+              within 1e-2 of reference b2's, relative, and the replicas'
+              parameters equal bit for bit
   6b. plan   the port's planner and profile runner on the card: the cp
               chunks above come from its cp_split; llama3-8b's per-layer
               forward and backward at full width, seq 4096, measured
@@ -90,8 +109,8 @@ Phases, each raising on failure so the script exits non-zero:
               the profiler never slows the launches of this one.
               rmsnorm_bwd must run as one kernel a call
 Then one JSON line with every kernel (launches summed over the serve and
-train runs (cp, reference, pp, pp_ranks and tp_ranks: every rank) and
-phase 6b;
+train runs (cp, reference, pp, pp_ranks, tp_ranks, pp vpp, pp_ranks vpp,
+reference b2 and dp_ranks: every rank) and phase 6b;
 rmsnorm and swiglu have a second row at their decode shape,
 which takes the launches made inside decode steps, the first row the rest;
 the scan's row is its S1000 timing; each row with its library call's device
@@ -181,6 +200,18 @@ RANKS_LOSS0_TOL, RANKS_TIMEOUT_S, HOP_REPS = 1e-5, 300, 20
 # products round their partial sums apart from the unsharded product's, so
 # every step is held at TRAIN_LOSS_TOL of the reference route's
 TP_RANKS = 2
+# the pp vpp route: the planner's interleaved plan (vpp 2) for PP_BATCH
+# sequences at VPP_LAYERS layers (2.795 B parameters, 39.1 GB of state),
+# then (pp_ranks vpp) its two stages in two processes on the card
+VPP_LAYERS = 8
+# the dp_ranks route: the reference cell at DP_RANKS sequences as a pp 1
+# plan of DP_RANKS replicas (one sequence each, ZeRO-1 over data) in as
+# many processes on the card, against the reference route at that batch.
+# At AdamW's warmup rate the losses barely move in 3 steps, so each step's
+# gradient norm and each leaf's master move (a replica that left its slice
+# unchanged would read ~0.71 of it) are held, relative, at DP_NORM_TOL
+DP_RANKS = 2
+DP_NORM_TOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -1242,12 +1273,17 @@ def phase_train_parity(torch, dev):
     return out
 
 
-def phase_train(torch, dev, route: str):
+def phase_train(torch, dev, route: str, global_batch: int = 1,
+                moves: bool = False):
     """llama3-8b at full width, TRAIN_LAYERS layers, bf16: TRAIN_STEPS
-    steps of one route with exact launch counts; its own peak memory."""
+    steps of one route at ``global_batch`` sequences with exact launch
+    counts (a batched kernel launches once whatever the batch); its own
+    peak memory; with ``moves``, each leaf's squared master move after
+    every step (``rank_programs.run_steps``)."""
     from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel.rank_programs import run_steps
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     gc.collect()
@@ -1256,24 +1292,25 @@ def phase_train(torch, dev, route: str):
     b = registry.get_bundle("llama3-8b", num_layers=TRAIN_LAYERS)
     plan = _cp_plan(CP_CHUNKS, 1, TRAIN_LAYERS) if route == "cp" else None
     t0 = time.perf_counter()
-    t = Trainer(b, TrainerConfig(global_batch=1, seq_len=TRAIN_SEQ),
-                plan=plan, device=dev)
+    t = Trainer(b, TrainerConfig(global_batch=global_batch,
+                                 seq_len=TRAIN_SEQ), plan=plan, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     assert t._cp_active() == (route == "cp")
+    route = route if global_batch == 1 else f"{route} b{global_batch}"
     n_params = sum(x.numel() for x in tree_leaves(t.state["params"]))
     state_gb = torch.cuda.memory_allocated(dev) / 1e9
     log(f"[train] {route} route: llama3-8b {TRAIN_LAYERS} layers, "
         f"{n_params / 1e9:.3f} B params, train state {state_gb:.2f} GB, "
         f"init {init_s:.1f} s")
     ops.reset_launch_counts()
-    out = t.run(TRAIN_STEPS)
+    out, moved = run_steps(t, TRAIN_STEPS, moves)
     launches = ops.launch_counts()
     L, cp, n = TRAIN_LAYERS, len(CP_CHUNKS), TRAIN_STEPS
     expect = dict.fromkeys(launches, 0)
     expect.update(rmsnorm=(2 * L + 1) * n, rmsnorm_bwd=(2 * L + 1) * n,
                   swiglu=L * n, swiglu_bwd=L * n)
-    if route == "cp":
+    if route.startswith("cp"):
         expect.update(ring_step=L * cp * n, ring_step_bwd=L * cp * n)
     else:
         expect.update(flash_attention=L * n, ring_step_bwd=L * n)
@@ -1284,9 +1321,11 @@ def phase_train(torch, dev, route: str):
     assert launches == expect, (launches, expect)
     steady = out["step_s"][1:]
     summary = {
-        "route": route, "layers": L, "seq": TRAIN_SEQ, "global_batch": 1,
-        "params": n_params, "losses": losses, "step_s": out["step_s"],
-        "tok_s_steady": TRAIN_SEQ * len(steady) / sum(steady),
+        "route": route, "layers": L, "seq": TRAIN_SEQ,
+        "global_batch": global_batch, "params": n_params, "losses": losses,
+        "grad_norms": out["grad_norms"], "master_moves": moved,
+        "step_s": out["step_s"],
+        "tok_s_steady": global_batch * TRAIN_SEQ * len(steady) / sum(steady),
         "init_s": init_s, "state_gb": state_gb,
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         "launches": launches, "expected_launches": expect,
@@ -1297,13 +1336,29 @@ def phase_train(torch, dev, route: str):
     return summary, launches
 
 
-def phase_train_pp(torch, dev, smi: str):
-    """llama3-8b at full width, TRAIN_LAYERS layers, bf16, PP_BATCH
-    sequences of TRAIN_SEQ: TRAIN_STEPS steps through the planner's
-    non-uniform pp plan, with exact launch counts (only the valid slots'
-    real layers run; each block forward twice under remat), the ICCL
-    tap's stage hops, and the step-0 loss against the reference loss on
-    the same sequences (forward only, one microbatch at a time)."""
+def _vpp_search(cfg):
+    """The planner's interleaved plan (vpp 2) on the train CLI's two-kind
+    cluster for PP_BATCH sequences of TRAIN_SEQ."""
+    from repro_torch.core import cluster as C
+    from repro_torch.core import planner
+    cluster = C.ClusterSpec(groups=(C.NodeGroup(C.AMD, 1, accel_per_node=1),
+                                    C.NodeGroup(C.GPU_A, 1,
+                                                accel_per_node=1)))
+    return planner.search(
+        cluster, cfg, global_batch=PP_BATCH, seq_len=TRAIN_SEQ,
+        pp_options=[PP_STAGES], tp_options=[1], micro_bs_options=[1, 2],
+        require_fit=False, include_tp_comm=False,
+        schedule="interleaved-1f1b", vpp_options=[2]).plan
+
+
+def phase_train_pp(torch, dev, smi: str, vpp: int = 1):
+    """llama3-8b at full width, bf16, PP_BATCH sequences of TRAIN_SEQ:
+    TRAIN_STEPS steps through the planner's non-uniform pp plan
+    (TRAIN_LAYERS layers; with ``vpp`` 2 its interleaved plan at
+    VPP_LAYERS), with exact launch counts (only the valid slots' real
+    layers run; each block forward twice under remat), the ICCL tap's
+    stage hops, and the step-0 loss against the reference loss on the
+    same sequences (forward only, one microbatch at a time)."""
     from repro_torch.iccl import communicator
     from repro_torch.kernels import ops
     from repro_torch.launch.train import search_plan
@@ -1315,12 +1370,16 @@ def phase_train_pp(torch, dev, smi: str):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    b = registry.get_bundle("llama3-8b", num_layers=TRAIN_LAYERS)
-    plan = search_plan(b.cfg, PP_STAGES, PP_BATCH, TRAIN_SEQ)
+    route = "pp" if vpp == 1 else "pp vpp"
+    layers = TRAIN_LAYERS if vpp == 1 else VPP_LAYERS
+    b = registry.get_bundle("llama3-8b", num_layers=layers)
+    plan = (search_plan(b.cfg, PP_STAGES, PP_BATCH, TRAIN_SEQ) if vpp == 1
+            else _vpp_search(b.cfg))
     vl, m = plan.virtual_layers, plan.micro_batches
-    log(f"[train] pp route plan (planner.search, the train CLI's two-kind "
-        f"cluster): {plan.describe()}, virtual layers {vl}, m {m}")
-    assert plan.pp == PP_STAGES and len(set(vl)) > 1, plan.describe()
+    log(f"[train] {route} route plan (planner.search, the train CLI's "
+        f"two-kind cluster): {plan.describe()}, virtual layers {vl}, m {m}")
+    assert plan.pp == PP_STAGES and plan.vpp == vpp, plan.describe()
+    assert len(set(vl)) > 1, plan.describe()
     t0 = time.perf_counter()
     t = Trainer(b, TrainerConfig(global_batch=PP_BATCH, seq_len=TRAIN_SEQ),
                 plan=plan, device=dev)
@@ -1336,7 +1395,7 @@ def phase_train_pp(torch, dev, smi: str):
                                  {k: v[j] for k, v in batch.items()})[0])
                   for j in range(m)) / m
     del batch
-    log(f"[train] pp route: llama3-8b {TRAIN_LAYERS} layers, "
+    log(f"[train] {route} route: llama3-8b {layers} layers, "
         f"{n_params / 1e9:.3f} B params, train state {state_gb:.2f} GB, "
         f"init {init_s:.1f} s; reference loss on step 0's {PP_BATCH} "
         f"sequences {ref}")
@@ -1358,12 +1417,12 @@ def phase_train_pp(torch, dev, smi: str):
     tok_s = PP_BATCH * TRAIN_SEQ * len(steady) / sum(steady)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     ticks = m + len(vl) - 1
-    log(f"[train] pp route losses {losses} step_s {step_s}")
-    log(f"[train] pp launches {launches} expected {expect}")
-    log(f"[train] pp route on {smi}: step s {step_s[0]:.4f} / "
+    log(f"[train] {route} route losses {losses} step_s {step_s}")
+    log(f"[train] {route} launches {launches} expected {expect}")
+    log(f"[train] {route} route on {smi}: step s {step_s[0]:.4f} / "
         f"{step_s[1]:.4f} / {step_s[2]:.4f}, tok/s (steps 1-2) {tok_s:.1f}, "
         f"peak {peak:.2f} GB")
-    log(f"[train] pp step-0 loss {losses[0]} vs reference {ref}: diff "
+    log(f"[train] {route} step-0 loss {losses[0]} vs reference {ref}: diff "
         f"{abs(losses[0] - ref):.3e} (tol {TRAIN_LOSS_TOL}); ICCL notes "
         f"{len(hops)} ({ticks} pp_shift a step expected)")
     assert all(map(math.isfinite, losses)), losses
@@ -1371,15 +1430,16 @@ def phase_train_pp(torch, dev, smi: str):
     assert abs(losses[0] - ref) < TRAIN_LOSS_TOL, (losses[0], ref)
     assert [h[0] for h in hops] == ["pp_shift"] * ticks * n, hops[:4]
     summary = {
-        "route": "pp", "layers": L, "seq": TRAIN_SEQ,
+        "route": route, "layers": L, "seq": TRAIN_SEQ,
         "global_batch": PP_BATCH, "params": n_params, "losses": losses,
         "reference_loss_step0": ref, "step_s": step_s, "tok_s_steady": tok_s,
         "init_s": init_s, "state_gb": state_gb, "peak_mem_gb": peak,
         "launches": launches, "expected_launches": expect,
         "iccl_notes_a_step": len(hops) // n, "plan": plan.describe(),
-        "virtual_layers": list(vl), "micro_batches": m,
+        "plan_dict": plan.to_dict(), "virtual_layers": list(vl),
+        "micro_batches": m,
     }
-    log(f"[train] pp report {json.dumps(summary)}")
+    log(f"[train] {route} report {json.dumps(summary)}")
     del t
     return summary, launches
 
@@ -1396,31 +1456,36 @@ def _rank_launches(n_layers: int, last: bool, m: int, steps: int) -> dict:
             "ring_step_bwd": steps * m * n_layers}
 
 
-def phase_train_pp_ranks(torch, dev, smi: str, pp: dict):
-    """The pp route's plan with each stage in its own process on this card:
-    PP_STAGES ranks from ``run_ranks`` over gloo, the plan's transport
-    replaced by "cpu" (NCCL cannot put two ranks on one device).  Checked
-    against the pp route's losses and launches; then the host-staged hop
-    alone, a ping-pong of one activation between the two ranks."""
+def phase_train_pp_ranks(torch, dev, smi: str, pp: dict,
+                         hop: bool = True):
+    """The plan of the pp route ``pp`` (its summary) with each stage in its
+    own process on this card: PP_STAGES ranks from ``run_ranks`` over
+    gloo, the plan's transport replaced by "cpu" (NCCL cannot put two
+    ranks on one device).  Checked against the pp route's losses and
+    launches; then, with ``hop``, the host-staged hop alone, a ping-pong
+    of one activation between the two ranks."""
+    from repro_torch.core.plan import ParallelPlan
     from repro_torch.core.simulator import peak_activation_microbatches
     from repro_torch.iccl.transports import default_registry
-    from repro_torch.launch.train import search_plan
     from repro_torch.models import registry
     from repro_torch.parallel import rank_programs
     from repro_torch.parallel.launch import run_ranks
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = registry.get_config("llama3-8b", num_layers=TRAIN_LAYERS)
-    found = search_plan(cfg, PP_STAGES, PP_BATCH, TRAIN_SEQ)
+    route = pp["route"].replace("pp", "pp_ranks", 1)
+    cfg = registry.get_config("llama3-8b", num_layers=pp["layers"])
+    found = ParallelPlan.from_dict(pp["plan_dict"])
     plan = dataclasses.replace(found, transport="cpu")
     vl, m, n = plan.virtual_layers, plan.micro_batches, TRAIN_STEPS
-    log(f"[train] pp_ranks plan: {found.describe()}, transport "
+    V = len(vl)
+    stage_layers = [sum(vl[s::PP_STAGES]) for s in range(PP_STAGES)]
+    log(f"[train] {route} plan: {found.describe()}, transport "
         f"{found.transport!r} replaced by 'cpu' (two ranks on one card)")
     t0 = time.perf_counter()
     res = run_ranks(rank_programs.pp_train, PP_STAGES, device=str(dev),
                     timeout_s=RANKS_TIMEOUT_S,
-                    args=(dict(arch="llama3-8b", num_layers=TRAIN_LAYERS),
+                    args=(dict(arch="llama3-8b", num_layers=pp["layers"]),
                           plan.to_dict(), n))
     wall = time.perf_counter() - t0
     losses = res[-1]["losses"]
@@ -1435,17 +1500,19 @@ def phase_train_pp_ranks(torch, dev, smi: str, pp: dict):
     others = sorted({tuple(h) for r in res for h in r["notes"]} - set(hops))
     launches = {k: sum(r["launches"][k] for r in res) for k in pp["launches"]}
     for r in res:
-        log(f"[train] pp_ranks rank {r['rank']} (stage {r['stage']}, "
+        log(f"[train] {route} rank {r['rank']} (stage {r['stage']}, "
             f"{r['n_params'] / 1e9:.3f} B params, state "
             f"{r['state_gb']:.2f} GB, init {r['init_s']:.1f} s): step s "
             f"{r['step_s']}, peak {r['peak_gb']:.2f} GB, in-flight peak "
-            f"{r['peak_inflight']}, launches {r['launches']}")
-    log(f"[train] pp_ranks losses {losses} vs pp route {pp['losses']}: "
-        f"diffs {diffs}; run_ranks wall {wall:.1f} s")
-    log(f"[train] pp_ranks on {smi}: step s {step_s[0]:.4f} / "
+            f"{r['peak_inflight']}, isend_irecv notes "
+            f"{sum(h[0] == 'isend_irecv' for h in r['notes'])}, launches "
+            f"{r['launches']}")
+    log(f"[train] {route} losses {losses} vs {pp['route']} route "
+        f"{pp['losses']}: diffs {diffs}; run_ranks wall {wall:.1f} s")
+    log(f"[train] {route} on {smi}: step s {step_s[0]:.4f} / "
         f"{step_s[1]:.4f} / {step_s[2]:.4f}, tok/s (steps 1-2) "
         f"{tok_s:.1f}, peak GB {[round(r['peak_gb'], 2) for r in res]}; "
-        f"isend_irecv notes {len(hops)} ({2 * m * (PP_STAGES - 1) * n} "
+        f"isend_irecv notes {len(hops)} ({2 * m * (V - 1) * n} "
         f"expected), other notes {others}")
     assert all(r["losses"] == losses for r in res), [r["losses"] for r in res]
     assert all(map(math.isfinite, losses)), losses
@@ -1454,13 +1521,37 @@ def phase_train_pp_ranks(torch, dev, smi: str, pp: dict):
     for r in res:
         s = r["stage"]
         want = dict.fromkeys(r["launches"], 0)
-        want.update(_rank_launches(vl[s], s == PP_STAGES - 1, m, n))
+        want.update(_rank_launches(stage_layers[s], s == PP_STAGES - 1, m,
+                                   n))
         assert r["launches"] == want, (s, r["launches"], want)
         assert r["peak_inflight"] == peak_activation_microbatches(
-            s, PP_STAGES, m, plan.schedule, plan.eager_slack), r
+            s, PP_STAGES, m, plan.schedule, plan.eager_slack,
+            vpp=plan.vpp), r
+        # a hop a microbatch out of each virtual stage but the last, and a
+        # gradient back out of each but the first, noted by the sender
+        sends = m * sum((vs < V - 1) + (vs > 0)
+                        for vs in range(s, V, PP_STAGES))
+        assert sum(h[0] == "isend_irecv" for h in r["notes"]) == sends * n
     assert launches == pp["launches"], (launches, pp["launches"])
     assert [tuple(h) for h in hops] == \
-        [("isend_irecv", "cpu", hop_bytes)] * (2 * m * (PP_STAGES - 1) * n)
+        [("isend_irecv", "cpu", hop_bytes)] * (2 * m * (V - 1) * n)
+    summary = {
+        "route": route, "plan": found.describe(), "transport": "cpu",
+        "ranks": PP_STAGES, "losses": losses, "pp_losses": pp["losses"],
+        "loss_diffs": diffs, "step_s": step_s, "tok_s_steady": tok_s,
+        "rank_step_s": [r["step_s"] for r in res],
+        "rank_peak_gb": [r["peak_gb"] for r in res],
+        "rank_state_gb": [r["state_gb"] for r in res],
+        "rank_params": [r["n_params"] for r in res],
+        "rank_launches": [r["launches"] for r in res], "launches": launches,
+        "peak_inflight": [r["peak_inflight"] for r in res],
+        "order": [r["order"] for r in res],
+        "isend_irecv_notes_a_step": len(hops) // n, "hop_bytes": hop_bytes,
+        "run_ranks_wall_s": wall,
+    }
+    if not hop:
+        log(f"[train] {route} report {json.dumps(summary)}")
+        return summary, launches
 
     t0 = time.perf_counter()
     timed = run_ranks(rank_programs.hop_times, 2, device=str(dev),
@@ -1478,22 +1569,9 @@ def phase_train_pp_ranks(torch, dev, smi: str, pp: dict):
         f"{price * 1e3:.3f} ms; bit for bit {timed[0]['exact']}; "
         f"{time.perf_counter() - t0:.1f} s")
     assert timed[0]["exact"] and timed[0]["nbytes"] == hop_bytes
-    summary = {
-        "route": "pp_ranks", "plan": found.describe(), "transport": "cpu",
-        "ranks": PP_STAGES, "losses": losses, "pp_losses": pp["losses"],
-        "loss_diffs": diffs, "step_s": step_s, "tok_s_steady": tok_s,
-        "rank_step_s": [r["step_s"] for r in res],
-        "rank_peak_gb": [r["peak_gb"] for r in res],
-        "rank_state_gb": [r["state_gb"] for r in res],
-        "rank_params": [r["n_params"] for r in res],
-        "rank_launches": [r["launches"] for r in res], "launches": launches,
-        "peak_inflight": [r["peak_inflight"] for r in res],
-        "order": [r["order"] for r in res],
-        "isend_irecv_notes_a_step": len(hops) // n, "hop_bytes": hop_bytes,
-        "hop_s": hop_s, "hop_mean_s": mean, "hop_gbps": hop_bytes / mean / 1e9,
-        "cpu_staged_p2p_s": price, "run_ranks_wall_s": wall,
-    }
-    log(f"[train] pp_ranks report {json.dumps(summary)}")
+    summary.update(hop_s=hop_s, hop_mean_s=mean,
+                   hop_gbps=hop_bytes / mean / 1e9, cpu_staged_p2p_s=price)
+    log(f"[train] {route} report {json.dumps(summary)}")
     return summary, launches
 
 
@@ -1603,6 +1681,116 @@ def phase_train_tp_ranks(torch, dev, smi: str, ref: dict):
         "allreduce_mean_s": mean, "run_ranks_wall_s": wall,
     }
     log(f"[train] tp_ranks report {json.dumps(summary)}")
+    return summary, launches
+
+
+def phase_train_dp_ranks(torch, dev, smi: str, ref: dict):
+    """The reference cell at DP_RANKS sequences as a pp 1 plan of DP_RANKS
+    replicas, one sequence each, in as many processes on this card
+    (transport "cpu": NCCL cannot put two ranks on one device), ZeRO-1
+    over ``data``.  Checked against ``ref``, the reference route at the
+    same global batch, batches and seed: losses, launches, the ICCL notes
+    and each rank's optimizer bytes."""
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    L, n, dp = TRAIN_LAYERS, TRAIN_STEPS, DP_RANKS
+    plan = ParallelPlan(
+        stages=(StagePlacement(0, L, dp, 1, True),), micro_bs=1,
+        global_batch=dp, seq_len=TRAIN_SEQ, transport="cpu")
+    log(f"[train] dp_ranks plan: {plan.describe()}, transport 'cpu' (two "
+        f"replicas on one card), ZeRO-1 over data")
+    t0 = time.perf_counter()
+    res = run_ranks(rank_programs.pp_train, dp, device=str(dev),
+                    timeout_s=RANKS_TIMEOUT_S,
+                    args=(dict(arch="llama3-8b", num_layers=L),
+                          plan.to_dict(), n, None, True))
+    wall = time.perf_counter() - t0
+    losses = res[0]["losses"]
+    norms = res[0]["grad_norms"]
+    norm_err = [abs(a - b) / b for a, b in zip(norms, ref["grad_norms"])]
+    # each leaf's master move, the replicas' slices together, against the
+    # whole leaf's: the worst leaf's relative difference a step
+    move_err = [max(abs(math.sqrt(sum(r["master_moves"][i][k] for r in res))
+                        - math.sqrt(want)) / math.sqrt(want)
+                    for k, want in enumerate(ref["master_moves"][i]))
+                for i in range(n)]
+    step_s = [max(r["step_s"][i] for r in res) for i in range(n)]
+    steady = step_s[1:]
+    tok_s = dp * TRAIN_SEQ * len(steady) / sum(steady)
+    diffs = [abs(a - b) for a, b in zip(losses, ref["losses"])]
+    launches = {k: sum(r["launches"][k] for r in res) for k in ref["launches"]}
+    for r in res:
+        log(f"[train] dp_ranks rank {r['rank']} (replica {r['replica']}, "
+            f"{r['n_params'] / 1e9:.3f} B params: {r['param_bytes'] / 1e9:.3f}"
+            f" GB of parameters, {r['opt_bytes'] / 1e9:.3f} GB of "
+            f"{'/'.join(r['opt_trees'])} ({r['opt_whole_bytes'] / 1e9:.3f} "
+            f"GB of it in leaves kept whole, "
+            f"{4 * r['n_params'] * len(r['opt_trees']) / 1e9:.3f} GB "
+            f"unsplit), {r['n_zero_split']} of {r['n_leaves']} leaves "
+            f"split; state {r['state_gb']:.2f} GB, init {r['init_s']:.1f} "
+            f"s): step s {r['step_s']}, peak {r['peak_gb']:.2f} GB, "
+            f"launches {r['launches']}")
+    notes = [[tuple(x) for x in r["notes"]] for r in res]
+    count = [{op: sum(x[0] == op for x in ns)
+              for op in ("iallreduce", "iallgather")} for ns in notes]
+    others = sorted({x for ns in notes for x in ns
+                     if x[0] not in ("iallreduce", "iallgather")})
+    log(f"[train] dp_ranks losses {losses} vs reference b{dp} "
+        f"{ref['losses']}: diffs {diffs} (step 0 {diffs[0]:.3e}); run_ranks "
+        f"wall {wall:.1f} s")
+    log(f"[train] dp_ranks on {smi}: step s {step_s[0]:.4f} / "
+        f"{step_s[1]:.4f} / {step_s[2]:.4f}, tok/s (steps 1-2) {tok_s:.1f}, "
+        f"peak GB {[round(r['peak_gb'], 2) for r in res]}; notes a rank "
+        f"{count}, other notes {others}")
+    log(f"[train] dp_ranks grad norms {norms} vs reference b{dp} "
+        f"{ref['grad_norms']}: relative {norm_err}; the worst leaf's master "
+        f"move a step, relative to reference b{dp}'s: {move_err} (tol "
+        f"{DP_NORM_TOL}); replicas equal bit for bit: "
+        f"{[r['replicas_equal'] for r in res]}")
+    assert all(r["losses"] == losses for r in res), [r["losses"] for r in res]
+    assert all(r["grad_norms"] == norms for r in res), \
+        [r["grad_norms"] for r in res]
+    assert all(r["replicas_equal"] for r in res), \
+        [r["replicas_equal"] for r in res]
+    assert max(norm_err) < DP_NORM_TOL, (norms, ref["grad_norms"])
+    assert max(move_err) < DP_NORM_TOL, move_err
+    assert all(map(math.isfinite, losses)), losses
+    assert max(diffs) < TRAIN_LOSS_TOL, (losses, ref["losses"])
+    for r, c in zip(res, count):
+        # each replica runs the reference route's kernels on its sequence
+        assert r["launches"] == ref["launches"], (r["launches"],
+                                                   ref["launches"])
+        # a gradient all-reduce a leaf and the loss's; a parameter
+        # all-gather a ZeRO-1 split leaf
+        assert c == {"iallreduce": (r["n_leaves"] + 1) * n,
+                     "iallgather": r["n_zero_split"] * n}, c
+        # ZeRO-1: of the fp32 master, m and v (4 bytes a parameter each)
+        # each replica holds 1/dp of every split leaf
+        whole = 4 * r["n_params"] * len(r["opt_trees"])
+        assert r["opt_bytes"] - r["opt_whole_bytes"] == \
+            (whole - r["opt_whole_bytes"]) // dp, r
+    assert not others, others
+    summary = {
+        "route": "dp_ranks", "plan": plan.describe(), "transport": "cpu",
+        "ranks": dp, "losses": losses, "reference_losses": ref["losses"],
+        "loss_diffs": diffs, "grad_norm_rel_diffs": norm_err,
+        "worst_master_move_rel_diffs": move_err,
+        "step_s": step_s, "tok_s_steady": tok_s,
+        "rank_step_s": [r["step_s"] for r in res],
+        "rank_peak_gb": [r["peak_gb"] for r in res],
+        "rank_state_gb": [r["state_gb"] for r in res],
+        "rank_param_bytes": [r["param_bytes"] for r in res],
+        "rank_opt_bytes": [r["opt_bytes"] for r in res],
+        "rank_opt_whole_bytes": [r["opt_whole_bytes"] for r in res],
+        "rank_launches": [r["launches"] for r in res], "launches": launches,
+        "notes_a_step": {k: v // n for k, v in count[0].items()},
+        "run_ranks_wall_s": wall,
+    }
+    log(f"[train] dp_ranks report {json.dumps(summary)}")
     return summary, launches
 
 
@@ -1836,6 +2024,21 @@ def main(argv=None) -> int:
         launches[kname] += n
     train["tp_ranks"], counts = phase_train_tp_ranks(torch, dev, smi,
                                                      train["reference"])
+    for kname, n in counts.items():
+        launches[kname] += n
+    train["pp vpp"], counts = phase_train_pp(torch, dev, smi, vpp=2)
+    for kname, n in counts.items():
+        launches[kname] += n
+    train["pp_ranks vpp"], counts = phase_train_pp_ranks(
+        torch, dev, smi, train["pp vpp"], hop=False)
+    for kname, n in counts.items():
+        launches[kname] += n
+    train[f"reference b{DP_RANKS}"], counts = phase_train(
+        torch, dev, "reference", global_batch=DP_RANKS, moves=True)
+    for kname, n in counts.items():
+        launches[kname] += n
+    train["dp_ranks"], counts = phase_train_dp_ranks(
+        torch, dev, smi, train[f"reference b{DP_RANKS}"])
     for kname, n in counts.items():
         launches[kname] += n
     l_cp, l_ref = train["cp"]["losses"][0], train["reference"]["losses"][0]

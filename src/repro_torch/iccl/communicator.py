@@ -123,40 +123,6 @@ def axis_group(axis: str) -> AxisGroup:
 
 
 # ------------------------------------------------------ the communicator --
-class P2PWork:
-    """A posted ``isend_irecv``.  ``result()`` waits for the receive and
-    returns the received tensor (zeros on a rank that receives nothing);
-    ``wait()`` also waits for the send, whose buffer it holds until then."""
-
-    def __init__(self, works: List[Any], n_ops: int,
-                 recv: Optional[torch.Tensor],
-                 finish: Callable[[Optional[torch.Tensor]], torch.Tensor],
-                 keep: Optional[torch.Tensor]):
-        self._works, self._n_ops = works, n_ops
-        self._recv, self._finish, self._keep = recv, finish, keep
-        self._out: Optional[torch.Tensor] = None
-
-    def result(self) -> torch.Tensor:
-        if self._out is None:
-            # gloo gives one work an op (the receive posted first); NCCL may
-            # coalesce them into one, and its wait only orders the stream.
-            # A gloo work must not be waited on twice: it would block.
-            n = (1 if len(self._works) == self._n_ops
-                 and self._recv is not None else len(self._works))
-            for w in self._works[:n]:
-                w.wait()
-            self._works = self._works[n:]
-            self._out = self._finish(self._recv)
-        return self._out
-
-    def wait(self) -> torch.Tensor:
-        out = self.result()
-        for w in self._works:
-            w.wait()
-        self._works, self._keep = [], None
-        return out
-
-
 @dataclasses.dataclass(frozen=True)
 class Communicator:
     """Axis-routed collectives over ``torch.distributed`` (see the module
@@ -273,47 +239,68 @@ class Communicator:
             out.copy_(blocks)
         return torch.cat(self._from_wire(out, x).unbind(0), concat_axis)
 
-    def isend_irecv_async(self, x: torch.Tensor,
-                          perm: Sequence[Tuple[int, int]]) -> P2PWork:
-        """Post the pairs of ``perm`` (axis indices ``(src, dst)``) that
-        this rank is in: at most one send of ``x`` and one receive of a
-        tensor shaped like ``x``."""
+    def _isend_irecv_batch(self, ops: Sequence[Tuple[str, int, torch.Tensor]],
+                           later: Optional[List[Any]] = None
+                           ) -> List[torch.Tensor]:
+        """Point-to-point ops of this rank posted in one
+        ``dist.batch_isend_irecv``, in their order: ``("send", dst, x)``
+        and ``("recv", src, like)`` (axis indices, never this rank's).
+        Returns the received tensors in order once they have arrived; two
+        messages between one pair of ranks match in posting order.  The
+        sends are waited for too, unless ``later`` is given: their (work,
+        buffer) pairs go there, for the caller to wait on (NCCL gives one
+        work a batch, whose wait only orders the stream: it is waited on
+        here).  Each send is noted as one ``isend_irecv`` hop."""
         ax = axis_group(self.axis)
-        me = self._me(ax)
+        posted, recvs = [], []
+        for op, peer, x in ops:
+            y, orig = self._pack(x)
+            staged = self._staged(y)
+            if op == "send":
+                _note("isend_irecv", self.transport, x)
+                buf = self._to_wire(y, staged)
+            else:
+                buf = self._empty(y.shape, y, staged)
+                recvs.append((buf, y, orig))
+            posted.append(dist.P2POp(dist.isend if op == "send"
+                                     else dist.irecv, buf, ax.ranks[peer],
+                                     ax.group))
+        works = dist.batch_isend_irecv(posted) if posted else []
+        if later is not None and len(works) == len(ops):
+            # gloo gives one work an op, each waited on once (a second wait
+            # would block): a send's here or, with its buffer, by the caller
+            for w, p in zip(works, posted):
+                if p.op is dist.isend:
+                    later.append((w, p.tensor))
+                else:
+                    w.wait()
+        else:
+            for w in works:
+                w.wait()
+        return [self._unpack(self._from_wire(b, y), orig)
+                for b, y, orig in recvs]
+
+    def isend_irecv(self, x: torch.Tensor,
+                    perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """P2P ring/pipeline transfer (paper's iSend/iReceive primitive):
+        ``ppermute`` of ``x`` over ``perm`` (axis indices ``(src, dst)``).
+        This rank posts the pairs it is in, at most one receive and one
+        send of ``x``, and gets zeros when it receives nothing."""
+        me = self.index()
         dsts = [d for s, d in perm if s == me]
         srcs = [s for s, d in perm if d == me]
         if len(dsts) > 1 or len(srcs) > 1:
             raise ValueError(f"perm {list(perm)} sends or receives twice at "
                              f"index {me}")
-        if dsts:
+        if dsts == [me]:        # a pair (i, i) keeps x: noted as its hop
             _note("isend_irecv", self.transport, x)
-        y, orig = self._pack(x)
-        staged = self._staged(y)
-        ops, recv, send = [], None, None
-        if srcs and srcs[0] != me:
-            recv = self._empty(y.shape, y, staged)
-            ops.append(dist.P2POp(dist.irecv, recv, ax.ranks[srcs[0]],
-                                  ax.group))
-        if dsts and dsts[0] != me:
-            send = self._to_wire(y, staged)
-            ops.append(dist.P2POp(dist.isend, send, ax.ranks[dsts[0]],
-                                  ax.group))
-        if srcs and srcs[0] == me:          # a pair (i, i) keeps x
-            recv = y.clone()
-
-        def finish(r):
-            if r is None:
-                return self._unpack(torch.zeros_like(y), orig)
-            return self._unpack(self._from_wire(r, y), orig)
-
-        works = dist.batch_isend_irecv(ops) if ops else []
-        return P2PWork(works, len(ops), recv, finish, send)
-
-    def isend_irecv(self, x: torch.Tensor,
-                    perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
-        """P2P ring/pipeline transfer (paper's iSend/iReceive primitive):
-        ``ppermute`` of ``x`` over ``perm``."""
-        return self.isend_irecv_async(x, perm).wait()
+        got = self._isend_irecv_batch(
+            [("recv", s, x) for s in srcs if s != me]
+            + [("send", d, x) for d in dsts if d != me])
+        if got:
+            return got[0]
+        return self._unpack(*self._pack(x.clone() if srcs
+                                        else torch.zeros_like(x)))
 
     def shift(self, x: torch.Tensor, offset: int = 1,
               wrap: bool = False) -> torch.Tensor:

@@ -8,6 +8,8 @@
         --seq 4096 --global-batch 4 --pp 2
     PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
         -m repro_torch.launch.train --smoke --device cpu --pp 2
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --smoke --device cpu
 
 Trains ``--arch`` (random weights from seed 0) on the synthetic token
 pipeline with AdamW (``--lr``, 20 warmup steps, as the JAX CLI) on
@@ -16,19 +18,24 @@ the reference loss.  ``--pp N`` asks the planner for an N-stage plan on
 the JAX CLI's two-kind cluster (one AMD and one GPU-A accelerator; tp 1,
 micro_bs 1 or 2), prints it as ``[train] plan: ...`` and trains through
 its pipeline on this one device.  Under ``torchrun`` (``WORLD_SIZE`` > 1)
-each process is one rank of the same plan, ``WORLD_SIZE = pp * dp``: it
-joins the process group (gloo, with NCCL beside it when the plan's
-transport is ``gpu`` on the cards), runs on ``cuda:LOCAL_RANK %
-device_count`` (or the CPU with ``--device cpu``) and holds its stage of
-its replica; the stages hop over the plan's transport.  The search still
-places dp 1 a stage; with dp > 1 each stage is widened to dp replicas of
-the same microbatch size (the search over dp is ROADMAP.md queue A, item
-A5c).  The cp ring is reached, as in the JAX package, through
-``Trainer(plan=...)``.  Rank 0 prints ``[train] step=.. loss=.. tok/s=..``
-every ``LOG_EVERY`` steps and, last, a JSON summary (with every rank's
-peak memory under torchrun).  Left for ROADMAP A6: ``--degrade``,
-``--adapt``, ``--lose``/``--join``, telemetry, checkpoints and
-observability.
+each process is one rank: it joins the process group (gloo, with NCCL
+beside it when the transport is a card's on the cards), runs on
+``cuda:LOCAL_RANK % device_count`` (or the CPU with ``--device cpu``)
+and holds its part of the state, at dp > 1 only its replica's ZeRO-1
+slice of the AdamW moments and master.  Without ``--pp`` the processes
+are ``WORLD_SIZE`` data-parallel replicas of the reference loss, each on
+its rows of the batch, the JAX CLI's plain route over a ``("data",
+"model")`` mesh of ``(n_dev, 1)`` (transport ``gpu``); with ``--pp`` they
+hold the plan's stages (the interleaved plans included) times dp =
+``WORLD_SIZE / pp`` replicas, the stages hopping over the plan's
+transport.  The search's cluster has one accelerator of each kind, so its
+plan places dp 1 a stage; with dp > 1 each stage is widened to dp
+replicas of the same microbatch size.  The cp ring is reached, as in the
+JAX package, through ``Trainer(plan=...)``.  Rank 0 prints ``[train]
+step=.. loss=.. tok/s=..`` every ``LOG_EVERY`` steps and, last, a JSON
+summary (with its step times, and every rank's losses and peak memory
+under torchrun).  Left for ROADMAP A6: ``--degrade``, ``--adapt``,
+``--lose``/``--join``, telemetry, checkpoints and observability.
 """
 from __future__ import annotations
 
@@ -46,7 +53,8 @@ from repro_torch.core import planner
 from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.optim.adamw import AdamWConfig, tree_leaves
-from repro_torch.train.trainer import Trainer, TrainerConfig
+from repro_torch.train.trainer import (PLAIN_TRANSPORT, Trainer,
+                                       TrainerConfig)
 from repro_torch.utils.device import resolve_device
 
 LOG_EVERY = 10
@@ -85,9 +93,12 @@ def main(argv=None):
     dev = resolve_device(args.device)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1:
-        if not args.pp or world % args.pp:
+        if args.pp and world % args.pp:
             ap.error(f"under torchrun WORLD_SIZE {world} must be a multiple "
                      f"of --pp (got {args.pp})")
+        if not args.pp and args.global_batch % world:
+            ap.error(f"--global-batch {args.global_batch} does not split "
+                     f"over WORLD_SIZE {world} replicas")
         if dev.type == "cuda":
             dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
                                % torch.cuda.device_count())
@@ -105,8 +116,9 @@ def main(argv=None):
                 ap.error(f"--global-batch {args.global_batch} does not "
                          f"split into dp {dp} x micro_bs {plan.micro_bs}")
     if world > 1:
+        transport = plan.transport if plan is not None else PLAIN_TRANSPORT
         dist.init_process_group(
-            "gloo" if dev.type == "cpu" or plan.transport == "cpu"
+            "gloo" if dev.type == "cpu" or transport == "cpu"
             else "cpu:gloo,cuda:nccl")
     try:
         _train(args, bundle, plan, dev, world)
@@ -127,17 +139,20 @@ def _train(args, bundle, plan, dev, world: int) -> None:
                 plan=plan, opt_cfg=AdamWConfig(lr=args.lr, warmup_steps=20),
                 device=dev)
     if world > 1 and t.grid is None:
-        raise RuntimeError(f"plan {plan.describe()} does not run on ranks")
+        raise RuntimeError("this process is not one rank of the run")
+    rplan = t.train_step.plan if t.grid is not None else plan
     n_params = sum(x.numel() for x in tree_leaves(t.state["params"]))
     log(f"[train] arch={bundle.cfg.name} params={n_params / 1e6:.1f}M "
         f"device={dev} start_step={t.step}"
         + (f" rank 0 of {world}" if world > 1 else ""), flush=True)
     ops.reset_launch_counts()
     t0 = time.time()
-    done, losses = 0, []
+    done, losses, step_s = 0, [], []
     while done < args.steps:
         chunk = min(LOG_EVERY, args.steps - done)
-        losses += t.run(chunk)["losses"]
+        out = t.run(chunk)
+        losses += out["losses"]
+        step_s += out["step_s"]
         done += chunk
         tok_s = done * args.global_batch * args.seq / (time.time() - t0)
         log(f"[train] step={t.step} loss={losses[-1]:.4f} "
@@ -145,10 +160,11 @@ def _train(args, bundle, plan, dev, world: int) -> None:
     tok_s = done * args.global_batch * args.seq / (time.time() - t0)
     peak = (torch.cuda.max_memory_allocated(dev) / 1e9
             if dev.type == "cuda" else None)
-    peaks = [peak]
+    peaks, rank_losses = [peak], [losses]
     if world > 1:
-        peaks = [None] * world
+        peaks, rank_losses = [None] * world, [None] * world
         dist.all_gather_object(peaks, peak)
+        dist.all_gather_object(rank_losses, losses)
     summary = {
         "final_loss": losses[-1], "steps": t.step,
         "params_m": round(n_params / 1e6, 1), "device": str(dev),
@@ -160,9 +176,10 @@ def _train(args, bundle, plan, dev, world: int) -> None:
         "pp": plan.pp if plan else None,
         "virtual_layers": list(plan.virtual_layers) if plan else None,
         "micro_batches": plan.micro_batches if plan else None,
-        "world": world, "dp": plan.dps[0] if plan else 1,
-        "transport": plan.transport if plan else None,
-        "rank_peak_mem_gb": peaks,
+        "world": world, "dp": rplan.dps[0] if rplan else 1,
+        "transport": rplan.transport if rplan else None,
+        "rank_peak_mem_gb": peaks, "rank_losses": rank_losses,
+        "step_s": step_s,
     }
     log(json.dumps(summary))
 

@@ -82,11 +82,15 @@ def layer(blocks: dict, i: int) -> dict:
 # (``parallel/sharding.py``); None leaves every path as it is.
 def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
            model: Optional[Communicator] = None) -> torch.Tensor:
+    """The rows of ``tokens``.  A lookup, not indexing: on the card its
+    gradient sums a token's positions in fp32 and rounds once, where
+    indexing's adds them one at a time into the bf16 gradient, which
+    loses a frequent token's later terms."""
     table = params["embed"]
     tokens = torch.as_tensor(tokens, device=table.device)
     if model is not None and table.shape[0] != cfg.vocab_size:
         return tensor.vocab_parallel_embed(table, tokens, cfg.adtype, model)
-    return table[tokens.long()].to(cfg.adtype)
+    return torch.nn.functional.embedding(tokens.long(), table).to(cfg.adtype)
 
 
 def _unembed_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:

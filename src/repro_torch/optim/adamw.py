@@ -89,7 +89,8 @@ def model_sq_norm(grads: Any, split: Any, model) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
-                 cfg: AdamWConfig, grad_norm: Optional[torch.Tensor] = None):
+                 cfg: AdamWConfig, grad_norm: Optional[torch.Tensor] = None,
+                 data=None, zero: Any = None):
     """Returns (new_params, new_state, metrics) as the JAX function does,
     but updates IN PLACE: the returned trees hold the tensors of
     ``params`` and ``state``, so the update needs no second copy of the
@@ -97,7 +98,16 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
     as the JAX expression it replaces.  ``grad_norm`` is the global norm
     for clipping when ``grads`` hold only part of the model (a pipeline
     rank's stage, its norm summed over the stages' ranks); None takes it
-    from ``grads``."""
+    from ``grads``.
+
+    ZeRO-1: with ``data`` (a ``Communicator`` over the replicas) and
+    ``zero`` (``sharding.zero_dims`` of ``params``), ``state``'s m, v and
+    master hold this replica's slice of each leaf whose dim is not None.
+    The replica updates only that slice, from the same slice of the
+    (whole, averaged) gradient, writes it into its view of the parameter
+    and all-gathers the slices over ``data`` into the whole parameter.
+    The arithmetic is elementwise, so the result is the unsharded
+    update's bit for bit."""
     count = state["count"] + 1
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -105,17 +115,28 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
     cf = count.float()
     bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, device=cf.device), cf)
     bc2 = 1.0 - torch.pow(torch.tensor(cfg.b2, device=cf.device), cf)
-    masters = state.get("master", params)
+    keep_master = "master" in state
+    if zero is None or data is None:
+        zero = tree_map(lambda _: None, params)
 
-    def upd(p, g, m, v, master):
+    def upd(p, g, m, v, master, d):
+        mine = p
+        if d is not None:   # this replica's slice: views of p and g
+            i, n = data.index(), data.size()
+            mine, g = p.chunk(n, d)[i], g.chunk(n, d)[i]
+        if not keep_master:
+            master = mine
         g = g.float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
         step = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         master.sub_(lr * (step + cfg.weight_decay * master))
-        if master is not p:
-            p.copy_(master)
+        if master is not mine:
+            mine.copy_(master)
+        if d is not None:
+            p.copy_(data.iallgather(mine, axis=d))
 
-    tree_map(upd, params, grads, state["m"], state["v"], masters)
+    tree_map(upd, params, grads, state["m"], state["v"],
+             state["master"] if keep_master else params, zero)
     state["count"] = count
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -11,8 +11,10 @@ sit next to each other, as on one node.  ``make_rank_grid`` makes one
 replica of one stage), each pod column (the stages of one replica at one
 model rank) and each data row (the replicas of one stage at one model
 rank), and binds this rank's three to the axis names for
-``iccl.communicator.Communicator``.  Left for ROADMAP.md queue A, item
-A5c: stages of mixed tp widths (the ``pp_reshard`` boundary).
+``iccl.communicator.Communicator``.  ``data`` carries the replicas'
+gradient all-reduce and, under ZeRO-1, the all-gather of the parameter
+slices each replica updated.  Left for ROADMAP.md queue A, item A5c (d):
+stages of mixed tp widths (the ``pp_reshard`` boundary).
 """
 from __future__ import annotations
 

@@ -31,28 +31,33 @@ between the canonical layout and the JAX package's stacked pp layout
 
 The rank route runs the same plans with each stage in its own processes
 (``PPRankStep``): rank ``(stage, replica, model_rank)`` of
-``groups.RankGrid`` holds only its stage's contiguous layers, plus the
-embedding on stage 0 and the final norm and unembedding on the last, and
-of each its model rank's share under the sharding rules
+``groups.RankGrid`` holds only its stage's layers (under vpp > 1 its
+chunks, virtual stages s, s + pp, ..., stacked in virtual order), plus
+the embedding on stage 0 and the final norm and unembedding on the last,
+and of each its model rank's share under the sharding rules
 (``parallel/sharding.py``; ``split_state_for_rank``, ``init_rank_state``).
-It runs its stage's static share of the plan's schedule: ``cap``
-forwards, then one backward and one forward in turn, then the remaining
-backwards, ``cap`` the simulator's in-flight peak
-(``core/simulator.peak_activation_microbatches``).  Activations go to the
-next stage and their gradients back through the ``pod`` axis's
-``Communicator`` on the plan's transport, model rank r of one stage to
-model rank r of the next (the activation is whole on every model rank);
-each replica takes its rows of every microbatch, and gradients are
+At dp > 1 its AdamW moments and fp32 master are its replica's ZeRO-1
+slice of that share.  It runs its stage's static share of the plan's
+schedule: ``cap`` forwards, then one backward and one forward in turn,
+then the remaining backwards, ``cap`` the simulator's in-flight peak
+(``core/simulator.peak_activation_microbatches``); under
+``interleaved-1f1b``, Megatron's units (``interleaved_units``).
+Activations go to the next virtual stage and their gradients back through
+the ``pod`` axis's ``Communicator`` on the plan's transport, model rank r
+of one stage to model rank r of the next (the activation is whole on
+every model rank); the wrap from the last stage to stage 0's next chunk
+too.  Each replica takes its rows of every microbatch, and gradients are
 averaged over ``data``.  Within a stage the tp ranks split every dense
 block Megatron-style over the ``model`` axis (``parallel/tensor.py``).  A
 pp = 1 plan runs the same way with one stage and no hops: the reference
-loss, tensor-parallel.
+loss, data- and tensor-parallel.
 
 Scope: the uniform dense (attention) stack.  Mamba training waits for the
 scan's backward kernel (ROADMAP.md queue A, item 9).  On one card, stage
-tp and activation sharding are bookkeeping; on ranks, interleaved
-schedules, stages of mixed tp widths (the ``pp_reshard`` boundary) and
-tied embeddings wait for ROADMAP.md queue A, item A5c.
+tp and activation sharding are bookkeeping; on ranks, stages of mixed tp
+widths (the ``pp_reshard`` boundary) and tied embeddings wait for
+ROADMAP.md queue A, item A5c, which also records why interleaved plans
+with m > pp and m % pp != 0 stay refused there.
 """
 from __future__ import annotations
 
@@ -63,8 +68,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.plan import ParallelPlan
-from repro_torch.core.simulator import peak_activation_microbatches
-from repro_torch.iccl.communicator import Communicator, P2PWork, _note
+from repro_torch.core.simulator import (interleaved_streams,
+                                        peak_activation_microbatches)
+from repro_torch.iccl.communicator import Communicator, _note
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.registry import bundle_for
@@ -74,7 +80,9 @@ from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.parallel.groups import RankGrid
 from repro_torch.parallel.sharding import (ShardingRules, gather_trees,
-                                           map_with_path, shard_tree)
+                                           map_with_path, shard_tree,
+                                           zero_dims, zero_gather_trees,
+                                           zero_shard_tree)
 from repro_torch.train.steps import (LossFn, cross_entropy, make_loss_fn,
                                      with_aux)
 
@@ -256,11 +264,17 @@ A5C = "ROADMAP.md queue A, item A5c"
 
 def check_rank_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
     """Raise ValueError when ``plan`` falls outside the rank route's scope:
-    a plan of the dense stack, vpp 1, one tp width and one dp width."""
+    a plan of the dense stack, one tp width and one dp width, and under
+    ``interleaved-1f1b`` with vpp > 1 a microbatch count that Megatron's
+    order matches every message of (m <= pp, or m a multiple of pp)."""
     check_pp_supported(cfg)
-    if plan.vpp > 1 or plan.schedule == "interleaved-1f1b":
-        raise ValueError(f"{plan.schedule} with vpp={plan.vpp} on ranks "
-                         f"waits for {A5C}")
+    m, pp = plan.micro_batches, plan.pp
+    if plan.vpp > 1 and m > pp and m % pp:
+        raise ValueError(
+            f"interleaved-1f1b with vpp={plan.vpp} on ranks: Megatron's "
+            f"order pairs every hop with its receive only for m <= pp or m "
+            f"a multiple of pp (m={m}, pp={pp}); ragged m stays refused "
+            f"({A5C})")
     if len(set(plan.tps)) > 1:
         raise ValueError(f"stage tp {plan.tps} on ranks: stages of mixed "
                          f"tp widths need the pp_reshard boundary, which "
@@ -280,37 +294,66 @@ def check_rank_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
 LayersLike = Union[ParallelPlan, Sequence[int]]
 
 
-def _stage_layers(plan_or_layers: LayersLike) -> List[int]:
+def _layout(plan_or_layers: LayersLike) -> Tuple[List[int], int, int]:
+    """(virtual layers, vpp, dp): a plan's own; a list of stage layer
+    counts is vpp 1 and dp 1."""
     if isinstance(plan_or_layers, ParallelPlan):
-        return list(plan_or_layers.virtual_layers)
-    return [int(n) for n in plan_or_layers]
+        p = plan_or_layers
+        return list(p.virtual_layers), p.vpp, p.dps[0]
+    return [int(n) for n in plan_or_layers], 1, 1
 
 
-def stage_tree(tree: Dict[str, Any], layers: Sequence[int],
-               stage: int) -> Dict[str, Any]:
-    """Stage ``stage``'s part of a canonical tree, cloned: its contiguous
-    layers of the block stacks, the embedding on stage 0, and the rest
-    (the final norm, the unembedding) on the last stage."""
-    start, n = sum(layers[:stage]), layers[stage]
-    first, last = stage == 0, stage == len(layers) - 1
+def _chunks(layers: Sequence[int], stage: int,
+            vpp: int) -> List[Tuple[int, int]]:
+    """(first layer, layer count) of each chunk of stage ``stage``: virtual
+    stages stage, stage + pp, ..., in virtual order."""
+    pp = len(layers) // vpp
+    return [(sum(layers[:vs]), layers[vs])
+            for vs in range(stage, len(layers), pp)]
+
+
+def stage_tree(tree: Dict[str, Any], layers: Sequence[int], stage: int,
+               vpp: int = 1) -> Dict[str, Any]:
+    """Stage ``stage``'s part of a canonical tree, copied: the layers of
+    its chunks (``layers`` per virtual stage; under vpp > 1 chunk c is
+    virtual stage ``c * pp + stage``), stacked in virtual order, the
+    embedding on stage 0, and the rest (the final norm, the unembedding)
+    on the last stage."""
+    chunks = _chunks(layers, stage, vpp)
+    first, last = stage == 0, stage == len(layers) // vpp - 1
     out: Dict[str, Any] = {}
     for k, v in tree.items():
         if k == "blocks":
-            out[k] = tree_map(lambda a: a[start:start + n].clone(), v)
+            out[k] = tree_map(lambda a: torch.cat(
+                [a[s:s + n] for s, n in chunks]), v)
         elif (first if k == "embed" else last):
             out[k] = tree_map(torch.clone, v)
     return out
 
 
-def gather_stage_trees(trees: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+def gather_stage_trees(trees: Sequence[Dict[str, Any]],
+                       layers: Optional[Sequence[int]] = None
+                       ) -> Dict[str, Any]:
     """The canonical tree from the stages' ``stage_tree``s, in stage
-    order."""
+    order; ``layers`` (per virtual stage) puts interleaved chunks back in
+    layer order (None: one chunk a stage)."""
+    pp = len(trees)
     out = {k: v for k, v in trees[0].items() if k != "blocks"}
     out.update((k, v) for k, v in trees[-1].items()
                if k not in ("blocks", "embed"))
+
+    def join(*stacks):
+        if layers is None:
+            return torch.cat(stacks)
+        pieces, at = [], [0] * pp
+        for vs, n in enumerate(layers):
+            s = vs % pp
+            pieces.append(stacks[s][at[s]:at[s] + n])
+            at[s] += n
+        return torch.cat(pieces)
+
     # the stacks last, as ``init_lm`` makes the tree
-    out["blocks"] = tree_map(lambda *a: torch.cat(a), trees[0]["blocks"],
-                             *(t["blocks"] for t in trees[1:]))
+    out["blocks"] = tree_map(join, *(t["blocks"] for t in trees))
     return out
 
 
@@ -321,78 +364,141 @@ def _model_part(tree: Dict[str, Any], rules: Optional[ShardingRules],
     return shard_tree(tree, rules, model_rank)
 
 
+def _zero(params: Dict[str, Any], rules: Optional[ShardingRules],
+          dp: int) -> Optional[Dict[str, Any]]:
+    """The ZeRO-1 dims of a rank's parameters at data width ``dp`` (None
+    at dp 1: the optimizer state is whole)."""
+    if dp == 1:
+        return None
+    if rules is None:
+        raise ValueError(f"dp={dp}: ZeRO-1 splits the optimizer state by "
+                         "the sharding rules; pass rules")
+    return zero_dims(params, rules, dp)
+
+
 def split_state_for_rank(state: Dict[str, Any], plan_or_layers: LayersLike,
                          stage: int, rules: Optional[ShardingRules] = None,
-                         model_rank: int = 0) -> Dict[str, Any]:
-    """What rank (stage ``stage``, ``model_rank``) owns of a whole train
-    state (``steps.init_train_state``'s layout): its share under ``rules``
-    (None: the whole stage) of its stage's parameters and their fp32
-    master, m and v, cloned; the step and the AdamW count."""
-    layers = _stage_layers(plan_or_layers)
+                         model_rank: int = 0, *,
+                         replica: int = 0) -> Dict[str, Any]:
+    """What rank (stage ``stage``, ``replica``, ``model_rank``) owns of a
+    whole train state (``steps.init_train_state``'s layout), copied: its
+    share under ``rules`` (None: the whole stage) of its stage's
+    parameters (its chunks' layers under vpp > 1); of their fp32 master,
+    m and v the same share, and of that at dp > 1 its replica's ZeRO-1
+    slice; the step and the AdamW count.  A plan gives the virtual
+    layers, vpp and dp; a list of stage layer counts means vpp 1, dp 1."""
+    layers, vpp, dp = _layout(plan_or_layers)
 
     def part(tree):
-        return _model_part(stage_tree(tree, layers, stage), rules,
+        return _model_part(stage_tree(tree, layers, stage, vpp), rules,
                            model_rank)
 
-    opt = {k: v.clone() if k == "count" else part(v)
+    params = part(state["params"])
+    dims = _zero(params, rules, dp)
+
+    def opt_part(tree):
+        own = part(tree)
+        return own if dims is None else \
+            zero_shard_tree(own, dims, dp, replica)
+
+    opt = {k: v.clone() if k == "count" else opt_part(v)
            for k, v in state["opt"].items()}
-    return {"params": part(state["params"]), "opt": opt,
-            "step": state["step"].clone()}
+    return {"params": params, "opt": opt, "step": state["step"].clone()}
 
 
-def _gather_states(states: Sequence[Dict[str, Any]],
-                   gather) -> Dict[str, Any]:
-    """A state from parts: ``gather`` joins the parts' trees."""
+def _gather_states(states: Sequence[Dict[str, Any]], gather,
+                   gather_opt=None) -> Dict[str, Any]:
+    """A state from parts: ``gather`` joins the parts' trees
+    (``gather_opt`` the optimizer's, when it differs)."""
+    gather_opt = gather_opt or gather
     opt = {k: states[0]["opt"][k] if k == "count"
-           else gather([s["opt"][k] for s in states])
+           else gather_opt([s["opt"][k] for s in states])
            for k in states[0]["opt"]}
     return {"params": gather([s["params"] for s in states]), "opt": opt,
             "step": states[0]["step"]}
 
 
 def gather_rank_states(states: Sequence[Dict[str, Any]],
-                       rules: Optional[ShardingRules] = None
+                       rules: Optional[ShardingRules] = None,
+                       plan_or_layers: Optional[LayersLike] = None
                        ) -> Dict[str, Any]:
-    """The inverse of ``split_state_for_rank``: the whole state from one
-    replica's ranks' states, in rank order (stage-major, then model
-    rank; ``rules`` None: one rank a stage)."""
+    """The inverse of ``split_state_for_rank``: the whole state from every
+    rank's state, in rank order (``(stage * dp + replica) * tp +
+    model_rank``; ``rules`` None: one rank a stage and replica).  The
+    plan gives the virtual layers, needed to put interleaved chunks back
+    in order, and dp; None or a list of layer counts means dp 1."""
+    layers, dp = None, 1
+    if plan_or_layers is not None:
+        layers, _, dp = _layout(plan_or_layers)
     tp = 1 if rules is None else rules.tp
+
+    def join_replicas(parts):
+        dims = _zero(parts[0]["params"], rules, dp)
+        return _gather_states(parts, lambda ts: ts[0],
+                              lambda ts: zero_gather_trees(ts, dims))
+
+    if dp > 1:      # each (stage, model rank): its replicas' ZeRO slices
+        states = [join_replicas([states[(s * dp + q) * tp + r]
+                                 for q in range(dp)])
+                  for s in range(len(states) // (dp * tp))
+                  for r in range(tp)]
     if tp > 1:
         states = [_gather_states(states[i:i + tp],
                                  lambda ts: gather_trees(ts, rules))
                   for i in range(0, len(states), tp)]
-    return _gather_states(states, gather_stage_trees)
+    return _gather_states(states,
+                          lambda ts: gather_stage_trees(ts, layers))
 
 
 def init_rank_state(bundle, plan_or_layers: LayersLike, stage: int,
                     seed: int = 0, device=None,
                     rules: Optional[ShardingRules] = None,
-                    model_rank: int = 0) -> Dict[str, Any]:
+                    model_rank: int = 0, *,
+                    replica: int = 0) -> Dict[str, Any]:
     """``split_state_for_rank(steps.init_train_state(bundle, seed), ...)``
     without the whole fp32 state: ``init_lm`` draws every leaf from one
     generator in a fixed order, so the rank draws the whole parameter tree
-    (bf16 at full width), keeps its share of its stage and only then makes
-    the optimizer state."""
+    (bf16 at full width), keeps its share of its stage and makes the
+    optimizer state of its ZeRO-1 slice only."""
+    layers, vpp, dp = _layout(plan_or_layers)
     full = bundle.init(bundle.cfg, seed=seed, device=device)
-    staged = stage_tree(full, _stage_layers(plan_or_layers), stage)
+    staged = stage_tree(full, layers, stage, vpp)
     del full
     params = _model_part(staged, rules, model_rank)
     del staged
+    dims = _zero(params, rules, dp)
+    mine = params if dims is None else tree_map(
+        lambda p, d: p if d is None else p.chunk(dp, d)[replica],
+        params, dims)
     first = tree_leaves(params)[0]
     return {"params": params,
             "opt": adamw.init_opt_state(
-                params, keep_master=bundle.cfg.param_dtype != "float32"),
+                mine, keep_master=bundle.cfg.param_dtype != "float32"),
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
 
+Op = Tuple            # ("F" | "B", j) at vpp 1; ("F" | "B", chunk, j)
+Msg = Tuple[str, int, int]      # (kind, the virtual stage it feeds, j)
+Hop = Tuple[str, int, Msg]      # ("send" | "recv", peer stage, message)
+
+
 def rank_schedule(stage: int, n_stages: int, n_microbatches: int,
-                  schedule: str = "1f1b",
-                  eager_slack: int = 2) -> List[Tuple[str, int]]:
-    """Stage ``stage``'s static order of forwards ``("F", j)`` and
-    backwards ``("B", j)``: ``cap`` forwards, then one backward and one
-    forward in turn, then the remaining backwards.  ``cap`` is the
-    simulator's in-flight peak (``min(m, pp - s)`` for 1f1b, plus
-    ``eager_slack`` for 1f1b-eager, m for gpipe), at most m."""
+                  schedule: str = "1f1b", eager_slack: int = 2,
+                  vpp: int = 1) -> List[Op]:
+    """Stage ``stage``'s static order of forwards and backwards.
+
+    ``1f1b``, ``1f1b-eager``, ``gpipe``: ``("F", j)`` and ``("B", j)``;
+    ``cap`` forwards, then one backward and one forward in turn, then the
+    remaining backwards.  ``cap`` is the simulator's in-flight peak
+    (``min(m, pp - s)`` for 1f1b, plus ``eager_slack`` for 1f1b-eager, m
+    for gpipe), at most m.
+
+    ``interleaved-1f1b``: ``("F", c, j)`` and ``("B", c, j)`` for chunk c
+    (virtual stage ``c * pp + stage``), Megatron's order
+    (``interleaved_units``)."""
+    if schedule == "interleaved-1f1b":
+        return [op for unit in interleaved_units(
+            stage, n_stages, n_microbatches, vpp) for op in unit]
     m = n_microbatches
     cap = min(m, peak_activation_microbatches(stage, n_stages, m, schedule,
                                               eager_slack))
@@ -406,26 +512,95 @@ def rank_schedule(stage: int, n_stages: int, n_microbatches: int,
     return order
 
 
+def interleaved_units(stage: int, n_stages: int, n_microbatches: int,
+                      vpp: int) -> List[Tuple[Op, ...]]:
+    """Megatron's interleaved-1F1B order for stage ``stage`` as units: W
+    warmup forwards, then units of one forward and one backward, then
+    the W cooldown backwards, the ops taken in turn from
+    ``core/simulator.interleaved_streams``.  W = 2 (pp - 1 - s) +
+    (vpp - 1) min(pp, m), at most vpp m: W + 1 is
+    ``interleaved_inflight_cap``, the most chunk activations in flight."""
+    pp, m = n_stages, n_microbatches
+    fwd, bwd = interleaved_streams(pp, vpp, m)
+    total = vpp * m
+    warm = min(total, 2 * (pp - 1 - stage) + (vpp - 1) * min(pp, m))
+    units: List[Tuple[Op, ...]] = [(("F",) + fwd[i],) for i in range(warm)]
+    units += [(("F",) + fwd[warm + k], ("B",) + bwd[k])
+              for k in range(total - warm)]
+    units += [(("B",) + bwd[k],) for k in range(total - warm, total)]
+    return units
+
+
+def _unit_hops(stage: int, pp: int, vpp: int, unit: Sequence[Op]
+               ) -> Tuple[List[Hop], List[Hop]]:
+    """(the receives a unit needs, the sends it makes), each the forward's
+    (an activation) before the backward's (a gradient)."""
+    V, recvs, sends = pp * vpp, [], []
+    prev, nxt = (stage - 1) % pp, (stage + 1) % pp
+    for kind, c, j in unit:
+        vs = c * pp + stage
+        if kind == "F":
+            if vs > 0:
+                recvs.append(("recv", prev, ("F", vs, j)))
+            if vs < V - 1:
+                sends.append(("send", nxt, ("F", vs + 1, j)))
+        else:
+            if vs < V - 1:
+                recvs.append(("recv", nxt, ("B", vs, j)))
+            if vs > 0:
+                sends.append(("send", prev, ("B", vs - 1, j)))
+    return recvs, sends
+
+
+def rank_boundaries(stage: int, n_stages: int, n_microbatches: int,
+                    schedule: str = "1f1b", eager_slack: int = 2,
+                    vpp: int = 1) -> List[Tuple[List[Hop], Tuple[Op, ...]]]:
+    """``[(batch, unit)]``: each unit of the stage's order after the batch
+    posted before it, then the last batch with no unit.  A unit is one op
+    ``(kind, chunk, j)`` of ``rank_schedule`` at vpp 1 (chunk 0), one of
+    Megatron's ``interleaved_units`` under ``interleaved-1f1b``.  A batch
+    holds the previous unit's sends and this unit's receives (up to two
+    each), sends first, each pair activation before gradient; a message is
+    named by what it feeds, ``(kind, virtual stage, j)``.  The wrap hop
+    (stage pp - 1's chunk c to stage 0's chunk c + 1, and its gradient
+    back) is one of them."""
+    if schedule == "interleaved-1f1b":
+        units = interleaved_units(stage, n_stages, n_microbatches, vpp)
+    else:
+        units = [((kind, 0, j),) for kind, j in rank_schedule(
+            stage, n_stages, n_microbatches, schedule, eager_slack)]
+    out, sends = [], []
+    for unit in units:
+        recvs, nxt = _unit_hops(stage, n_stages, vpp, unit)
+        out.append((sends + recvs, unit))
+        sends = nxt
+    out.append((sends, ()))
+    return out
+
+
 class PPRankStep:
     """One train step of this rank's share of a plan: the rank route.
 
     With pp > 1, ``loss_and_grads(params, batch)`` runs the stage's
     ``rank_schedule`` over this replica's microbatches ``(m, B_tick / dp,
-    S)``.  A forward takes its input from the embedding (stage 0) or from
-    the previous stage, runs the stage's layers (each under
-    ``torch.utils.checkpoint`` when ``cfg.remat``, as the one-card loss)
-    and sends the activation on; the last stage computes the final norm,
-    the unembedding and the cross-entropy, scaled by 1/m.  A backward
-    takes the activation's gradient from the next stage (or starts from
+    S)``.  A forward of chunk c (virtual stage ``vs = c * pp + stage``;
+    one chunk under vpp 1) takes its input from the embedding (vs 0) or
+    from the stage before (virtual stage vs - 1, on stage ``stage - 1``
+    mod pp), runs the chunk's layers (each under ``torch.utils.
+    checkpoint`` when ``cfg.remat``, as the one-card loss) and sends the
+    activation on; virtual stage V - 1 computes the final norm, the
+    unembedding and the cross-entropy, scaled by 1/m.  A backward takes
+    the activation's gradient from virtual stage vs + 1 (or starts from
     the loss) and sends its input's gradient back.  Each boundary of the
-    schedule posts the previous op's send and the next op's receive
-    together, receive first, so two stages that send to each other at
-    once cannot deadlock; under ``1f1b-eager`` the activation sends
-    complete in the background and are waited on at the end of the step.
-    The order never depends on timing, so the gradients are the same from
-    run to run.  With pp = 1 it is the reference loss
-    (``steps.make_loss_fn``) over this replica's rows ``(B / dp, S)``,
-    its blocks kept whole as the reference route keeps them (no remat).
+    order (between two ops at vpp 1, two of Megatron's units under
+    ``interleaved-1f1b``) posts one batch (``rank_boundaries``): the
+    previous unit's sends and the next unit's receives, so two stages
+    that send to each other at once cannot deadlock, and waits for all of
+    it; under ``1f1b-eager`` an activation's send completes in the
+    background and is waited on at the end of the step.  The order never
+    depends on timing, so the gradients are the same from run to run.  With pp = 1 it is the reference loss (``steps.make_loss_fn``)
+    over this replica's rows ``(B / dp, S)``, its blocks kept whole as the
+    reference route keeps them (no remat).
 
     At tp > 1 every layer, the embedding and the loss run on this model
     rank's shard over the ``model`` axis's communicator, which takes the
@@ -436,10 +611,13 @@ class PPRankStep:
     ``__call__(state, batch)`` then averages the gradients over ``data``,
     takes the squared global norm (split leaves summed over ``model``,
     replicated ones once, then summed over ``pod``), applies AdamW with
-    that norm, and reports the last stage's loss on every rank (summed
-    over ``pod``, where only the last stage holds it, then averaged over
-    ``data``; every model rank holds the same loss).  ``peak_inflight`` is
-    the most microbatches whose activations this rank held at once."""
+    that norm, at dp > 1 to this replica's ZeRO-1 slice of the state, the
+    parameters all-gathered over ``data`` after, and reports the last
+    stage's loss on every rank (summed over ``pod``, where only the last
+    stage holds it, then averaged over ``data``; every model rank holds
+    the same loss).  ``peak_inflight`` is the most microbatches (chunk
+    microbatches under interleaving) whose activations this rank held at
+    once."""
 
     def __init__(self, cfg: ModelConfig, plan: ParallelPlan, grid: RankGrid,
                  opt_cfg: Optional[adamw.AdamWConfig] = None):
@@ -453,7 +631,11 @@ class PPRankStep:
         self.opt_cfg = opt_cfg or adamw.AdamWConfig()
         self.m = plan.micro_batches
         self.stage = grid.stage
-        self.n_layers = plan.virtual_layers[grid.stage]
+        # each chunk's (first layer, layer count) in the rank's own stacks
+        own = [n for _, n in _chunks(plan.virtual_layers, grid.stage,
+                                     plan.vpp)]
+        self.chunks = [(sum(own[:c]), n) for c, n in enumerate(own)]
+        self.n_layers = sum(own)
         self.pod = Communicator("pod", plan.transport)
         self.data = Communicator("data", plan.transport)
         self.model = (Communicator("model", plan.transport) if grid.tp > 1
@@ -462,36 +644,40 @@ class PPRankStep:
         self.async_sends = plan.schedule == "1f1b-eager"
         self.peak_inflight = 0
         self._block = functools.partial(_block, cfg=cfg, model=self.model)
-        self.order: Optional[List[Tuple[str, int]]] = None
+        self.order: Optional[List[Op]] = None
+        self.boundaries = None
         if plan.pp == 1:
             self._loss = make_loss_fn(bundle_for(cfg), self.model)
             return
         self.order = rank_schedule(grid.stage, plan.pp, self.m,
-                                   plan.schedule, plan.eager_slack)
+                                   plan.schedule, plan.eager_slack, plan.vpp)
+        self.boundaries = rank_boundaries(grid.stage, plan.pp, self.m,
+                                          plan.schedule, plan.eager_slack,
+                                          plan.vpp)
         if cfg.remat:
             # a process's first checkpoint call imports torch._dynamo (~6 s
             # on the card's host), and stage s + 1's first forward waits on
             # stage s's: imported here, the ranks pay it at once, not in turn
             import torch._dynamo  # noqa: F401
 
-    def _hop(self, send: Optional[Tuple[torch.Tensor, int]],
-             src: Optional[int], like: torch.Tensor,
-             posted: List[P2PWork]) -> Optional[torch.Tensor]:
-        """One boundary: ``send`` = (tensor, stage) and a receive from
-        stage ``src``, in one ``isend_irecv`` over ``pod``."""
-        if send is None and src is None:
-            return None
-        s = self.stage
-        perm = ([(s, send[1])] if send is not None else []) + \
-            ([(src, s)] if src is not None else [])
-        work = self.pod.isend_irecv_async(
-            send[0] if send is not None else like, perm)
-        if self.async_sends and send is not None and send[1] > s:
-            posted.append(work)     # an activation: waited on at the end
-            got = work.result()
-        else:
-            got = work.wait()
-        return got if src is not None else None
+    def _exchange(self, batch: Sequence[Hop], outbox: Dict[Msg, Any],
+                  inbox: Dict[Msg, Any], like: torch.Tensor,
+                  later: List[Any]) -> None:
+        """One boundary: the batch's sends (from ``outbox``) and receives
+        (into ``inbox``) posted at once over ``pod``, in the batch's
+        order, and waited for; under ``1f1b-eager`` an activation's send
+        is left to complete in the background (its work goes to
+        ``later``)."""
+        if not batch:
+            return
+        ops = [(op, peer, outbox.pop(msg) if op == "send" else like)
+               for op, peer, msg in batch]
+        defer = self.async_sends and all(
+            msg[0] == "F" for op, _, msg in batch if op == "send")
+        got = iter(self.pod._isend_irecv_batch(ops, later if defer else None))
+        for op, _, msg in batch:
+            if op == "recv":
+                inbox[msg] = next(got)
 
     def _run_layers(self, layers, x: torch.Tensor) -> torch.Tensor:
         for p in layers:
@@ -522,48 +708,67 @@ class PPRankStep:
                 return torch.zeros_like(t) if g is None else g
 
             return loss.detach(), self._whole_grads(tree_map(take, p))
-        cfg, s, m = self.cfg, self.stage, self.m
-        first, last = s == 0, s == self.plan.pp - 1
+        cfg, s, m, pp = self.cfg, self.stage, self.m, self.plan.pp
+        V = pp * self.plan.vpp
         tokens, labels = batch["tokens"], batch["labels"]
         if tokens.shape[0] != m:
             raise ValueError(f"the batch holds {tokens.shape[0]} "
                              f"microbatches, the plan {m}")
         leaves = tree_leaves(p)
-        layers = _layer_views(p["blocks"], self.n_layers)
+        views = _layer_views(p["blocks"], self.n_layers)
+        layers = [views[a:a + n] for a, n in self.chunks]
         vocab = (vocab_model(_unembed_weight(p, cfg), cfg, self.model)
-                 if last else None)
+                 if s == pp - 1 else None)
         like = torch.empty(tokens.shape[1:] + (cfg.d_model,),
                            dtype=cfg.adtype, device=leaves[0].device)
         ce_sum = torch.zeros((), dtype=torch.float32, device=like.device)
-        saved: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-        send: Optional[Tuple[torch.Tensor, int]] = None
-        posted: List[P2PWork] = []
-        for kind, j in self.order:
-            src = (s - 1 if kind == "F" and not first else
-                   s + 1 if kind == "B" and not last else None)
-            got = self._hop(send, src, like, posted)
-            send = None
-            if kind == "F":
-                x = _embed(p, tokens[j], cfg, self.model) if first else \
-                    got.requires_grad_()
-                y = self._run_layers(layers, x)
-                if last:
-                    h = rmsnorm(p["final_norm"], y, cfg.norm_eps)
-                    ce = cross_entropy(_unembed(p, h, cfg, self.model),
-                                       labels[j], vocab)
-                    ce_sum = ce_sum + ce.detach()
-                    y = ce / m
-                else:
-                    send = (y.detach(), s + 1)
-                saved[j] = (x, y)
-                self.peak_inflight = max(self.peak_inflight, len(saved))
+        saved: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+        def forward(c: int, j: int, x: Optional[torch.Tensor]):
+            """Chunk c's forward of microbatch j from ``x`` (None: the
+            embedding): the activation to send on, or None at V - 1."""
+            nonlocal ce_sum
+            vs = c * pp + s
+            x = _embed(p, tokens[j], cfg, self.model) if vs == 0 else \
+                x.requires_grad_()
+            y = self._run_layers(layers[c], x)
+            out = None
+            if vs == V - 1:
+                h = rmsnorm(p["final_norm"], y, cfg.norm_eps)
+                ce = cross_entropy(_unembed(p, h, cfg, self.model),
+                                   labels[j], vocab)
+                ce_sum = ce_sum + ce.detach()
+                y = ce / m
             else:
-                x, y = saved.pop(j)
-                y.backward(None if last else got)
-                if not first:
-                    send = (x.grad, s - 1)
-        self._hop(send, None, like, posted)
-        for work in posted:
+                out = y.detach()
+            saved[(c, j)] = (x, y)
+            self.peak_inflight = max(self.peak_inflight, len(saved))
+            return out
+
+        def backward(c: int, j: int, dy: Optional[torch.Tensor]):
+            """Chunk c's backward of microbatch j from ``dy`` (None: the
+            loss): its input's gradient, or None at virtual stage 0."""
+            vs = c * pp + s
+            x, y = saved.pop((c, j))
+            y.backward(dy)
+            return x.grad if vs > 0 else None
+
+        outbox: Dict[Msg, Any] = {}
+        inbox: Dict[Msg, Any] = {}
+        later: List[Any] = []
+        for hops, unit in self.boundaries:
+            self._exchange(hops, outbox, inbox, like, later)
+            for kind, c, j in unit:
+                vs = c * pp + s
+                if kind == "F":
+                    y = forward(c, j, inbox.pop(("F", vs, j), None))
+                    if y is not None:
+                        outbox[("F", vs + 1, j)] = y
+                else:
+                    dx = backward(c, j, inbox.pop(("B", vs, j), None))
+                    if dx is not None:
+                        outbox[("B", vs - 1, j)] = dx
+        for work, _ in later:
             work.wait()
         grads = tree_map(
             lambda t: torch.zeros_like(t) if t.grad is None else t.grad, p)
@@ -574,15 +779,18 @@ class PPRankStep:
         dp, pp = self.grid.dp, self.plan.pp
         params = state["params"]
         loss, grads = self.loss_and_grads(params, batch)
-        if dp > 1:
-            grads = tree_map(lambda g: self.data.iallreduce(g) / dp, grads)
+        if dp > 1:      # in place, so one leaf at a time is doubled
+            grads = tree_map(
+                lambda g: g.copy_(self.data.iallreduce(g)).div_(dp), grads)
         split = map_with_path(
             lambda path, g: self.rules.split_dim(path, g.dim()) is not None,
             grads)
         sq = adamw.model_sq_norm(grads, split, self.model)
         gnorm = torch.sqrt(self.pod.iallreduce(sq) if pp > 1 else sq)
-        params, opt, om = adamw.adamw_update(params, grads, state["opt"],
-                                             self.opt_cfg, grad_norm=gnorm)
+        params, opt, om = adamw.adamw_update(
+            params, grads, state["opt"], self.opt_cfg, grad_norm=gnorm,
+            data=self.data if dp > 1 else None,
+            zero=_zero(params, self.rules, dp))
         if pp > 1:
             loss = self.pod.iallreduce(loss)
         if dp > 1:

@@ -9,7 +9,7 @@ rank imports nothing but ``repro_torch``.  The device is the one
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +21,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.optim.adamw import AdamWConfig, tree_leaves, tree_map
 from repro_torch.parallel import groups, pipeline
-from repro_torch.parallel.sharding import shard_tree
+from repro_torch.parallel.sharding import shard_tree, zero_dims
 from repro_torch.profile import runner
 from repro_torch.profile.store import ProfileStore
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -40,6 +40,10 @@ def _torch_tree(tree, device):
 
 def _numpy_tree(tree):
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _nbytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
 class _Notes(list):
@@ -94,26 +98,31 @@ def p2p_once(rank: int, world: int, perms: Sequence[Sequence[Tuple[int, int]]]
 def _loss_and_grads(world: int, bundle_kw: Dict[str, Any],
                     params: Dict[str, Any], batch: Dict[str, np.ndarray],
                     layers: Sequence[int], schedule: str, slack: int,
-                    transport: str, tp: int) -> Dict[str, Any]:
+                    transport: str, tp: int, vpp: int = 1,
+                    m: Optional[int] = None) -> Dict[str, Any]:
     """One case of ``pp_loss_and_grads`` on a one-replica grid of
-    ``len(layers)`` stages of ``tp`` model ranks (a pp 1 case takes the
-    batch unmicrobatched, ``(B, S)``)."""
+    ``len(layers) / vpp`` stages of ``tp`` model ranks (``layers`` per
+    virtual stage; ``m``: the batch's first m microbatches, None all; a
+    pp 1 case takes the batch unmicrobatched, ``(B, S)``)."""
+    if m is not None:
+        batch = {k: v[:m] for k, v in batch.items()}
     bundle = registry.get_bundle(**bundle_kw)
     dev = _device()
-    pp = len(layers)
+    pp = len(layers) // vpp
     grid = groups.make_rank_grid(pp, 1, dev, tp=tp)
     tb = _torch_tree(batch, dev)
     rows = batch["tokens"].shape[-2]
     n = 1 if pp == 1 else batch["tokens"].shape[0]
     plan = ParallelPlan(
-        stages=tuple(StagePlacement(s, k, 1, tp, s == pp - 1)
-                     for s, k in enumerate(layers)),
+        stages=tuple(StagePlacement(s, sum(layers[s::pp]), 1, tp,
+                                    s == pp - 1) for s in range(pp)),
         micro_bs=rows, global_batch=n * rows,
         seq_len=batch["tokens"].shape[-1], transport=transport,
-        schedule=schedule, eager_slack=slack)
+        schedule=schedule, eager_slack=slack, vpp=vpp,
+        chunk_layers=tuple(layers) if vpp > 1 else None)
     step = pipeline.PPRankStep(bundle.cfg, plan, grid)
     own = shard_tree(pipeline.stage_tree(_torch_tree(params, dev), layers,
-                                         grid.stage),
+                                         grid.stage, vpp),
                      step.rules, grid.model_rank)
     with _Notes() as notes:
         loss, grads = step.loss_and_grads(own, tb)
@@ -127,17 +136,17 @@ def _loss_and_grads(world: int, bundle_kw: Dict[str, Any],
 
 def pp_loss_and_grads(rank: int, world: int, bundle_kw: Dict[str, Any],
                       params: Dict[str, Any], batch: Dict[str, np.ndarray],
-                      cases: Sequence[Tuple[Sequence[int], str, int]],
-                      transport: str = "gpu") -> List[Dict[str, Any]]:
+                      cases: Sequence[Tuple], transport: str = "gpu"
+                      ) -> List[Dict[str, Any]]:
     """``PPRankStep.loss_and_grads`` of a pp = ``world`` pipeline, one
     replica, on the whole canonical ``params`` (numpy) and the microbatched
     ``batch`` ``(m, B_tick, S)``, for each case (virtual layers, schedule,
-    eager slack) with its hops on ``transport``: the loss every rank
-    reports, this rank's gradients, its in-flight peak and schedule, and
-    the ICCL notes it made."""
-    return [_loss_and_grads(world, bundle_kw, params, batch, layers,
-                            schedule, slack, transport, 1)
-            for layers, schedule, slack in cases]
+    eager slack[, vpp[, m]]) with its hops on ``transport``: the loss every
+    rank reports, this rank's gradients, its in-flight peak and schedule,
+    and the ICCL notes it made."""
+    return [_loss_and_grads(world, bundle_kw, params, batch, case[0],
+                            case[1], case[2], transport, 1, *case[3:])
+            for case in cases]
 
 
 def tp_loss_and_grads(rank: int, world: int,
@@ -183,13 +192,56 @@ def collectives(rank: int, world: int, payloads: Sequence[int]
     return [e.to_dict() for e in store.entries()]
 
 
+def _master_moves(state: Dict[str, Any], start: Dict[str, Any], dims: Any,
+                  dp: int, replica: int) -> List[float]:
+    def sq(p0, master, d):
+        p0 = p0.to(master.device)
+        if d is not None:
+            p0 = p0.chunk(dp, d)[replica]
+        return float(torch.sub(master, p0).square().sum(dtype=torch.float64))
+
+    return tree_leaves(tree_map(sq, start, state["opt"]["master"], dims))
+
+
+def run_steps(t: Trainer, steps: int, moves: bool = False
+              ) -> Tuple[Dict[str, List[float]], List[List[float]]]:
+    """``t.run(steps)`` one step at a time: (the losses, gradient norms
+    and step times; with ``moves``, after every step each leaf's squared
+    norm of its fp32 master's move from the bf16 parameters the run began
+    from, over this rank's ZeRO-1 slice, so that the replicas' values sum
+    to the whole leaf's).  The start is kept in host memory, so the
+    card's peak is the run's own."""
+    params = t.state["params"]
+    dp, replica = (t.grid.dp, t.grid.replica) if t.grid else (1, 0)
+    dims = (zero_dims(params, t.train_step.rules, dp) if dp > 1
+            else tree_map(lambda _: None, params))
+    start = tree_map(lambda x: x.cpu(), params) if moves else None
+    out: Dict[str, List[float]] = {"losses": [], "grad_norms": [],
+                                   "step_s": []}
+    moved = []
+    for _ in range(steps):
+        ran = t.run(1)
+        for k, v in out.items():
+            v += ran[k]
+        if moves:
+            moved.append(_master_moves(t.state, start, dims, dp, replica))
+    return out, moved
+
+
 def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
-             plan: Dict[str, Any], steps: int) -> Dict[str, Any]:
-    """``steps`` ``Trainer`` steps of a plan on the rank route (a pp plan,
-    or a pp 1 plan at its stage tp) from a fresh state (seed 0), with what
-    this rank saw: the losses and step times, its kernel launches, the
-    ICCL notes, its in-flight peak, and its state and peak memory (GB, on
-    the card)."""
+             plan: Dict[str, Any], steps: int,
+             opt: Optional[Dict[str, Any]] = None,
+             moves: bool = False) -> Dict[str, Any]:
+    """``steps`` ``Trainer`` steps of a plan on the rank route from a fresh
+    state (seed 0; ``opt``: the ``AdamWConfig`` fields, None its
+    defaults), with what this rank saw: the losses, gradient norms and
+    step times, its kernel launches, the ICCL notes, its in-flight peak,
+    its state's bytes (parameters; optimizer state, and of that the
+    leaves ZeRO-1 keeps whole), its leaves and how many ZeRO-1 splits, and
+    its state and peak memory (GB, on the card); with ``moves``,
+    ``run_steps``'s moves of its fp32 master.  At dp > 1, whether its
+    parameters equal every other replica's bit for bit after the run
+    (gathered over ``data``)."""
     dev = _device()
     bundle = registry.get_bundle(**bundle_kw)
     p = ParallelPlan.from_dict(plan)
@@ -199,21 +251,40 @@ def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
     t0 = time.perf_counter()
     t = Trainer(bundle, TrainerConfig(global_batch=p.global_batch,
                                       seq_len=p.seq_len, tp=p.tps[0]),
-                plan=p, device=dev)
+                plan=p, opt_cfg=AdamWConfig(**(opt or {})), device=dev)
     if cuda:
         torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
     state_gb = torch.cuda.memory_allocated(dev) / 1e9 if cuda else None
     ops.reset_launch_counts()
     with _Notes() as notes:
-        out = t.run(steps)
+        out, moved = run_steps(t, steps, moves)
     launches = ops.launch_counts()
-    return {"rank": rank, "stage": t.grid.stage,
-            "model_rank": t.grid.model_rank, "losses": out["losses"],
-            "step_s": out["step_s"], "launches": launches,
+    params = t.state["params"]
+    dp = t.grid.dp
+    dims = (zero_dims(params, t.train_step.rules, dp) if dp > 1
+            else tree_map(lambda _: None, params))
+    same = None
+    if dp > 1:
+        data = t.train_step.data
+        same = all(all(torch.equal(x, part) for part in
+                       data.iallgather(x, tiled=False).unbind(0))
+                   for x in tree_leaves(params))
+    opt_state = {k: v for k, v in t.state["opt"].items() if k != "count"}
+    whole = tree_map(lambda _, d: d is None, params, dims)
+    return {"rank": rank, "stage": t.grid.stage, "replica": t.grid.replica,
+            "model_rank": t.grid.model_rank, **out, "launches": launches,
             "notes": list(notes), "peak_inflight": t.train_step.peak_inflight,
             "order": t.train_step.order, "init_s": init_s,
-            "n_params": sum(x.numel() for x in tree_leaves(t.state["params"])),
+            "master_moves": moved, "replicas_equal": same,
+            "n_params": sum(x.numel() for x in tree_leaves(params)),
+            "n_leaves": len(tree_leaves(params)),
+            "n_zero_split": tree_leaves(whole).count(False),
+            "param_bytes": _nbytes(params), "opt_trees": sorted(opt_state),
+            "opt_bytes": _nbytes(opt_state),
+            "opt_whole_bytes": sum(
+                a.numel() * a.element_size() for o in opt_state.values()
+                for a, w in zip(tree_leaves(o), tree_leaves(whole)) if w),
             "state_gb": state_gb,
             "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                         if cuda else None)}

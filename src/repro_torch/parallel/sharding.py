@@ -18,8 +18,15 @@ None", with the JAX package's divisibility resolution:
   * SSM / RG-LRU inner dims split over ``model``.
 
 A split dim is cut into ``tp`` contiguous slices: model rank r holds slice
-r (``shard_tree``; ``gather_trees`` concatenates them back).  The fsdp
-mode and ZeRO-1's moment sharding are ROADMAP.md queue A, item A5c.
+r (``shard_tree``; ``gather_trees`` concatenates them back).
+
+ZeRO-1 (``ShardingRules.opt_state_spec`` of the JAX package): wherever
+``data`` is wider than 1, the AdamW moments and the fp32 master of each
+leaf are split over ``data`` along the first dim that is not the leaf's
+tp split dim and whose size the data width divides, or kept whole when
+there is none (``zero_dim``; ``zero_dims`` over a rank's tree).  Replica
+r holds slice r of ``dp`` contiguous slices (``zero_shard_tree``;
+``zero_gather_trees`` joins them).  The fsdp mode stays unported.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adamw import tree_map
 
 
 def _divisible(n: int, k: int) -> bool:
@@ -100,6 +108,17 @@ class ShardingRules:
             return row(self.shard_lru)
         return None
 
+    def zero_dim(self, path: Tuple[str, ...], shape: Sequence[int],
+                 dp: int) -> Optional[int]:
+        """The dim ZeRO-1 splits this leaf's moments and master along over
+        ``dp`` replicas (where ``opt_state_spec`` names ``data``), or None:
+        the first dim other than ``split_dim`` that ``dp`` divides."""
+        tp_dim = self.split_dim(path, len(shape))
+        for d, n in enumerate(shape):
+            if d != tp_dim and _divisible(n, dp):
+                return d
+        return None
+
     def partial_grad(self, path: Tuple[str, ...]) -> bool:
         """A replicated leaf whose gradient each model rank holds only in
         part: k/v replicated under split q heads, where each rank's
@@ -145,6 +164,34 @@ def gather_trees(trees: Sequence[Dict[str, Any]],
         return a if d is None else torch.cat(leaves, d)
 
     return map_with_path(join, trees[0])
+
+
+def zero_dims(tree: Dict[str, Any], rules: ShardingRules,
+              dp: int) -> Dict[str, Any]:
+    """``rules.zero_dim`` of every leaf of a rank's parameter tree (its
+    tp share of its stage): a tree of ints and Nones."""
+    return map_with_path(lambda path, a: rules.zero_dim(path, a.shape, dp),
+                         tree)
+
+
+def zero_shard_tree(tree: Dict[str, Any], dims: Dict[str, Any], dp: int,
+                    replica: int) -> Dict[str, Any]:
+    """Replica ``replica``'s ZeRO-1 part of a parameter-shaped tree: slice
+    ``replica`` of ``dp`` contiguous slices along each leaf's dim of
+    ``dims`` (``zero_dims``), the leaves with None whole; each cloned."""
+    def cut(a, d):
+        return a.clone() if d is None else \
+            a.chunk(dp, d)[replica].clone()
+
+    return tree_map(cut, tree, dims)
+
+
+def zero_gather_trees(trees: Sequence[Dict[str, Any]],
+                      dims: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``zero_shard_tree``: the rank's whole tree from the
+    replicas' parts, in replica order."""
+    return tree_map(lambda d, *parts: parts[0] if d is None
+                    else torch.cat(parts, d), dims, *trees)
 
 
 def _at(tree: Dict[str, Any], path: Tuple[str, ...]) -> Any:

@@ -86,7 +86,8 @@ def vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor,
     ``tokens``, whole on every rank (one rank adds each row, the others
     zeros, so the reduction is exact)."""
     local, own = _owned(tokens, table.shape[0], comm)
-    x = table[local].to(dtype).masked_fill(~own[..., None], 0)
+    x = torch.nn.functional.embedding(local, table).to(dtype).masked_fill(
+        ~own[..., None], 0)     # a lookup: see ``transformer._embed``
     return reduce_from_model(x, comm)
 
 

@@ -15,14 +15,17 @@ synthetic batches:
     batch arrives microbatched ``(m, B_tick, ...)``.  As in the JAX
     trainer, the plan's cp and per-stage dp stay advisory there;
   * with ``torch.distributed`` initialised over ``world > 1`` processes,
-    that pp > 1 plan, or any workload at ``TrainerConfig.tp > 1``: the
-    rank route over ``world = pp * dp * tp`` ranks (the JAX trainer's
-    ``tp``; without a plan for this workload, one stage of every layer,
-    ``world / tp`` replicas, the model axis on the homogeneous transport).
-    This rank holds its model rank's share of one stage of one replica
-    (``parallel/groups.make_rank_grid``, ``parallel/sharding.py``), its
-    part of the state (``pipeline.init_rank_state``, or
-    ``pipeline.split_state_for_rank`` of a whole ``state=``) and its rows
+    always the rank route over ``world = pp * dp * tp`` ranks: this
+    workload's plan (pp > 1, or pp 1), else one stage of every layer over
+    ``world / tp`` replicas (``TrainerConfig.tp``, the JAX trainer's
+    ``tp``; every axis on ``PLAIN_TRANSPORT``, NCCL on the cards, as the
+    JAX mesh's axes are all ICI): plain data parallelism at tp 1, as the
+    JAX CLI runs without ``--pp``.  This rank
+    holds its model rank's share of one stage (its chunks under vpp > 1)
+    of one replica (``parallel/groups.make_rank_grid``,
+    ``parallel/sharding.py``), at dp > 1 only its replica's ZeRO-1 slice
+    of the AdamW moments and master (``pipeline.init_rank_state``, or
+    ``pipeline.split_state_for_rank`` of a whole ``state=``), and its rows
     of the global batch (of every microbatch when pp > 1), and steps with
     ``pipeline.PPRankStep``; every rank reports the step's loss.
 
@@ -42,7 +45,6 @@ import torch.distributed as dist
 
 from repro_torch.core.plan import ParallelPlan, StagePlacement
 from repro_torch.data.pipeline import SyntheticTokens
-from repro_torch.iccl.communicator import homogeneous_comm
 from repro_torch.models.registry import ArchBundle
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
@@ -50,6 +52,10 @@ from repro_torch.parallel import context, groups, pipeline
 from repro_torch.train import steps as steps_mod
 from repro_torch.utils.device import (DeviceLike, resolve_device,
                                       synchronize)
+
+
+# the transport of the rank plan made without a plan: the cards' own links
+PLAIN_TRANSPORT = "gpu"
 
 
 @dataclasses.dataclass
@@ -87,11 +93,13 @@ class Trainer:
             self.state = (
                 pipeline.init_rank_state(bundle, rplan, g.stage,
                                          device=self.device, rules=rules,
-                                         model_rank=g.model_rank)
+                                         model_rank=g.model_rank,
+                                         replica=g.replica)
                 if state is None else adamw.tree_map(
                     lambda t: t.to(self.device),
                     pipeline.split_state_for_rank(state, rplan, g.stage,
-                                                  rules, g.model_rank)))
+                                                  rules, g.model_rank,
+                                                  replica=g.replica)))
         elif state is None:
             self.state = steps_mod.init_train_state(bundle,
                                                     device=self.device)
@@ -112,10 +120,9 @@ class Trainer:
                 and self.cfg.global_batch % plan.tokens_per_tick == 0)
 
     def _ranks_active(self) -> bool:
-        """The plan's stages, or a tp > 1 model, run on the ranks of an
-        initialised process group."""
-        return ((self.cfg.tp > 1 or self._pipeline_active())
-                and dist.is_available() and dist.is_initialized()
+        """This process is one rank of an initialised process group of
+        several: every trainer then takes the rank route."""
+        return (dist.is_available() and dist.is_initialized()
                 and dist.get_world_size() > 1)
 
     def _rank_plan(self, world: int) -> ParallelPlan:
@@ -135,7 +142,7 @@ class Trainer:
                                    True),),
             micro_bs=self.cfg.global_batch // dp,
             global_batch=self.cfg.global_batch, seq_len=self.cfg.seq_len,
-            transport=homogeneous_comm("model").transport)
+            transport=PLAIN_TRANSPORT)
 
     def _cp_active(self) -> bool:
         """A pp == 1, cp > 1 plan matching this workload runs the ring loss

@@ -782,13 +782,18 @@ def test_profile_runner_layers_on_card(dev):
 
 # ------------------------------------------------------- the rank route ----
 RANK_SCHEDULES = ("1f1b", "1f1b-eager", "gpipe")
+# (virtual layers, schedule, eager slack, vpp): each schedule over (3, 1),
+# and interleaved-1f1b at vpp 2 over (2, 1, 1, 0)
+RANK_CASES = [([3, 1], s, 1, 1) for s in RANK_SCHEDULES] + \
+    [([2, 1, 1, 0], "interleaved-1f1b", 1, 2)]
 
 
-def _pp_rank_case():
+def _pp_rank_case(layers=(3, 1), vpp=1):
     """SMOKE llama3-8b at 4 layers (fp32), 4 microbatches of 2 x 32, and
-    the one-process pipeline's loss and gradients over (3, 1) on the CPU
-    (``tests/test_torch_pipeline.py`` holds those to JAX).  The kernel
-    library is built here first, so that the ranks only load it."""
+    the one-process pipeline's loss and gradients over ``layers`` (per
+    virtual stage) on the CPU (``tests/test_torch_pipeline.py`` holds
+    those to JAX).  The kernel library is built here first, so that the
+    ranks only load it."""
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.kernels import build
     from repro_torch.optim import adamw
@@ -801,7 +806,7 @@ def _pp_rank_case():
                            global_batch=8).batch_at(0)
     batch = {k: v.reshape(4, 2, 32) for k, v in data.items()}
     p = adamw.tree_map(lambda t: t.clone().requires_grad_(), params)
-    loss, _ = pipeline.make_pp_loss_fn(b.cfg, 2, 4, [3, 1])(
+    loss, _ = pipeline.make_pp_loss_fn(b.cfg, 2, 4, list(layers), vpp=vpp)(
         p, {k: torch.from_numpy(v) for k, v in batch.items()})
     grads = torch.autograd.grad(loss, adamw.tree_leaves(p))
     it = iter(grads)
@@ -810,41 +815,84 @@ def _pp_rank_case():
             float(loss.detach()), want)
 
 
-def _check_rank_grads(res, loss, want):
+def _check_rank_grads(res):
     from repro_torch.core.simulator import peak_activation_microbatches
     from repro_torch.optim import adamw
     from repro_torch.parallel import pipeline
 
-    for i, schedule in enumerate(RANK_SCHEDULES):
+    for i, (layers, schedule, slack, vpp) in enumerate(RANK_CASES):
+        _, _, loss, want = _pp_rank_case(layers, vpp)
         case = [r[i] for r in res]
         for c in case:
             assert abs(c["loss"] - loss) < MODEL_TOL["atol"]
             assert c["peak_inflight"] == peak_activation_microbatches(
-                c["stage"], 2, 4, schedule, 1)
+                c["stage"], 2, 4, schedule, slack, vpp=vpp)
         got = pipeline.gather_stage_trees([
-            adamw.tree_map(torch.from_numpy, c["grads"]) for c in case])
+            adamw.tree_map(torch.from_numpy, c["grads"]) for c in case],
+            layers)
         for g, w in zip(adamw.tree_leaves(got), adamw.tree_leaves(want)):
             torch.testing.assert_close(g, w, **MODEL_TOL)
 
 
 @pytest.mark.parametrize("transport", ["cpu", "gpu"])
 def test_pp_ranks_on_cards_match_cpu(dev, transport):
-    """A pp 2 rank step under each schedule, its stages in two processes:
-    host-staged over gloo on one card (``cpu``), or over NCCL with a card
-    a rank (``gpu``, skipped below two cards)."""
+    """A pp 2 rank step under each schedule, interleaved-1f1b at vpp 2
+    included, its stages in two processes: host-staged over gloo on one
+    card (``cpu``), or over NCCL with a card a rank (``gpu``, skipped
+    below two cards)."""
     from repro_torch.parallel import rank_programs
     from repro_torch.parallel.launch import run_ranks
 
     if transport == "gpu" and torch.cuda.device_count() < 2:
         pytest.skip("NCCL needs a card a rank: two CUDA devices")
-    params, batch, loss, want = _pp_rank_case()
+    params, batch, _, _ = _pp_rank_case()
     res = run_ranks(
         rank_programs.pp_loss_and_grads, 2, timeout_s=300,
         backend="gloo" if transport == "cpu" else "cpu:gloo,cuda:nccl",
         device=f"cuda:{dev.index}" if transport == "cpu" else "cuda",
         args=(dict(arch="llama3-8b", smoke=True, num_layers=4), params,
-              batch, [([3, 1], s, 1) for s in RANK_SCHEDULES], transport))
-    _check_rank_grads(res, loss, want)
+              batch, RANK_CASES, transport))
+    _check_rank_grads(res)
+
+
+def test_dp2_zero1_ranks_on_one_card_match_cpu(dev):
+    """pp 1 x dp 2 with ZeRO-1: two replicas on one card, each on half the
+    rows, their gradient all-reduces and parameter all-gathers
+    host-staged over gloo; three Trainer steps against three of the
+    reference route on the CPU from one state, and the replicas'
+    parameters equal bit for bit."""
+    import numpy as np
+
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+    from repro_torch.train import steps
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    _pp_rank_case()     # builds the kernels before the ranks start
+    kw = dict(arch="llama3-8b", smoke=True, num_layers=4)
+    b = registry.get_bundle(**kw)
+    plan = ParallelPlan(stages=(StagePlacement(0, 4, 2, 1, True),),
+                        micro_bs=4, global_batch=8, seq_len=32,
+                        transport="cpu")
+    opt = dict(lr=1e-2, warmup_steps=2)
+    state = steps.init_train_state(b, seed=0, device="cpu")
+    res = run_ranks(rank_programs.trainer_steps, 2, timeout_s=300,
+                    device=f"cuda:{dev.index}",
+                    args=(kw, plan.to_dict(),
+                          adamw.tree_map(lambda t: t.numpy(), state), 3,
+                          opt))
+    cpu = Trainer(b, TrainerConfig(global_batch=8, seq_len=32),
+                  opt_cfg=AdamWConfig(**opt), state=state,
+                  device="cpu").run(3)["losses"]
+    for r in res:
+        torch.testing.assert_close(torch.tensor(r["losses"]),
+                                   torch.tensor(cpu), **MODEL_TOL)
+    for x, y in zip(adamw.tree_leaves(res[0]["params"]),
+                    adamw.tree_leaves(res[1]["params"])):
+        np.testing.assert_array_equal(x, y)
 
 
 def test_gpu_transport_on_one_card_raises(dev):
@@ -944,3 +992,207 @@ def test_gpu_transport_tp_on_one_card_raises(dev):
     with pytest.raises(RuntimeError, match="axis 'model'.*transport='cpu'"):
         run_ranks(rank_programs.tp_loss_and_grads, 2, timeout_s=300,
                   device=f"cuda:{dev.index}", args=([case],))
+
+
+def test_embedding_gradient_sums_a_tokens_positions_in_fp32(dev):
+    """The embedding's bf16 gradient on the card, where a few tokens fill
+    two sequences of 4096 (as a frequent token does a training batch):
+    each row is the fp64 sum of its positions' gradients rounded once to
+    bf16 (``transformer._embed`` looks the rows up; indexing's backward
+    adds the positions one at a time into the bf16 gradient, whose error
+    ``-s`` prints beside it)."""
+    from repro_torch.models import transformer
+
+    cfg = registry.get_config("llama3-8b", smoke=True, dtype="bfloat16",
+                              param_dtype="bfloat16")
+    V, D = 512, 256
+    g = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, 40, (2, 4096), generator=g, device=dev)
+    table = _randn(dev, V, D, dtype=torch.bfloat16).requires_grad_()
+    dy = _randn(dev, 2, 4096, D, dtype=torch.bfloat16, seed=1)
+    want = torch.zeros(V, D, dtype=torch.float64, device=dev).index_add_(
+        0, tokens.flatten(), dy.reshape(-1, D).double())
+    got, = torch.autograd.grad(
+        transformer._embed({"embed": table}, tokens, cfg), table, dy)
+    indexed, = torch.autograd.grad(table[tokens], table, dy)
+    print({"lookup_rel": _rel(got, want), "indexing_rel": _rel(indexed, want)})
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.double(), want.bfloat16().double(),
+                               rtol=2 ** -8, atol=1e-6)
+
+
+# ------------------------------------ the CLI's own plan on four cards ----
+CLI_ARGS = ("--seq", "4096", "--global-batch", "8", "--pp", "2", "--steps",
+            "3")
+
+
+def _four_cards(why: str) -> None:
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip(f"{why}: four CUDA devices")
+
+
+@pytest.fixture(scope="module")
+def cli_full_depth():
+    """One ``torchrun`` of the train CLI over four cards (``CLI_ARGS``):
+    its stdout lines and return code."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    _four_cards("the CLI's pp 2 x dp 2 plan runs a card a rank")
+    build.build()       # the ranks then only load the library
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+         *CLI_ARGS], cwd=str(root), env=env, capture_output=True, text=True,
+        timeout=900)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return r.stdout.strip().splitlines()
+
+
+def test_cli_full_depth_interleaved_plan_on_four_cards(dev, cli_full_depth):
+    """``torchrun`` of the train CLI over four cards (skipped below four):
+    llama3-8b at its 32 layers, seq 4096, global batch 8, ``--pp 2``: the
+    planner's interleaved-1f1bx2 plan over 18 and 14 layers, widened to
+    dp 2 (m 4), over NCCL with a card a rank, ZeRO-1 over ``data``.  The
+    printed plan, finite losses equal on every rank, and every rank's
+    peak under its card's memory; ``-s`` prints the summary."""
+    import json
+    import math
+
+    lines = cli_full_depth
+    plan = [ln for ln in lines if ln.startswith("[train] plan: ")]
+    assert plan == ["[train] plan: pp=2 tp=1 dp=2 mbs=1 m=4 "
+                    "sched=interleaved-1f1bx2 seg=18-14"], lines[:4]
+    summary = json.loads(lines[-1])
+    print(json.dumps(summary))
+    assert (summary["world"], summary["dp"], summary["pp"]) == (4, 2, 2)
+    assert summary["virtual_layers"] == [9, 8, 9, 6]
+    losses = summary["rank_losses"]
+    assert len(losses) == 4 and all(ls == losses[0] for ls in losses)
+    assert len(losses[0]) == 3 and all(map(math.isfinite, losses[0]))
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    assert all(0 < g < card_gb for g in summary["rank_peak_mem_gb"])
+
+
+def test_cli_full_depth_losses_match_a_1f1b_witness_on_four_cards(
+        dev, cli_full_depth):
+    """A witness of the CLI's full-depth run: the same stages (18 and 14
+    layers), dp 2, m 4, seed, batches and AdamW (the CLI's lr 3e-4 and 20
+    warmup steps), under plain 1f1b (vpp 1) on four ranks over NCCL.  The
+    two orders run the same layers on the same microbatches, so every
+    step's loss agrees within 2e-2 (bf16), a fault of the interleaved
+    order, its chunk offsets or its ZeRO-1 slices at this depth aside;
+    the replicas' parameters are equal bit for bit.  ``-s`` prints both
+    runs."""
+    import dataclasses
+    import json
+
+    from repro_torch.launch.train import search_plan
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+
+    kw = dict(arch="llama3-8b")
+    cli = json.loads(cli_full_depth[-1])
+    found = search_plan(registry.get_config(**kw), 2, 8, 4096)
+    assert found.schedule == "interleaved-1f1b" and found.layers == (18, 14)
+    plan = dataclasses.replace(
+        found, schedule="1f1b", vpp=1, chunk_layers=None,
+        stages=tuple(dataclasses.replace(st, dp=2) for st in found.stages))
+    res = run_ranks(rank_programs.pp_train, 4, timeout_s=900,
+                    backend="cpu:gloo,cuda:nccl", device="cuda",
+                    args=(kw, plan.to_dict(), 3,
+                          dict(lr=3e-4, warmup_steps=20)))
+    losses, want = res[0]["losses"], cli["rank_losses"][0]
+    print(json.dumps({"plan": plan.describe(), "cli": want,
+                      "cli_step_s": cli["step_s"],
+                      "ranks": [{k: r[k] for k in (
+                          "rank", "stage", "replica", "losses",
+                          "grad_norms", "step_s", "peak_gb",
+                          "replicas_equal")} for r in res]}))
+    assert all(r["losses"] == losses for r in res)
+    assert all(r["replicas_equal"] for r in res)
+    assert max(abs(a - b) for a, b in zip(losses, want)) < 2e-2, \
+        (losses, want)
+
+
+def test_pp_vpp_dp2_ranks_on_four_cards_match_one_process(dev):
+    """The planner's interleaved plan (vpp 2) for llama3-8b at full width
+    and 8 layers (bf16, seq 4096), widened to dp 2 at global batch 8, on
+    four ranks over NCCL, a card a rank, ZeRO-1 over ``data`` (skipped
+    below four cards), against the same plan's one-process pipeline on
+    one card: every step's loss within 2e-2 (bf16 products over other
+    row counts), equal on every rank, and its gradient norm and the
+    whole model's fp32 master move within 1e-2, relative; the replicas'
+    parameters equal bit for bit; each replica holds half of its stage's
+    optimizer state.  ``-s`` prints both runs."""
+    import dataclasses
+    import json
+    import math
+
+    from repro_torch.core import cluster as C
+    from repro_torch.core import planner
+    from repro_torch.kernels import build
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("pp 2 x dp 2 over NCCL needs a card a rank: four CUDA "
+                    "devices")
+    build.build()
+    kw = dict(arch="llama3-8b", num_layers=8)
+    cfg = registry.get_config(**kw)
+    cluster = C.ClusterSpec(groups=(C.NodeGroup(C.AMD, 1, accel_per_node=1),
+                                    C.NodeGroup(C.GPU_A, 1,
+                                                accel_per_node=1)))
+    found = planner.search(
+        cluster, cfg, global_batch=8, seq_len=4096, pp_options=[2],
+        tp_options=[1], micro_bs_options=[1, 2], require_fit=False,
+        include_tp_comm=False, schedule="interleaved-1f1b",
+        vpp_options=[2]).plan
+    plan = dataclasses.replace(found, stages=tuple(
+        dataclasses.replace(st, dp=2) for st in found.stages))
+    assert plan.vpp == 2 and plan.global_batch == 8
+    res = run_ranks(rank_programs.pp_train, 4, timeout_s=600,
+                    backend="cpu:gloo,cuda:nccl", device="cuda",
+                    args=(kw, plan.to_dict(), 3, None, True))
+    one = Trainer(registry.get_bundle(**kw),
+                  TrainerConfig(global_batch=8, seq_len=4096), plan=plan,
+                  device=dev)
+    assert one._pipeline_active()
+    out, moved = rank_programs.run_steps(one, 3, moves=True)
+    want = out["losses"]
+    # the whole model's master move a step: every rank's leaves together
+    move = [math.sqrt(sum(sum(r["master_moves"][i]) for r in res))
+            for i in range(3)]
+    want_move = [math.sqrt(sum(m)) for m in moved]
+    print(json.dumps({"plan": plan.describe(), "one_process": want,
+                      "one_process_grad_norms": out["grad_norms"],
+                      "master_move": move, "one_process_move": want_move,
+                      "ranks": [{k: r[k] for k in (
+                          "rank", "stage", "replica", "losses",
+                          "grad_norms", "step_s", "peak_gb", "state_gb",
+                          "n_params", "param_bytes", "opt_bytes",
+                          "replicas_equal")} for r in res]}))
+    losses = res[0]["losses"]
+    assert all(r["losses"] == losses for r in res)
+    assert all(r["replicas_equal"] for r in res)
+    assert max(abs(a - b) for a, b in zip(losses, want)) < 2e-2, \
+        (losses, want)
+    # at the warmup's rate the losses barely move: the gradient norm and
+    # the update are held too (a replica's slice left unchanged would
+    # take a quarter of the move's square away)
+    for got, ref_ in ((res[0]["grad_norms"], out["grad_norms"]),
+                      (move, want_move)):
+        assert max(abs(a - b) / b for a, b in zip(got, ref_)) < 1e-2, \
+            (got, ref_)
+    for r in res:   # bf16 parameters: 12 bytes of ZeRO state each, halved
+        assert r["opt_bytes"] - r["opt_whole_bytes"] == \
+            (4 * r["n_params"] * len(r["opt_trees"])
+             - r["opt_whole_bytes"]) // 2

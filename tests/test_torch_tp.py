@@ -12,6 +12,9 @@ vocab 256):
   * (a) the port's rule table (``parallel/sharding.ShardingRules``)
     against JAX's ``ShardingRules(cfg, tp=t).param_specs`` on every leaf
     of every config of JAX's registry at t in {1, 2, 4, 8, 16};
+  * (a') the port's ZeRO-1 rule (``ShardingRules.zero_dim``) against
+    JAX's ``opt_state_spec`` over ``param_specs`` on the same leaves at
+    tp in {1, 2} and data widths 1-16;
   * (b) ``shard_tree``/``gather_trees`` and a rank's own initialisation
     reproduce the whole state bit for bit;
   * (c) the loss and the gathered gradients of pp 1 at tp 2 (kv heads
@@ -112,6 +115,40 @@ def test_rules_match_jax_on_every_registry_config(tp):
             assert got == want, (arch, tp, path, leaf.shape, spec)
             n_split += got is not None
     assert n_split > 0      # JAX names model at tp 1 too: its size is 1
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_zero1_rule_matches_jax_on_every_registry_config(tp):
+    """For every leaf and data width 1-16, the dim along which the port
+    splits the AdamW moments and master over ``data`` is the dim where
+    JAX's ``opt_state_spec`` of its ``param_specs`` names ``data`` (or
+    neither splits)."""
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    n_split = n_whole = 0
+    for arch in jreg.ARCH_IDS:
+        jb = jreg.get_bundle(arch)
+        shapes = jax.eval_shape(lambda: jb.init(jax.random.PRNGKey(0),
+                                                jb.cfg))
+        jrules = JRules(jb.cfg, tp=tp)
+        specs = jax.tree_util.tree_leaves(
+            jrules.param_specs(shapes),
+            is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+        cfg = ModelConfig(**{k: v for k, v in
+                             dataclasses.asdict(jb.cfg).items()
+                             if k in fields})
+        rules = sharding.ShardingRules(cfg, tp=tp)
+        flat = jax.tree_util.tree_flatten_with_path(shapes)[0]
+        for (kp, leaf), spec in zip(flat, specs):
+            path = tuple(k.key if hasattr(k, "key") else str(k) for k in kp)
+            for dp in range(1, 17):
+                zspec = jrules.opt_state_spec(spec, leaf.shape, dp)
+                want = (list(zspec).index("data") if "data" in zspec
+                        else None)
+                got = rules.zero_dim(path, leaf.shape, dp)
+                assert got == want, (arch, tp, dp, path, leaf.shape, zspec)
+                n_split += got is not None
+                n_whole += got is None
+    assert n_split > 0 and n_whole > 0
 
 
 # -------------------------------------------- (b) shard, gather, init ----

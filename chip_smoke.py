@@ -59,7 +59,17 @@ Phases, each raising on failure so the script exits non-zero:
               a hop (2 m a step), each rank's in-flight peak the
               simulator's; the step time, tokens/s, each rank's peak
               memory, and the host-staged hop's time beside the
-              cpu_staged transport's price.  Then tp_ranks: the
+              cpu_staged transport's price.  Then the checkpoints:
+              pp_ranks saves after its timed steps (step 3, each process
+              its own elements) into a directory of /dev/shm named after
+              this checkout and its TMPDIR (removed at the phase's end,
+              on SIGTERM or SIGHUP, and at the next start if a killed run
+              left it) and takes a fourth step; the pp route restores
+              that checkpoint, its loss within 1e-5 of the fourth; the
+              reference cell saves at step 2 into the temporary directory
+              while step 3 runs, and a new trainer resumes there, its
+              restored state and first loss equal bit for bit; every
+              save's and restore's times and bytes.  Then tp_ranks: the
               reference cell (batch 1, seed 0, its batches) as a pp 1
               plan whose one stage's 4 layers, embedding and unembedding
               are split over 2 model ranks (tp 2, the Megatron split of
@@ -123,10 +133,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import hashlib
 import json
 import math
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -212,6 +226,17 @@ VPP_LAYERS = 8
 # unchanged would read ~0.71 of it) are held, relative, at DP_NORM_TOL
 DP_RANKS = 2
 DP_NORM_TOL = 1e-2
+# the checkpoint phase: pp_ranks' two processes write one checkpoint after
+# their TRAIN_STEPS timed steps (so that none of those overlaps a save)
+# and take one more, which the pp route, restoring the checkpoint, repeats;
+# the reference cell saves every CKPT_EVERY steps (the step-2 save written
+# while step 3 runs) and a new trainer resumes from it.  A checkpoint of
+# the 4-layer state takes 27.0 GB.  A GPU host's scratch disk may cap a
+# run's writes (45 GiB on the H100 host measured, freed blocks counted), so
+# only the reference cell's goes to the disk (the temporary directory) and
+# pp_ranks' to /dev/shm, in host memory beside the ranks' snapshots, in a
+# directory named after this checkout and its temporary directory
+CKPT_EVERY, CKPT_BYTES = 2, 27.0e9
 
 
 def log(msg: str) -> None:
@@ -1457,13 +1482,15 @@ def _rank_launches(n_layers: int, last: bool, m: int, steps: int) -> dict:
 
 
 def phase_train_pp_ranks(torch, dev, smi: str, pp: dict,
-                         hop: bool = True):
+                         hop: bool = True, ckpt_dir=None):
     """The plan of the pp route ``pp`` (its summary) with each stage in its
     own process on this card: PP_STAGES ranks from ``run_ranks`` over
     gloo, the plan's transport replaced by "cpu" (NCCL cannot put two
     ranks on one device).  Checked against the pp route's losses and
     launches; then, with ``hop``, the host-staged hop alone, a ping-pong
-    of one activation between the two ranks."""
+    of one activation between the two ranks.  With ``ckpt_dir`` the ranks
+    write one checkpoint there after the timed steps, each its own
+    elements, and take one more step (``after_losses``)."""
     from repro_torch.core.plan import ParallelPlan
     from repro_torch.core.simulator import peak_activation_microbatches
     from repro_torch.iccl.transports import default_registry
@@ -1486,7 +1513,9 @@ def phase_train_pp_ranks(torch, dev, smi: str, pp: dict,
     res = run_ranks(rank_programs.pp_train, PP_STAGES, device=str(dev),
                     timeout_s=RANKS_TIMEOUT_S,
                     args=(dict(arch="llama3-8b", num_layers=pp["layers"]),
-                          plan.to_dict(), n))
+                          plan.to_dict(), n, None, False,
+                          None if ckpt_dir is None else str(ckpt_dir),
+                          n, 0, int(ckpt_dir is not None)))
     wall = time.perf_counter() - t0
     losses = res[-1]["losses"]
     step_s = [max(r["step_s"][i] for r in res) for i in range(n)]
@@ -1547,8 +1576,24 @@ def phase_train_pp_ranks(torch, dev, smi: str, pp: dict,
         "peak_inflight": [r["peak_inflight"] for r in res],
         "order": [r["order"] for r in res],
         "isend_irecv_notes_a_step": len(hops) // n, "hop_bytes": hop_bytes,
-        "run_ranks_wall_s": wall,
+        "run_ranks_wall_s": wall, "rank_ckpt": [r["ckpt"] for r in res],
+        "after_losses": res[-1]["after_losses"],
+        "rank_after_step_s": [r["after_step_s"] for r in res],
     }
+    if ckpt_dir is not None:
+        assert all(r["after_losses"] == res[-1]["after_losses"]
+                   for r in res), [r["after_losses"] for r in res]
+        assert all(map(math.isfinite, res[-1]["after_losses"]))
+        for r in res:
+            c = r["ckpt"]
+            log(f"[ckpt] {route} rank {r['rank']} on {smi}: its part of the "
+                f"step-{n} checkpoint, {c['bytes'] / 1e9:.3f} GB snapshotted "
+                f"(the leaves it writes): snapshot {c['snapshot_s']:.3f} s "
+                f"(blocking), write {c['write_s']:.3f} s in the background "
+                f"({c['bytes'] / c['write_s'] / 1e9:.3f} GB/s; rank 0's "
+                f"waits for every rank's); the step after the save "
+                f"{r['after_step_s'][0]:.4f} s against {r['step_s'][-1]:.4f}"
+                f" before (the timed steps overlap no save)")
     if not hop:
         log(f"[train] {route} report {json.dumps(summary)}")
         return summary, launches
@@ -1794,6 +1839,245 @@ def phase_train_dp_ranks(torch, dev, smi: str, ref: dict):
     return summary, launches
 
 
+# ------------------------------------------------------------ phase 6c ---
+def _proc_kb(path: str, field: str) -> int:
+    """``field`` of a /proc file in kB: MemAvailable of /proc/meminfo,
+    VmRSS of /proc/self/status."""
+    for line in Path(path).read_text().splitlines():
+        if line.startswith(field + ":"):
+            return int(line.split()[1])
+    raise KeyError(field)
+
+
+def _ckpt_dir(parent: Path, what: str, host_copies: int = 0,
+              name: str = ""):
+    """A fresh directory under ``parent`` for ``what``, a checkpoint of the
+    4-layer state: its filesystem must have CKPT_BYTES free, and the host
+    ``host_copies`` times that available beside it; with df's line.
+    ``name``: the directory's name, removed first if a killed run left
+    it (default: a new temporary name)."""
+    if not parent.is_dir():
+        raise RuntimeError(f"checkpoint phase: no {parent} for {what}")
+    if name and (parent / name).exists():
+        log(f"[ckpt] removing {parent / name}, left by a run that was "
+            "killed")
+        shutil.rmtree(parent / name)
+    fs = " ".join(subprocess.run(
+        ["df", "-PT", str(parent)], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[-1].split())
+    free = shutil.disk_usage(parent).free
+    avail = _proc_kb("/proc/meminfo", "MemAvailable") * 1e3
+    log(f"[ckpt] {what}: {parent} ({fs}), {free / 1e9:.1f} GB free, host "
+        f"memory available {avail / 1e9:.1f} GB")
+    if free < 1.1 * CKPT_BYTES:
+        raise RuntimeError(f"checkpoint phase: {parent} has {free / 1e9:.1f}"
+                           f" GB free; {what} needs {CKPT_BYTES / 1e9:.1f}")
+    if avail < host_copies * 1.1 * CKPT_BYTES:
+        raise RuntimeError(
+            f"checkpoint phase: {avail / 1e9:.1f} GB of host memory "
+            f"available; {what} needs {host_copies} x "
+            f"{CKPT_BYTES / 1e9:.1f} GB")
+    if not name:
+        return Path(tempfile.mkdtemp(prefix="repro-ckpt-", dir=parent)), fs
+    (parent / name).mkdir(mode=0o700)
+    return parent / name, fs
+
+
+def _shm_name() -> str:
+    """A /dev/shm directory's name, this checkout's and its temporary
+    directory's: a second checkout on the host never shares it, and a
+    killed run's is found again by the next run of this checkout."""
+    key = f"{ROOT}\0{tempfile.gettempdir()}".encode()
+    return f"repro-ckpt-{hashlib.sha1(key).hexdigest()[:16]}"
+
+
+def _stop(signum, frame):
+    """SIGTERM and SIGHUP end the run through its ``finally`` blocks, which
+    remove the checkpoints and stop the rank processes."""
+    raise SystemExit(128 + signum)
+
+
+def _dir_bytes(d: Path) -> int:
+    return sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+
+
+def _reference_launches(n_layers: int, steps: int) -> dict:
+    """The reference route's launches over ``steps`` steps (phase_train)."""
+    return {"rmsnorm": (2 * n_layers + 1) * steps,
+            "rmsnorm_bwd": (2 * n_layers + 1) * steps,
+            "swiglu": n_layers * steps, "swiglu_bwd": n_layers * steps,
+            "flash_attention": n_layers * steps,
+            "ring_step_bwd": n_layers * steps}
+
+
+def phase_ckpt(torch, dev, smi: str, d: Path, fs: str):
+    """Checkpoints on the card: the reference cell (batch 1, 4 layers),
+    trainer A taking TRAIN_STEPS steps saving every CKPT_EVERY into ``d``,
+    so the step-2 save is written while step 3 runs; a new trainer B
+    restores step 2, its state equal bit for bit to the snapshot A's save
+    wrote (leaf by leaf on the host), and its step's loss equal bit for
+    bit to A's third (the forward kernels use no atomics).  Exact launch
+    counts over the 4 steps; the save's snapshot (blocking), its
+    background write and B's init with the restore timed, with the bytes
+    and the host memory the snapshot took."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.parallel.sharding import map_with_path
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = TRAIN_LAYERS
+    b = registry.get_bundle("llama3-8b", num_layers=L)
+    cfg = TrainerConfig(global_batch=1, seq_len=TRAIN_SEQ, ckpt_dir=str(d),
+                        ckpt_every=CKPT_EVERY)
+    kept = {}
+    save = ckpt.save
+
+    def keep(ckpt_dir, step, host_state, extra=None):
+        # the snapshot this background save writes, held for the comparison
+        kept["state"] = host_state
+        kept["rss_kb"] = _proc_kb("/proc/self/status", "VmRSS")
+        return save(ckpt_dir, step, host_state, extra)
+
+    ckpt.save = keep
+    try:
+        a = Trainer(b, cfg, device=dev)
+        assert a.step == 0, a.step
+        rss0 = _proc_kb("/proc/self/status", "VmRSS")
+        ops.reset_launch_counts()
+        ran = a.run(TRAIN_STEPS)
+        launches = ops.launch_counts()
+        snap = dict(a.ckpt.timings)
+        assert ckpt.all_steps(str(d)) == [CKPT_EVERY], ckpt.all_steps(str(d))
+        del a
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        ckpt.save = save
+    nbytes = _dir_bytes(d / f"step_{CKPT_EVERY:08d}")
+    t0 = time.perf_counter()
+    resumed = Trainer(b, cfg, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    assert resumed.step == resumed.data.state.step == CKPT_EVERY
+    assert resumed.migrations == {"checkpoint": 0}
+    diff = []
+
+    def same(path, t):
+        want = kept["state"]
+        for k in path:
+            want = want[k]
+        if not (t.dtype == want.dtype and torch.equal(t.cpu(), want)):
+            diff.append("/".join(path))
+        return t.numel()
+
+    n_el = sum(_leaves(map_with_path(same, resumed.state)))
+    del kept["state"]
+    gc.collect()
+    ops.reset_launch_counts()
+    after = resumed.run(1)
+    for k, n in ops.launch_counts().items():
+        launches[k] += n
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect = dict.fromkeys(launches, 0)
+    expect.update(_reference_launches(L, TRAIN_STEPS + 1))
+    losses, step_s = ran["losses"], ran["step_s"]
+    snap_gb = snap["bytes"] / 1e9
+    log(f"[ckpt] reference route, llama3-8b {L} layers, on {smi}: "
+        f"checkpoint of step {CKPT_EVERY} {nbytes / 1e9:.3f} GB on disk; "
+        f"snapshot {snap['snapshot_s']:.3f} s (blocking, "
+        f"{snap_gb / snap['snapshot_s']:.3f} GB/s), write "
+        f"{snap['write_s']:.3f} s in the background "
+        f"({nbytes / snap['write_s'] / 1e9:.3f} GB/s); trainer init "
+        f"with the restore {init_s:.3f} s ({nbytes / init_s / 1e9:.3f} "
+        f"GB/s)")
+    log(f"[ckpt] reference route on {smi}: step s {step_s} (step 3 with the "
+        f"save in flight {step_s[2]:.4f} against {step_s[1]:.4f} before); "
+        f"host memory: snapshot {snap_gb:.3f} GB, VmRSS "
+        f"{rss0 / 1e6:.3f} -> {kept['rss_kb'] / 1e6:.3f} GB at the write; "
+        f"filesystem {' '.join(fs.split()[:2])}")
+    log(f"[ckpt] reference route: losses {losses}, resumed at step "
+        f"{CKPT_EVERY}: {after['losses']}; restored state {n_el} elements, "
+        f"leaves unequal {diff}; launches {launches} expected {expect}")
+    assert not diff, diff
+    assert after["losses"][0] == losses[2], (after["losses"], losses)
+    assert launches == expect, (launches, expect)
+    assert all(map(math.isfinite, losses + after["losses"]))
+
+    summary = {
+        "filesystem": fs, "ckpt_every": CKPT_EVERY, "bytes": nbytes,
+        "snapshot_bytes": snap["bytes"], "snapshot_s": snap["snapshot_s"],
+        "write_s": snap["write_s"], "init_s": init_s,
+        "step_s": step_s, "losses": losses,
+        "resumed_losses": after["losses"],
+        "vmrss_kb": [rss0, kept["rss_kb"]], "restored_elements": n_el,
+        "launches": launches,
+    }
+    log(f"[ckpt] report {json.dumps(summary)}")
+    return summary, launches
+
+
+def phase_ckpt_pp(torch, dev, smi: str, d: Path, fs: str, pp: dict,
+                  pp_ranks: dict):
+    """The pp route of the pp cell's plan (``pp``: its summary) restores
+    the checkpoint pp_ranks' two processes wrote into ``d`` after their
+    TRAIN_STEPS timed steps (``pp_ranks``: its summary), timed; its step's
+    loss lies within RANKS_LOSS0_TOL of pp_ranks' next step's; exact launch
+    counts."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved = TRAIN_STEPS
+    assert ckpt.all_steps(str(d)) == [saved], ckpt.all_steps(str(d))
+    nbytes = _dir_bytes(d / f"step_{saved:08d}")
+    plan = ParallelPlan.from_dict(pp["plan_dict"])
+    b = registry.get_bundle("llama3-8b", num_layers=pp["layers"])
+    t0 = time.perf_counter()
+    # ckpt_every: no save in its one step
+    t = Trainer(b, TrainerConfig(global_batch=PP_BATCH, seq_len=TRAIN_SEQ,
+                                 ckpt_dir=str(d), ckpt_every=10 * saved),
+                plan=plan, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    assert t._pipeline_active() and t.step == saved, t.step
+    ops.reset_launch_counts()
+    got = t.run(1)["losses"][0]
+    launches = ops.launch_counts()
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    m, L = pp["micro_batches"], pp["layers"]
+    want = dict.fromkeys(launches, 0)
+    want.update(rmsnorm=m * (4 * L + 1), flash_attention=2 * m * L,
+                swiglu=2 * m * L, rmsnorm_bwd=m * (2 * L + 1),
+                swiglu_bwd=m * L, ring_step_bwd=m * L)
+    ref = pp_ranks["after_losses"][0]
+    log(f"[ckpt] pp route restores pp_ranks' step-{saved} checkpoint "
+        f"({nbytes / 1e9:.3f} GB on {' '.join(fs.split()[:2])}, written by "
+        f"{len(pp_ranks['rank_ckpt'])} processes) on {smi}: trainer init "
+        f"with the restore {init_s:.3f} s ({nbytes / init_s / 1e9:.3f} "
+        f"GB/s); loss {got} vs pp_ranks' step after the save {ref}: diff "
+        f"{abs(got - ref):.3e} (tol {RANKS_LOSS0_TOL}); launches "
+        f"{launches} expected {want}")
+    assert abs(got - ref) < RANKS_LOSS0_TOL, (got, ref)
+    assert launches == want, (launches, want)
+    summary = {"filesystem": fs, "bytes": nbytes, "init_s": init_s,
+               "loss": got, "pp_ranks_loss": ref,
+               "rank_ckpt": pp_ranks["rank_ckpt"], "launches": launches}
+    log(f"[ckpt] pp report {json.dumps(summary)}")
+    return summary, launches
+
+
 # ------------------------------------------------------------ phase 6b ---
 PROFILE_SEQS, PROFILE_MBS = (TRAIN_SEQ,), (1,)
 PROFILE_WARMUP, PROFILE_REPS = 2, 5
@@ -1986,6 +2270,8 @@ def main(argv=None) -> int:
 
     if args.device_times:
         return device_times_main(torch, dev)
+    for sig in (signal.SIGTERM, signal.SIGHUP):
+        signal.signal(sig, _stop)
     from repro_torch.kernels.ops import LAUNCH_COUNTERS
 
     smi, name = phase_card(torch)
@@ -2018,10 +2304,27 @@ def main(argv=None) -> int:
     train["pp"], counts = phase_train_pp(torch, dev, smi)
     for kname, n in counts.items():
         launches[kname] += n
-    train["pp_ranks"], counts = phase_train_pp_ranks(torch, dev, smi,
-                                                     train["pp"])
-    for kname, n in counts.items():
-        launches[kname] += n
+    d, fs = _ckpt_dir(Path("/dev/shm"), "pp_ranks' checkpoint",
+                      host_copies=2, name=_shm_name())
+    try:
+        train["pp_ranks"], counts = phase_train_pp_ranks(
+            torch, dev, smi, train["pp"], ckpt_dir=d)
+        for kname, n in counts.items():
+            launches[kname] += n
+        train["ckpt pp"], counts = phase_ckpt_pp(
+            torch, dev, smi, d, fs, train["pp"], train["pp_ranks"])
+        for kname, n in counts.items():
+            launches[kname] += n
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    d, fs = _ckpt_dir(Path(tempfile.gettempdir()),
+                      "the reference cell's checkpoint", host_copies=2)
+    try:
+        train["ckpt"], counts = phase_ckpt(torch, dev, smi, d, fs)
+        for kname, n in counts.items():
+            launches[kname] += n
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
     train["tp_ranks"], counts = phase_train_tp_ranks(torch, dev, smi,
                                                      train["reference"])
     for kname, n in counts.items():

@@ -33,9 +33,18 @@ plan places dp 1 a stage; with dp > 1 each stage is widened to dp
 replicas of the same microbatch size.  The cp ring is reached, as in the
 JAX package, through ``Trainer(plan=...)``.  Rank 0 prints ``[train]
 step=.. loss=.. tok/s=..`` every ``LOG_EVERY`` steps and, last, a JSON
-summary (with its step times, and every rank's losses and peak memory
-under torchrun).  Left for ROADMAP A6: ``--degrade``, ``--adapt``,
-``--lose``/``--join``, telemetry, checkpoints and observability.
+summary (with its start step and step times, and every rank's losses and
+peak memory under torchrun).
+
+Checkpoints as in the JAX CLI: ``--ckpt-dir`` (default ``repro_train``
+in the temporary directory, ``$TMPDIR`` or the JAX CLI's
+``/tmp/repro_train``) gets one every ``--ckpt-every`` steps (default 50),
+written in the background; a run starts from the latest one there, prints
+``start_step=``, and then takes ``--steps`` more.  Under ``torchrun``
+every rank writes its own part of one checkpoint in the same directory,
+and any plan, any world size or one process resumes from it.  Left for
+ROADMAP A6b and A6c: ``--degrade``, ``--adapt``, ``--lose``/``--join``,
+telemetry and observability.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ import argparse
 import dataclasses
 import json
 import os
+import tempfile
 import time
 
 import torch
@@ -84,6 +94,9 @@ def main(argv=None):
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(), "repro_train"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--pp", type=int, default=0,
                     help="train a planner-searched pp-stage pipeline "
                          "(0 = the reference loss)")
@@ -134,10 +147,14 @@ def _train(args, bundle, plan, dev, world: int) -> None:
         log(f"[train] plan: {plan.describe()}", flush=True)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
     t = Trainer(bundle, TrainerConfig(global_batch=args.global_batch,
-                                      seq_len=args.seq),
+                                      seq_len=args.seq,
+                                      ckpt_dir=args.ckpt_dir,
+                                      ckpt_every=args.ckpt_every),
                 plan=plan, opt_cfg=AdamWConfig(lr=args.lr, warmup_steps=20),
                 device=dev)
+    init_s, start_step = time.time() - t0, t.step
     if world > 1 and t.grid is None:
         raise RuntimeError("this process is not one rank of the run")
     rplan = t.train_step.plan if t.grid is not None else plan
@@ -166,7 +183,7 @@ def _train(args, bundle, plan, dev, world: int) -> None:
         dist.all_gather_object(peaks, peak)
         dist.all_gather_object(rank_losses, losses)
     summary = {
-        "final_loss": losses[-1], "steps": t.step,
+        "final_loss": losses[-1], "start_step": start_step, "steps": t.step,
         "params_m": round(n_params / 1e6, 1), "device": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
@@ -180,6 +197,9 @@ def _train(args, bundle, plan, dev, world: int) -> None:
         "transport": rplan.transport if rplan else None,
         "rank_peak_mem_gb": peaks, "rank_losses": rank_losses,
         "step_s": step_s,
+        # the trainer's init (a restore included) and the last save's
+        # timings (rank 0's write waits for every rank's part)
+        "init_s": init_s, "ckpt": t.ckpt.timings if t.ckpt else None,
     }
     log(json.dumps(summary))
 

@@ -62,7 +62,8 @@ with m > pp and m % pp != 0 stay refused there.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -448,6 +449,124 @@ def gather_rank_states(states: Sequence[Dict[str, Any]],
                   for i in range(0, len(states), tp)]
     return _gather_states(states,
                           lambda ts: gather_stage_trees(ts, layers))
+
+
+Index = Tuple[slice, ...]
+
+
+class LeafSlices(NamedTuple):
+    """Where one leaf of a rank's state sits in the canonical whole leaf:
+    ``pieces`` are ``(rank index, whole index)`` pairs of basic slices,
+    ``shape`` the rank's leaf, ``whole`` the whole leaf's shape; ``writer``
+    marks the one rank that writes these elements to a checkpoint."""
+    shape: Tuple[int, ...]
+    whole: Tuple[int, ...]
+    pieces: Tuple[Tuple[Index, Index], ...]
+    writer: bool
+
+
+# a piece: (first index in the rank's leaf, first in the whole, size), per dim
+_Piece = Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]]
+
+
+def _cut(pieces: List[_Piece], shape: Tuple[int, ...], d: int, n: int,
+         i: int) -> Tuple[List[_Piece], Tuple[int, ...]]:
+    """Slice ``i`` of ``n`` equal slices along dim ``d`` (``Tensor.chunk``
+    of a divisible dim) of a leaf made of ``pieces``."""
+    k = shape[d] // n
+    a, b = i * k, (i + 1) * k
+    out = []
+    for lo, wlo, size in pieces:
+        s, e = max(lo[d], a), min(lo[d] + size[d], b)
+        if s < e:
+            out.append((lo[:d] + (s - a,) + lo[d + 1:],
+                        wlo[:d] + (wlo[d] + s - lo[d],) + wlo[d + 1:],
+                        size[:d] + (e - s,) + size[d + 1:]))
+    return out, shape[:d] + (k,) + shape[d + 1:]
+
+
+def rank_leaf_slices(whole: Dict[str, Any], plan_or_layers: LayersLike,
+                     stage: int, rules: Optional[ShardingRules] = None,
+                     model_rank: int = 0, *,
+                     replica: int = 0) -> Dict[str, Any]:
+    """``split_state_for_rank``'s tree for rank (``stage``, ``replica``,
+    ``model_rank``) with a ``LeafSlices`` at each leaf: where the leaf's
+    elements sit in the whole state ``whole`` (only its shapes are read; a
+    ``meta`` tree will do).  The slices compose as the split takes them:
+    the stage's chunks of layers in virtual order, the model rank's slice
+    of ``rules.split_dim``, then for the AdamW moments and master at
+    dp > 1 the replica's ZeRO-1 slice of ``zero_dim`` (which may cross a
+    chunk boundary, hence a list of pieces).
+
+    One rank writes each element: replica 0 the parameters and the
+    optimizer leaves ZeRO-1 keeps whole, every replica its ZeRO-1 slice;
+    of a leaf the ``model`` axis replicates (norms, kv heads that
+    ``_local_kv`` replicates at tp > Hk), model rank 0; ``step`` and
+    ``opt/count`` rank 0."""
+    layers, vpp, dp = _layout(plan_or_layers)
+    chunks = _chunks(layers, stage, vpp)
+    first, last = stage == 0, stage == len(layers) // vpp - 1
+    tp = 1 if rules is None else rules.tp
+    if dp > 1 and rules is None:
+        raise ValueError(f"dp={dp}: ZeRO-1 splits the optimizer state by "
+                         "the sharding rules; pass rules")
+
+    def part(path, a):
+        """(pieces, shape, tp split dim) of the rank's share of ``a``."""
+        shape = tuple(a.shape)
+        zero = (0,) * len(shape)
+        if path[0] == "blocks":     # the chunks stacked in virtual order
+            pieces, off = [], 0
+            for start, n in chunks:
+                if n:
+                    pieces.append(((off,) + zero[1:], (start,) + zero[1:],
+                                   (n,) + shape[1:]))
+                    off += n
+            shape = (off,) + shape[1:]
+        else:
+            pieces = [(zero, zero, shape)]
+        d = None if tp == 1 else rules.split_dim(path, len(shape))
+        if d is not None:
+            pieces, shape = _cut(pieces, shape, d, tp, model_rank)
+        return pieces, shape, d
+
+    def leaf(a, pieces, shape, writer):
+        return LeafSlices(shape, tuple(a.shape), tuple(
+            (tuple(slice(lo, lo + n) for lo, n in zip(lo, size)),
+             tuple(slice(w, w + n) for w, n in zip(wlo, size)))
+            for lo, wlo, size in pieces), writer)
+
+    def own(tree):      # the stage's keys, as ``stage_tree`` keeps them
+        return {k: v for k, v in tree.items()
+                if k == "blocks" or (first if k == "embed" else last)}
+
+    def params_tree(tree):
+        def one(path, a):
+            pieces, shape, d = part(path, a)
+            return leaf(a, pieces, shape, replica == 0 and
+                        (d is not None or model_rank == 0))
+        return map_with_path(one, own(tree))
+
+    def opt_tree(tree):
+        def one(path, a):
+            pieces, shape, d = part(path, a)
+            # the parameter's share has this shape: ``zero_dims`` of it
+            z = None if dp == 1 else rules.zero_dim(path, shape, dp)
+            if z is not None:
+                pieces, shape = _cut(pieces, shape, z, dp, replica)
+            return leaf(a, pieces, shape, (z is not None or replica == 0)
+                        and (d is not None or model_rank == 0))
+        return map_with_path(one, own(tree))
+
+    head = stage == 0 and replica == 0 and model_rank == 0
+
+    def scalar(a):
+        return LeafSlices((), (), (((), ()),), head)
+
+    opt = {k: scalar(v) if k == "count" else opt_tree(v)
+           for k, v in whole["opt"].items()}
+    return {"params": params_tree(whole["params"]), "opt": opt,
+            "step": scalar(whole["step"])}
 
 
 def init_rank_state(bundle, plan_or_layers: LayersLike, stage: int,

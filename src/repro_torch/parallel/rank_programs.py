@@ -39,7 +39,10 @@ def _torch_tree(tree, device):
 
 
 def _numpy_tree(tree):
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """numpy copies of the leaves, bf16 widened to fp32 (exact)."""
+    return tree_map(lambda t: t.detach().to(
+        "cpu", torch.float32 if t.dtype == torch.bfloat16 else t.dtype,
+        copy=True).numpy(), tree)
 
 
 def _nbytes(tree) -> int:
@@ -231,17 +234,26 @@ def run_steps(t: Trainer, steps: int, moves: bool = False
 def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
              plan: Dict[str, Any], steps: int,
              opt: Optional[Dict[str, Any]] = None,
-             moves: bool = False) -> Dict[str, Any]:
+             moves: bool = False, ckpt_dir: Optional[str] = None,
+             ckpt_every: int = 10, start_step: int = 0, after: int = 0,
+             states: bool = False) -> Dict[str, Any]:
     """``steps`` ``Trainer`` steps of a plan on the rank route from a fresh
-    state (seed 0; ``opt``: the ``AdamWConfig`` fields, None its
-    defaults), with what this rank saw: the losses, gradient norms and
-    step times, its kernel launches, the ICCL notes, its in-flight peak,
-    its state's bytes (parameters; optimizer state, and of that the
-    leaves ZeRO-1 keeps whole), its leaves and how many ZeRO-1 splits, and
-    its state and peak memory (GB, on the card); with ``moves``,
-    ``run_steps``'s moves of its fp32 master.  At dp > 1, whether its
-    parameters equal every other replica's bit for bit after the run
-    (gathered over ``data``)."""
+    state (seed 0) or a checkpoint (below; ``opt``: the ``AdamWConfig``
+    fields, None its defaults), with what this rank saw: the losses,
+    gradient norms and step times, its kernel launches, the ICCL notes, its
+    in-flight peak, its state's bytes (parameters; optimizer state, and of
+    that the leaves ZeRO-1 keeps whole), its leaves and how many ZeRO-1
+    splits, and its state and peak memory (GB, on the card); with
+    ``moves``, ``run_steps``'s moves of its fp32 master.  At dp > 1, whether
+    its parameters equal every other replica's bit for bit after the run
+    (gathered over ``data``).  With ``ckpt_dir``, the trainer starts from
+    the latest checkpoint there, which must be of step ``start_step`` (no
+    checkpoint: 0), saves there every ``ckpt_every`` steps, and ``ckpt``
+    holds the last save's timings.  ``after`` more steps follow the run,
+    outside its launch counts, notes and step times (``after_losses``,
+    ``after_step_s``).  With ``states``, this rank's state (numpy, bf16
+    widened to fp32) at the start, after the run and after the ``after``
+    steps."""
     dev = _device()
     bundle = registry.get_bundle(**bundle_kw)
     p = ParallelPlan.from_dict(plan)
@@ -250,16 +262,25 @@ def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     t = Trainer(bundle, TrainerConfig(global_batch=p.global_batch,
-                                      seq_len=p.seq_len, tp=p.tps[0]),
+                                      seq_len=p.seq_len, tp=p.tps[0],
+                                      ckpt_dir=ckpt_dir,
+                                      ckpt_every=ckpt_every),
                 plan=p, opt_cfg=AdamWConfig(**(opt or {})), device=dev)
+    if t.step != start_step:
+        raise ValueError(f"{ckpt_dir}: started at step {t.step}, not "
+                         f"{start_step}")
     if cuda:
         torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
     state_gb = torch.cuda.memory_allocated(dev) / 1e9 if cuda else None
+    kept = [_numpy_tree(t.state)] if states else []
     ops.reset_launch_counts()
     with _Notes() as notes:
         out, moved = run_steps(t, steps, moves)
     launches = ops.launch_counts()
+    ckpt = dict(t.ckpt.timings) if t.ckpt is not None else None
+    if states:
+        kept.append(_numpy_tree(t.state))
     params = t.state["params"]
     dp = t.grid.dp
     dims = (zero_dims(params, t.train_step.rules, dp) if dp > 1
@@ -270,6 +291,9 @@ def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
         same = all(all(torch.equal(x, part) for part in
                        data.iallgather(x, tiled=False).unbind(0))
                    for x in tree_leaves(params))
+    later = t.run(after)
+    if states:
+        kept.append(_numpy_tree(t.state))
     opt_state = {k: v for k, v in t.state["opt"].items() if k != "count"}
     whole = tree_map(lambda _, d: d is None, params, dims)
     return {"rank": rank, "stage": t.grid.stage, "replica": t.grid.replica,
@@ -287,7 +311,9 @@ def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
                 for a, w in zip(tree_leaves(o), tree_leaves(whole)) if w),
             "state_gb": state_gb,
             "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
-                        if cuda else None)}
+                        if cuda else None),
+            "ckpt": ckpt, "after_losses": later["losses"],
+            "after_step_s": later["step_s"], "states": kept}
 
 
 def hop_times(rank: int, world: int, shape: Sequence[int], dtype: str,

@@ -169,3 +169,14 @@ def init_train_state(bundle: ArchBundle, seed: int = 0,
     return {"params": params,
             "opt": adamw.init_opt_state(params, keep_master=keep_master),
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
+
+
+def train_state_shapes(bundle: ArchBundle) -> Dict[str, Any]:
+    """``init_train_state``'s tree as ``meta`` tensors (shapes and dtypes,
+    no storage), traced through the init under fake tensors: the whole
+    state's leaves that a rank of a plan does not hold."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        state = init_train_state(bundle, device="cpu")
+    return adamw.tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), state)

@@ -29,9 +29,21 @@ synthetic batches:
     of the global batch (of every microbatch when pp > 1), and steps with
     ``pipeline.PPRankStep``; every rank reports the step's loss.
 
-Left out of the JAX trainer, each a ROADMAP item: checkpoints and restart,
-stage telemetry, straggler detection, replanning and migration,
-adaptation and observability (queue A, item A6).
+Checkpoints (the JAX trainer's, ``ckpt/checkpoint.py``): with
+``TrainerConfig.ckpt_dir`` set, a trainer starts from the latest complete
+checkpoint there, data state included, and ``run`` saves one in the
+background after every step that ``ckpt_every`` divides.  Every route
+trains in the canonical layout (manifest ``layout`` None), and a
+checkpoint of any route, plan or rank layout restores on any other: a
+rank reads only its own elements (``pipeline.rank_leaf_slices``), and a
+JAX checkpoint of a stacked pp layout is read through that layout and
+counted in ``migrations["checkpoint"]``.  On the rank route every rank
+writes its own elements into one checkpoint (``checkpoint.save_rank``);
+the whole state is never gathered.
+
+Left out of the JAX trainer, each a ROADMAP item: in-memory migration
+between plans, stage telemetry, straggler detection, replanning,
+adaptation and observability (queue A, items A6b and A6c).
 """
 from __future__ import annotations
 
@@ -43,8 +55,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.core.plan import ParallelPlan, StagePlacement
-from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.data.pipeline import DataState, SyntheticTokens
 from repro_torch.models.registry import ArchBundle
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
@@ -62,6 +75,10 @@ PLAIN_TRANSPORT = "gpu"
 class TrainerConfig:
     global_batch: int = 8
     seq_len: int = 64
+    # None (unlike the JAX trainer's /tmp/repro_ckpt): no checkpoints, so
+    # trainers built one after another never restore each other's states
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 10
     tp: int = 1
 
 
@@ -73,8 +90,9 @@ class Trainer:
                  device: DeviceLike = None):
         """``state``: a train state to start from (``steps.
         init_train_state``'s layout, e.g. ``convert.from_jax`` of a JAX
-        state), copied to the device.  Default: a fresh state from seed
-        0."""
+        state), copied to the device.  Default: the latest checkpoint in
+        ``cfg.ckpt_dir``, else a fresh state from seed 0; a checkpoint and
+        ``state`` together raise."""
         self.bundle = bundle
         self.cfg = cfg
         self.plan = plan
@@ -86,7 +104,17 @@ class Trainer:
             d_model=bundle.cfg.d_model,
             n_vision_tokens=bundle.cfg.n_vision_tokens)
         self.grid: Optional[groups.RankGrid] = None
+        self.ckpt = (ckpt.AsyncCheckpointer(cfg.ckpt_dir) if cfg.ckpt_dir
+                     else None)
+        self._part: Optional[ckpt.RankPart] = None
+        self.migrations = {"checkpoint": 0}
         self._build()
+        if self.ckpt is None or not self._init_or_restore(state):
+            self._init_state(state)
+
+    def _init_state(self, state: Optional[Dict[str, Any]]) -> None:
+        """This process's part of ``state``, or of a fresh one."""
+        bundle = self.bundle
         if self.grid is not None:
             g, rplan = self.grid, self.train_step.plan
             rules = self.train_step.rules
@@ -108,6 +136,54 @@ class Trainer:
                 lambda t: t.to(self.device, copy=True), state)
         self.step = int(self.state["step"])
         self.data.state.step = self.step
+
+    # ------------------------------------------------------ checkpoints ---
+    def _latest_step(self) -> Optional[int]:
+        """The checkpoint to start from.  On ranks, rank 0's, after it
+        cleared the saves a crashed run left unfinished: every rank then
+        agrees, and no rank writes before that cleanup."""
+        if self.grid is None:
+            return ckpt.latest_step(self.cfg.ckpt_dir)
+        got = [None]
+        if dist.get_rank() == 0:
+            ckpt.clear_partial(self.cfg.ckpt_dir)
+            got = [ckpt.latest_step(self.cfg.ckpt_dir)]
+        dist.broadcast_object_list(got, src=0)
+        return got[0]
+
+    def _init_or_restore(self, state: Optional[Dict[str, Any]]) -> bool:
+        """Restore the latest checkpoint of ``cfg.ckpt_dir``, this rank's
+        elements only (the JAX trainer's ``_init_or_restore``); False when
+        there is none.  Sets up this rank's part of later saves."""
+        whole = steps_mod.train_state_shapes(self.bundle)
+        if self.grid is None:
+            slices = pipeline.rank_leaf_slices(
+                whole, [self.bundle.cfg.num_layers], 0)
+        else:
+            g = self.grid
+            slices = pipeline.rank_leaf_slices(
+                whole, self.train_step.plan, g.stage, self.train_step.rules,
+                g.model_rank, replica=g.replica)
+            self._part = ckpt.RankPart(slices, whole, dist.get_rank(),
+                                       dist.get_world_size())
+        step = self._latest_step()
+        if step is None:
+            return False
+        if state is not None:
+            raise ValueError(f"{self.cfg.ckpt_dir} holds a checkpoint of "
+                             f"step {step}: pass no state= to restore it, "
+                             "or another ckpt_dir")
+        self.state, extra = ckpt.restore_rank(self.cfg.ckpt_dir, step,
+                                              slices, self.device)
+        if ckpt._norm_layout(extra.get("layout")) is not None:
+            self.migrations["checkpoint"] += 1
+        self.data.state = DataState.from_dict(extra["data"])
+        self.step = step
+        return True
+
+    def _ckpt_extra(self) -> Dict[str, Any]:
+        # every route keeps the canonical layout
+        return {"data": self.data.state.to_dict(), "layout": None}
 
     # ------------------------------------------------------------ build ---
     def _pipeline_active(self) -> bool:
@@ -215,7 +291,9 @@ class Trainer:
     def run(self, n_steps: int) -> Dict[str, Any]:
         """``n_steps`` train steps; returns {"losses", "grad_norms",
         "step", "step_s"} (each step's wall time, ending when its loss is
-        on the host; the global gradient norm AdamW clipped by)."""
+        on the host; the global gradient norm AdamW clipped by).  With
+        ``cfg.ckpt_dir``, a background save after every step that
+        ``cfg.ckpt_every`` divides, all waited for at the end."""
         losses, norms, step_s = [], [], []
         for _ in range(n_steps):
             t0 = time.perf_counter()
@@ -227,5 +305,12 @@ class Trainer:
             norms.append(float(metrics["grad_norm"]))
             self.step += 1
             self.data.state.step = self.step
+            if self.ckpt is not None and \
+                    self.step % self.cfg.ckpt_every == 0:
+                self.ckpt.save_async(self.step, self.state,
+                                     extra=self._ckpt_extra(),
+                                     part=self._part)
+        if self.ckpt is not None:
+            self.ckpt.wait()
         return {"losses": losses, "grad_norms": norms, "step": self.step,
                 "step_s": step_s}

@@ -1032,7 +1032,7 @@ def _four_cards(why: str) -> None:
 
 
 @pytest.fixture(scope="module")
-def cli_full_depth():
+def cli_full_depth(tmp_path_factory):
     """One ``torchrun`` of the train CLI over four cards (``CLI_ARGS``):
     its stdout lines and return code."""
     import os
@@ -1049,8 +1049,8 @@ def cli_full_depth():
     r = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
-         *CLI_ARGS], cwd=str(root), env=env, capture_output=True, text=True,
-        timeout=900)
+         *CLI_ARGS, "--ckpt-dir", str(tmp_path_factory.mktemp("cli"))],
+        cwd=str(root), env=env, capture_output=True, text=True, timeout=900)
     assert r.returncode == 0, r.stderr[-4000:]
     return r.stdout.strip().splitlines()
 
@@ -1196,3 +1196,109 @@ def test_pp_vpp_dp2_ranks_on_four_cards_match_one_process(dev):
         assert r["opt_bytes"] - r["opt_whole_bytes"] == \
             (4 * r["n_params"] * len(r["opt_trees"])
              - r["opt_whole_bytes"]) // 2
+
+
+# ------------------------------------------------------- checkpoints ----
+def test_bf16_full_width_leaf_round_trips_on_card(dev, tmp_path):
+    """llama3-8b's bf16 embedding (128256 x 4096) saved from the card and
+    restored onto it bit for bit, its file a 2-byte void as JAX writes
+    bf16."""
+    import numpy as np
+
+    from repro_torch.ckpt import checkpoint as ckpt
+
+    cfg = registry.get_config("llama3-8b")
+    x = _randn(dev, cfg.vocab_size, cfg.d_model, dtype=torch.bfloat16)
+    ckpt.save(str(tmp_path), 1, {"embed": x})
+    got, _ = ckpt.restore(str(tmp_path), 1, {"embed": x})
+    assert got["embed"].device == x.device and torch.equal(got["embed"], x)
+    arr = np.load(tmp_path / "step_00000001" / "arrays" / "0.npy",
+                  mmap_mode="r")
+    assert arr.dtype.itemsize == 2 and arr.dtype.kind == "V"
+
+
+def test_reference_restart_on_card(dev, tmp_path):
+    """llama3-8b at full width and 2 layers (bf16, batch 1, seq 4096) on
+    the reference route: 5 steps saving at step 3, against a new trainer
+    that resumes there and takes steps 4-5.  The first loss after the
+    resume equals the uninterrupted run's bit for bit (the forward kernels
+    use no atomics); the next within 2e-2 (the flash backward sums dq with
+    fp32 atomics, so the states part in the last bits)."""
+    import gc
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    b = registry.get_bundle("llama3-8b", num_layers=2)
+    cfg = TrainerConfig(global_batch=1, seq_len=4096,
+                        ckpt_dir=str(tmp_path), ckpt_every=3)
+    a = Trainer(b, cfg, device=dev)
+    want = a.run(5)["losses"]
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert ckpt.all_steps(str(tmp_path)) == [3]
+    r = Trainer(b, cfg, device=dev)
+    assert r.step == 3
+    got = r.run(2)["losses"]
+    print({"uninterrupted": want, "resumed": got})
+    assert got[0] == want[3]
+    assert abs(got[1] - want[4]) < 2e-2
+
+
+def test_cli_full_depth_resumes_on_four_cards(dev, tmp_path):
+    """The CLI's 32-layer plan on four cards (``CLI_ARGS``: 3 steps) with
+    ``--ckpt-every 2``: the four ranks write one checkpoint of step 2
+    (~112 GB), each its own elements, while step 3 runs; a second
+    ``torchrun`` of the same CLI resumes there (``start_step`` 2), and its
+    step's loss equals the first run's third bit for bit on every rank
+    (the restored state is the saved one, and the forward kernels use no
+    atomics).  The checkpoint goes to host memory (``/dev/shm``) where
+    there is one: a scratch disk may not take it.  ``-s`` prints both
+    runs' losses, step times and the save's timings."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+    import tempfile
+    from pathlib import Path
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.kernels import build
+
+    _four_cards("the CLI's pp 2 x dp 2 plan runs a card a rank")
+    build.build()       # the ranks then only load the library
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    shm = Path("/dev/shm")
+    d = Path(tempfile.mkdtemp(prefix="repro-ckpt-",
+                              dir=shm if shm.is_dir() else tmp_path))
+    free = shutil.disk_usage(d).free
+    assert CLI_ARGS[-2:] == ("--steps", "3")
+    out = []
+    try:
+        assert free > 120e9, f"{d}: {free / 1e9:.1f} GB free, the " \
+            "32-layer checkpoint takes ~112 GB"
+        for steps, every in (("3", "2"), ("1", "50")):
+            r = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", "4", "-m",
+                 "repro_torch.launch.train", *CLI_ARGS[:-1], steps,
+                 "--ckpt-every", every, "--ckpt-dir", str(d)],
+                cwd=str(root), env=env, capture_output=True, text=True,
+                timeout=900)
+            assert r.returncode == 0, r.stderr[-4000:]
+            out.append(json.loads(r.stdout.strip().splitlines()[-1]))
+            assert ckpt.all_steps(str(d)) == [2]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    saved, resumed = out
+    print(json.dumps({"dir": str(d), **{k: {"rank_losses": o["rank_losses"],
+                      "step_s": o["step_s"], "init_s": o["init_s"],
+                      "ckpt": o["ckpt"]} for k, o in (("saved", saved),
+                                                     ("resumed", resumed))}}))
+    assert (saved["start_step"], saved["steps"]) == (0, 3)
+    assert (resumed["start_step"], resumed["steps"]) == (2, 3)
+    for got, want in zip(resumed["rank_losses"], saved["rank_losses"]):
+        assert got == want[2:], (got, want)

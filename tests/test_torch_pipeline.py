@@ -352,9 +352,10 @@ def test_trainer_batch8_parts_from_jax_only_where_a_gradient_was_noise(
               f"{when} {x:.3e}" for when, x in part.items()))
     assert part["every step"] < GRAD_TOL
 
-def test_train_cli_pp_runs_the_planners_plan(capsys):
+def test_train_cli_pp_runs_the_planners_plan(capsys, tmp_path):
     train_cli.main(["--smoke", "--device", "cpu", "--pp", "2",
-                    "--global-batch", "4", "--seq", "16", "--steps", "2"])
+                    "--global-batch", "4", "--seq", "16", "--steps", "2",
+                    "--ckpt-dir", str(tmp_path)])
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].startswith("[train] plan: pp=2 ")
     summary = json.loads(lines[-1])

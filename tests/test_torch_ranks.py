@@ -783,11 +783,12 @@ CLI = ["--smoke", "--device", "cpu", "--pp", "2", "--global-batch", "4",
        "--seq", "16", "--steps", "2"]
 
 
-def test_train_cli_under_torchrun(capsys):
+def test_train_cli_under_torchrun(capsys, tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *CLI],
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *CLI,
+         "--ckpt-dir", str(tmp_path / "ranks")],
         cwd=str(ROOT), env=env, capture_output=True, text=True,
         timeout=TIMEOUT)
     assert r.returncode == 0, r.stderr[-3000:]
@@ -798,7 +799,7 @@ def test_train_cli_under_torchrun(capsys):
     assert summary["transport"] == "gpu"
     assert summary["rank_peak_mem_gb"] == [None, None]
     # the one-process pipeline on the same plan, state and batches
-    train_cli.main(CLI)
+    train_cli.main(CLI + ["--ckpt-dir", str(tmp_path / "one")])
     one = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert one["world"] == 1
     assert abs(summary["final_loss"] - one["final_loss"]) < F32_TOL
@@ -808,7 +809,7 @@ CLI_DP = ["--smoke", "--device", "cpu", "--global-batch", "4", "--seq",
           "16", "--steps", "2"]
 
 
-def test_train_cli_under_torchrun_without_pp(capsys):
+def test_train_cli_under_torchrun_without_pp(capsys, tmp_path):
     """No ``--pp``: the two processes are dp 2 replicas of the reference
     loss, ZeRO-1 over ``data`` (the JAX CLI's plain route over its
     ``data`` axis), and reach the one-process CLI's loss."""
@@ -816,7 +817,8 @@ def test_train_cli_under_torchrun_without_pp(capsys):
     r = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
-         *CLI_DP], cwd=str(ROOT), env=env, capture_output=True, text=True,
+         *CLI_DP, "--ckpt-dir", str(tmp_path / "ranks")], cwd=str(ROOT),
+        env=env, capture_output=True, text=True,
         timeout=TIMEOUT)
     assert r.returncode == 0, r.stderr[-3000:]
     lines = r.stdout.strip().splitlines()
@@ -825,7 +827,7 @@ def test_train_cli_under_torchrun_without_pp(capsys):
     assert (summary["world"], summary["dp"], summary["pp"]) == (2, 2, None)
     assert summary["transport"] == "gpu"
     assert summary["rank_peak_mem_gb"] == [None, None]
-    train_cli.main(CLI_DP)
+    train_cli.main(CLI_DP + ["--ckpt-dir", str(tmp_path / "one")])
     one = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert (one["world"], one["dp"]) == (1, 1)
     assert abs(summary["final_loss"] - one["final_loss"]) < F32_TOL

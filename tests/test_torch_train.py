@@ -381,9 +381,10 @@ def test_grad_accum_matches_one_big_batch(smoke4):
     _tree_close(s2["params"], adamw.tree_map(_to_np, s1["params"]), F32)
 
 
-def test_train_cli_runs_on_cpu_when_asked(capsys):
+def test_train_cli_runs_on_cpu_when_asked(capsys, tmp_path):
     train_cli.main(["--smoke", "--device", "cpu", "--steps", "3",
-                    "--global-batch", "2", "--seq", "16"])
+                    "--global-batch", "2", "--seq", "16",
+                    "--ckpt-dir", str(tmp_path)])
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-2].startswith("[train] step=3 loss=")
     summary = json.loads(lines[-1])

@@ -50,7 +50,14 @@ Phases, each raising on failure so the script exits non-zero:
               tokens/s and peak memory; the cp and reference step-0 losses
               agree within 2e-2, and the pipeline's step-0 loss lies within
               2e-2 of the reference loss on its 4 sequences; the ICCL tap
-              takes one stage hop a tick.  Then pp_ranks: the same plan,
+              takes one stage hop a tick.  The pp route closes HETHUB's
+              loop: with the CLI's cluster and a fresh store its steps are
+              timed with the recorder's tick events, then it steps until
+              the store opens the profiled cost source, replans off gpu-a
+              slowed 4x (the degraded kind must hold fewer layers, the
+              winner predict below the logged baseline) and takes 2 steps
+              on the new plan (exact launches, step 0 within 2e-2 of the
+              reference loss).  Then pp_ranks: the same plan,
               state seed and batches with its transport replaced by "cpu",
               each stage in its own process on this card
               (parallel/launch.run_ranks, gloo): step-0 loss within 1e-5
@@ -65,7 +72,11 @@ Phases, each raising on failure so the script exits non-zero:
               this checkout and its TMPDIR (removed at the phase's end,
               on SIGTERM or SIGHUP, and at the next start if a killed run
               left it) and takes a fourth step; the pp route restores
-              that checkpoint, its loss within 1e-5 of the fourth; the
+              that checkpoint, its loss within 1e-5 of the fourth, which
+              pp_ranks takes after replanning as the pp route did (rank
+              0 searches; the store fed by every rank's op events,
+              gathered a step) and moving its state in memory, every
+              element it received equal to the checkpoint's; the
               reference cell saves at step 2 into the temporary directory
               while step 3 runs, and a new trainer resumes there, its
               restored state and first loss equal bit for bit; every
@@ -237,6 +248,11 @@ DP_NORM_TOL = 1e-2
 # pp_ranks' to /dev/shm, in host memory beside the ranks' snapshots, in a
 # directory named after this checkout and its temporary directory
 CKPT_EVERY, CKPT_BYTES = 2, 27.0e9
+# the closed loop: the pp cell's trainer, then pp_ranks, replan off
+# REPLAN_KIND slowed REPLAN_FACTOR times (the analytic search gives the
+# degraded kind's stage 1 of the 4 layers, not 3) and take REPLAN_STEPS
+# steps (pp_ranks: its fourth) on the new plan
+REPLAN_KIND, REPLAN_FACTOR, REPLAN_STEPS = "gpu-a", 4.0, 2
 
 
 def log(msg: str) -> None:
@@ -1386,9 +1402,11 @@ def phase_train_pp(torch, dev, smi: str, vpp: int = 1):
     same sequences (forward only, one microbatch at a time)."""
     from repro_torch.iccl import communicator
     from repro_torch.kernels import ops
+    from repro_torch.core.cluster import cli_cluster
     from repro_torch.launch.train import search_plan
     from repro_torch.models import registry
     from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.profile.store import ProfileStore
     from repro_torch.train import steps
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -1406,8 +1424,11 @@ def phase_train_pp(torch, dev, smi: str, vpp: int = 1):
     assert plan.pp == PP_STAGES and plan.vpp == vpp, plan.describe()
     assert len(set(vl)) > 1, plan.describe()
     t0 = time.perf_counter()
+    # the pp cell closes the loop: the CLI's cluster and a fresh store
     t = Trainer(b, TrainerConfig(global_batch=PP_BATCH, seq_len=TRAIN_SEQ),
-                plan=plan, device=dev)
+                plan=plan, device=dev,
+                cluster=cli_cluster() if vpp == 1 else None,
+                profile_store=ProfileStore() if vpp == 1 else None)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     assert t._pipeline_active() and not t._cp_active()
@@ -1434,9 +1455,7 @@ def phase_train_pp(torch, dev, smi: str, vpp: int = 1):
     launches = ops.launch_counts()
     L, n = sum(vl), TRAIN_STEPS
     expect = dict.fromkeys(launches, 0)
-    expect.update(rmsnorm=m * (4 * L + 1) * n, flash_attention=2 * m * L * n,
-                  swiglu=2 * m * L * n, rmsnorm_bwd=m * (2 * L + 1) * n,
-                  swiglu_bwd=m * L * n, ring_step_bwd=m * L * n)
+    expect.update(_pp_launches(m, L, n))
     losses, step_s = out["losses"], out["step_s"]
     steady = step_s[1:]
     tok_s = PP_BATCH * TRAIN_SEQ * len(steady) / sum(steady)
@@ -1464,9 +1483,112 @@ def phase_train_pp(torch, dev, smi: str, vpp: int = 1):
         "plan_dict": plan.to_dict(), "virtual_layers": list(vl),
         "micro_batches": m,
     }
+    if vpp == 1:    # the timed steps' launches stay the summary's
+        summary["replan"], added = _replan_pp(torch, t, smi, ref_loss)
+        launches = {k: n + added[k] for k, n in launches.items()}
     log(f"[train] {route} report {json.dumps(summary)}")
     del t
     return summary, launches
+
+
+def _pp_launches(m: int, L: int, n: int) -> dict:
+    """The pp route's launches over n steps of m microbatches of L layers
+    (each block forward twice under remat)."""
+    return dict(rmsnorm=m * (4 * L + 1) * n, flash_attention=2 * m * L * n,
+                swiglu=2 * m * L * n, rmsnorm_bwd=m * (2 * L + 1) * n,
+                swiglu_bwd=m * L * n, ring_step_bwd=m * L * n)
+
+
+def _replan_pp(torch, t, smi: str, ref_loss):
+    """Phase (a) of the closed loop on the pp route's trainer ``t`` (after
+    its timed steps, with the CLI's cluster and a store): steps until the
+    store opens the profiled cost source, ``gpu-a`` degraded REPLAN_FACTOR
+    times and ``replan`` with the CLI's search constraints (the search
+    and ``_adopt`` timed apart), then REPLAN_STEPS steps on the new plan.
+    Holds JAX's invariants (the degraded kind holds fewer layers, the
+    source is profiled with the degradation as its time scale, the winner
+    predicted below the logged baseline), the steps' launches exactly and
+    the first step's loss within TRAIN_LOSS_TOL of the reference loss on
+    its sequences.  Returns (its summary, the steps' launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.core.cluster import cli_search_kw
+    from repro_torch.profile.model import ProfiledCostModel
+
+    old = t.plan
+    degraded = t.cluster.degrade(REPLAN_KIND, REPLAN_FACTOR)
+    ops.reset_launch_counts()
+    more = []
+    while t.profiled_cost_source(degraded) is None:
+        assert len(more) < 8, "the profile never opened"
+        more += t.run(1)["step_s"]
+    extra = ops.launch_counts()
+    m, L = old.micro_batches, sum(old.virtual_layers)
+    want = dict.fromkeys(extra, 0)
+    want.update(_pp_launches(m, L, len(more)))
+    assert extra == want, (extra, want)
+    health = t.schedule_health()
+    ticks = t._stage_tick_obs()
+    obs = sum(e.value["n"] for e in t.profile_store.entries()
+              if e.op in ("observed_layer_step", "observed_stage_tick"))
+    log(f"[replan] pp route on {smi}: {len(more)} more steps {more} until "
+        f"the profile holds {obs:.0f} observations; stage ticks {ticks} s, "
+        f"schedule_health {health}")
+    src = t.profiled_cost_source(degraded)
+    assert isinstance(src, ProfiledCostModel), src
+    assert src.time_scale == {REPLAN_KIND: REPLAN_FACTOR}, src.time_scale
+    t0 = time.perf_counter()
+    res = t.plan_for(degraded, global_batch=PP_BATCH, seq_len=TRAIN_SEQ,
+                     **cli_search_kw(PP_STAGES))
+    search_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t._adopt(res, degraded)
+    adopt_s = time.perf_counter() - t0
+    new = t.plan
+
+    def on_kind(p):
+        return sum(st.n_layers for st in p.stages
+                   if degraded.groups[st.group].device.name == REPLAN_KIND)
+
+    base = dict(res.log).get(f"baseline {old.describe()}")
+    log(f"[replan] pp route: {old.describe()} -> {new.describe()} "
+        f"(virtual layers {list(new.virtual_layers)}), {REPLAN_KIND} "
+        f"layers {on_kind(old)} -> {on_kind(new)}; predicted "
+        f"{res.prediction.iter_time:.6f} s vs the baseline's {base}; search "
+        f"{search_s:.3f} s, _adopt {adopt_s:.3f} s, migrations "
+        f"{t.migrations}")
+    assert on_kind(new) < on_kind(old), (old.describe(), new.describe())
+    assert base is not None and res.prediction.iter_time < base, res.log
+    assert t.migrations == {"memory": 1, "checkpoint": 0}, t.migrations
+    batch = t._device_batch(t.data.batch_at(t.step))
+    nm = new.micro_batches
+    with torch.no_grad():
+        ref = sum(float(ref_loss(t.state["params"],
+                                 {k: v[j] for k, v in batch.items()})[0])
+                  for j in range(nm)) / nm
+    del batch
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = t.run(REPLAN_STEPS)
+    after = ops.launch_counts()
+    want = dict.fromkeys(after, 0)
+    want.update(_pp_launches(nm, sum(new.virtual_layers), REPLAN_STEPS))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["losses"]
+    log(f"[replan] pp route on {smi}, {new.describe()}: losses {losses} "
+        f"(reference {ref}: diff {abs(losses[0] - ref):.3e}, tol "
+        f"{TRAIN_LOSS_TOL}), step s {out['step_s']}, peak {peak:.2f} GB; "
+        f"launches {after} expected {want}")
+    assert all(map(math.isfinite, losses)), losses
+    assert after == want, (after, want)
+    assert abs(losses[0] - ref) < TRAIN_LOSS_TOL, (losses[0], ref)
+    return {"more_step_s": more, "observations": obs, "stage_ticks": ticks,
+            "health": health, "old_plan": old.describe(),
+            "plan": new.describe(), "virtual_layers": list(new.virtual_layers),
+            "iter_time": res.prediction.iter_time, "baseline_time": base,
+            "search_s": search_s, "adopt_s": adopt_s, "losses": losses,
+            "reference_loss": ref, "step_s": out["step_s"],
+            "peak_mem_gb": peak, "launches": after}, {
+                k: extra[k] + after[k] for k in after}
 
 
 def _rank_launches(n_layers: int, last: bool, m: int, steps: int) -> dict:
@@ -1490,10 +1612,16 @@ def phase_train_pp_ranks(torch, dev, smi: str, pp: dict,
     launches; then, with ``hop``, the host-staged hop alone, a ping-pong
     of one activation between the two ranks.  With ``ckpt_dir`` the ranks
     write one checkpoint there after the timed steps, each its own
-    elements, and take one more step (``after_losses``)."""
+    elements, then replan off REPLAN_KIND slowed REPLAN_FACTOR times (the
+    train CLI's cluster, search constraints and a store the ranks' gathered
+    telemetry fed; the "cpu" transport kept), move the state onto the new
+    plan in memory, hold every element a rank received against the
+    checkpoint bit for bit, and take one more step on the new plan
+    (``after_losses``)."""
     from repro_torch.core.plan import ParallelPlan
     from repro_torch.core.simulator import peak_activation_microbatches
     from repro_torch.iccl.transports import default_registry
+    from repro_torch.core.cluster import cli_search_kw
     from repro_torch.models import registry
     from repro_torch.parallel import rank_programs
     from repro_torch.parallel.launch import run_ranks
@@ -1515,7 +1643,10 @@ def phase_train_pp_ranks(torch, dev, smi: str, pp: dict,
                     args=(dict(arch="llama3-8b", num_layers=pp["layers"]),
                           plan.to_dict(), n, None, False,
                           None if ckpt_dir is None else str(ckpt_dir),
-                          n, 0, int(ckpt_dir is not None)))
+                          n, 0, int(ckpt_dir is not None), False,
+                          None if ckpt_dir is None else dict(
+                              kind=REPLAN_KIND, factor=REPLAN_FACTOR,
+                              search_kw=cli_search_kw(PP_STAGES))))
     wall = time.perf_counter() - t0
     losses = res[-1]["losses"]
     step_s = [max(r["step_s"][i] for r in res) for i in range(n)]
@@ -1594,6 +1725,7 @@ def phase_train_pp_ranks(torch, dev, smi: str, pp: dict,
                 f"waits for every rank's); the step after the save "
                 f"{r['after_step_s'][0]:.4f} s against {r['step_s'][-1]:.4f}"
                 f" before (the timed steps overlap no save)")
+        summary["replan"] = _replan_pp_ranks(res, found, smi, route)
     if not hop:
         log(f"[train] {route} report {json.dumps(summary)}")
         return summary, launches
@@ -1618,6 +1750,59 @@ def phase_train_pp_ranks(torch, dev, smi: str, pp: dict,
                    hop_gbps=hop_bytes / mean / 1e9, cpu_staged_p2p_s=price)
     log(f"[train] {route} report {json.dumps(summary)}")
     return summary, launches
+
+
+def _replan_pp_ranks(res, found, smi: str, route: str) -> dict:
+    """Phase (b) of the closed loop, from ``pp_train``'s ranks ``res``:
+    every rank adopted one plan, which gives REPLAN_KIND fewer layers,
+    moved in memory, and received every element it compared equal bit for
+    bit to the checkpoint's; the move's bytes, seconds and GB/s and each
+    rank's memory after it."""
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.core.cluster import cli_cluster
+
+    degraded = cli_cluster().degrade(REPLAN_KIND, REPLAN_FACTOR)
+    rp = [r["replanned"] for r in res]
+    new = ParallelPlan.from_dict(rp[0]["plan_dict"])
+
+    def on_kind(p):
+        return sum(st.n_layers for st in p.stages
+                   if degraded.groups[st.group].device.name == REPLAN_KIND)
+
+    for r, x in zip(res, rp):
+        mig = x["migration"]
+        moved = mig["sent_bytes"] + mig["recv_bytes"]
+        log(f"[replan] {route} rank {r['rank']} on {smi} (the ranks "
+            f"time-slice the card, so each op's time holds the other's "
+            f"slices): gathered stage ticks {x['stage_ticks']} s, bubble "
+            f"{x['bubble']}, schedule_health {x['health']}, profiled source "
+            f"{x['profiled']}; plan {x['plan']} (stage {x['stage']}); "
+            f"search {x['search_s']:.3f} s, _adopt {x['adopt_s']:.3f} s "
+            f"(move {mig['seconds']:.3f} s: sent {mig['sent_bytes'] / 1e9:.3f}"
+            f" GB, received {mig['recv_bytes'] / 1e9:.3f} GB, "
+            f"{moved / mig['seconds'] / 1e9:.3f} GB/s; kept "
+            f"{mig['kept_bytes'] / 1e9:.3f} GB); {x['moved_boxes']} boxes "
+            f"received, unequal to the checkpoint {x['unequal']} (compared "
+            f"in {x['compare_s']:.3f} s); memory "
+            f"after {x['mem_gb_after']} GB, peak in the move "
+            f"{x['peak_gb_move']} GB; the step on the new plan "
+            f"{r['after_step_s']} s, loss {r['after_losses']}")
+    assert all(x["plan"] == rp[0]["plan"] for x in rp), [x["plan"] for x in rp]
+    assert on_kind(new) < on_kind(found), (found.describe(), new.describe())
+    assert all(x["migrations"] == {"memory": 1, "checkpoint": 0}
+               for x in rp), [x["migrations"] for x in rp]
+    assert all(x["unequal"] == [] for x in rp), [x["unequal"] for x in rp]
+    sent = sum(x["migration"]["sent_bytes"] for x in rp)
+    assert sent == sum(x["migration"]["recv_bytes"] for x in rp) > 0
+    assert sum(x["moved_boxes"] for x in rp) > 0
+    secs = max(x["migration"]["seconds"] for x in rp)
+    log(f"[replan] {route}: {found.describe()} -> {rp[0]['plan']}, "
+        f"{sent / 1e9:.3f} GB moved in {secs:.3f} s ({sent / secs / 1e9:.3f}"
+        f" GB/s, host-staged over gloo)")
+    return {"plan": rp[0]["plan"], "sent_bytes": sent, "seconds": secs,
+            "gbps": sent / secs / 1e9,
+            "ranks": [{k: v for k, v in x.items() if k != "entries"}
+                      for x in rp]}
 
 
 def _tp_allreduces(n_layers: int) -> int:
@@ -1963,7 +2148,7 @@ def phase_ckpt(torch, dev, smi: str, d: Path, fs: str):
     torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
     assert resumed.step == resumed.data.state.step == CKPT_EVERY
-    assert resumed.migrations == {"checkpoint": 0}
+    assert resumed.migrations == {"memory": 0, "checkpoint": 0}
     diff = []
 
     def same(path, t):
@@ -2058,9 +2243,7 @@ def phase_ckpt_pp(torch, dev, smi: str, d: Path, fs: str, pp: dict,
     torch.cuda.empty_cache()
     m, L = pp["micro_batches"], pp["layers"]
     want = dict.fromkeys(launches, 0)
-    want.update(rmsnorm=m * (4 * L + 1), flash_attention=2 * m * L,
-                swiglu=2 * m * L, rmsnorm_bwd=m * (2 * L + 1),
-                swiglu_bwd=m * L, ring_step_bwd=m * L)
+    want.update(_pp_launches(m, L, 1))
     ref = pp_ranks["after_losses"][0]
     log(f"[ckpt] pp route restores pp_ranks' step-{saved} checkpoint "
         f"({nbytes / 1e9:.3f} GB on {' '.join(fs.split()[:2])}, written by "

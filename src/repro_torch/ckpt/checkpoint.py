@@ -322,6 +322,16 @@ def restore_rank(ckpt_dir: str, step: int, slices: Any,
     return state, extra
 
 
+def read_box(ckpt_dir: str, step: int, path: str,
+             box: Tuple[slice, ...]) -> torch.Tensor:
+    """The elements ``box`` of the whole leaf ``path`` (``/``-joined) of a
+    canonical-layout checkpoint, on the host."""
+    final, _ = _step_dirs(ckpt_dir, step)
+    ent = {e["path"]: e for e in _manifest(ckpt_dir, step)["leaves"]}[path]
+    mm = _open(final / "arrays" / ent["file"], ent["dtype"])
+    return torch.from_numpy(np.array(mm[box])).view(DTYPES[ent["dtype"]][0])
+
+
 def restore(ckpt_dir: str, step: int, target: Any) -> Tuple[Any, Dict]:
     """Restore into the structure of ``target`` (a tree of tensors, or of
     ``meta`` tensors for shapes and dtypes), each leaf whole and in its

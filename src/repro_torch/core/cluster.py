@@ -257,3 +257,19 @@ def paper_cluster_of_size(n_nodes: int) -> ClusterSpec:
 
 def homogeneous_cluster(dev: DeviceType, n_nodes: int) -> ClusterSpec:
     return ClusterSpec(groups=(NodeGroup(dev, n_nodes),))
+
+
+def cli_cluster() -> ClusterSpec:
+    """The train CLI's cluster: one AMD and one GPU-A node, one
+    accelerator each (``repro/launch/train.py:188-190``)."""
+    return ClusterSpec(groups=(NodeGroup(AMD, 1, accel_per_node=1),
+                               NodeGroup(GPU_A, 1, accel_per_node=1)))
+
+
+def cli_search_kw(pp: int) -> dict:
+    """The train CLI's search space, one for its initial plan and its
+    degrade replan (``repro/launch/train.py:180-186``)."""
+    return dict(pp_options=[pp] if pp else None, tp_options=[1],
+                micro_bs_options=[1, 2], require_fit=False,
+                include_tp_comm=False)
+

@@ -11,7 +11,8 @@ sit next to each other, as on one node.  ``make_rank_grid`` makes one
 replica of one stage), each pod column (the stages of one replica at one
 model rank) and each data row (the replicas of one stage at one model
 rank), and binds this rank's three to the axis names for
-``iccl.communicator.Communicator``.  ``data`` carries the replicas'
+``iccl.communicator.Communicator``; ``destroy_rank_grid`` releases them
+when a replan builds another grid.  ``data`` carries the replicas'
 gradient all-reduce and, under ZeRO-1, the all-gather of the parameter
 slices each replica updated.  Left for ROADMAP.md queue A, item A5c (d):
 stages of mixed tp widths (the ``pp_reshard`` boundary).
@@ -34,6 +35,9 @@ class RankGrid:
     dp: int
     tp: int
     rank: int
+    # this rank's groups, which ``destroy_rank_grid`` releases
+    groups: Tuple[dist.ProcessGroup, ...] = dataclasses.field(
+        default=(), compare=False, repr=False)
 
     @property
     def stage(self) -> int:
@@ -111,4 +115,12 @@ def make_rank_grid(pp: int, dp: int, device: torch.device,
         # pipeline's first hop is made by two
         for group in mine:
             dist.all_reduce(torch.zeros(1, device=device), group=group)
-    return grid
+    return dataclasses.replace(grid, groups=tuple(mine))
+
+
+def destroy_rank_grid(grid: RankGrid) -> None:
+    """Release the groups of ``grid`` (every rank calls this at once), its
+    NCCL communicators and their buffers included, before a new grid is
+    made."""
+    for group in grid.groups:
+        dist.destroy_process_group(group)

@@ -193,7 +193,8 @@ def _layer_views(blocks: Dict[str, Any], n_layers: int) -> List[Dict]:
 def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
                     layers_per_stage: Optional[Sequence[int]] = None,
                     vpp: int = 1,
-                    stage_tp: Optional[Sequence[int]] = None) -> LossFn:
+                    stage_tp: Optional[Sequence[int]] = None,
+                    telemetry=None) -> LossFn:
     """loss_fn(params, batch) running the pipeline's ticks on one device.
 
     ``params``: the canonical tree (blocks stacked ``(L, ...)``);
@@ -205,7 +206,13 @@ def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
     unembed and the cross-entropy run on the whole microbatch at its
     finishing tick (no ``loss_chunk``, as in JAX).  The loss is the mean
     over microbatches of the CE plus ``AUX_COEF`` times the mean aux:
-    the reference loss's value on the same tokens, same metrics dict."""
+    the reference loss's value on the same tokens, same metrics dict.
+
+    ``telemetry`` (``telemetry.StageTelemetry``) takes a mark at the end
+    of every tick, after its valid slots ran, and one after the last, as
+    JAX's ``_tick_mark``: in the loss itself, so remat's recomputation in
+    the backward marks nothing; a mark reads no value (the loss's running
+    sum only names the device whose stream it marks)."""
     check_pp_supported(cfg)
     if stage_tp is not None and len(stage_tp) != n_stages:
         raise ValueError(f"stage_tp needs {n_stages} entries, got "
@@ -244,6 +251,8 @@ def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
             # the valid slots: virtual stage vs holds microbatch t - vs
             for vs in range(max(0, t - m + 1), min(t, V - 1) + 1):
                 acts[t - vs] = run_stage(layers, vs, acts[t - vs])
+            if telemetry is not None:
+                telemetry.mark(t, loss_sum)
             j_out = t - (V - 1)
             if j_out >= 0:
                 h = rmsnorm(params["final_norm"], acts.pop(j_out),
@@ -253,6 +262,8 @@ def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
             if reshard:
                 _note("pp_reshard", "model", hop)
             _note("pp_shift", "pod", hop)
+        if telemetry is not None:
+            telemetry.mark(m + V - 1, loss_sum)
         # dense blocks have no auxiliary loss: the valid slots' aux sum is 0
         return with_aux(loss_sum / m, torch.zeros_like(loss_sum))
 
@@ -736,7 +747,9 @@ class PPRankStep:
     stage holds it, then averaged over ``data``; every model rank holds
     the same loss).  ``peak_inflight`` is the most microbatches (chunk
     microbatches under interleaving) whose activations this rank held at
-    once."""
+    once.  With ``clock`` set (``telemetry.OpClock``, at pp > 1) each F
+    and B op is bracketed by its marks, and the step's span runs from
+    before the first boundary to the end of the last op's sends."""
 
     def __init__(self, cfg: ModelConfig, plan: ParallelPlan, grid: RankGrid,
                  opt_cfg: Optional[adamw.AdamWConfig] = None):
@@ -762,6 +775,7 @@ class PPRankStep:
         self.rules = ShardingRules(cfg, tp=grid.tp)
         self.async_sends = plan.schedule == "1f1b-eager"
         self.peak_inflight = 0
+        self.clock = None
         self._block = functools.partial(_block, cfg=cfg, model=self.model)
         self.order: Optional[List[Op]] = None
         self.boundaries = None
@@ -875,10 +889,14 @@ class PPRankStep:
         outbox: Dict[Msg, Any] = {}
         inbox: Dict[Msg, Any] = {}
         later: List[Any] = []
+        clock = self.clock
+        if clock is not None:
+            clock.start_step()
         for hops, unit in self.boundaries:
             self._exchange(hops, outbox, inbox, like, later)
             for kind, c, j in unit:
                 vs = c * pp + s
+                t0 = clock.now() if clock is not None else None
                 if kind == "F":
                     y = forward(c, j, inbox.pop(("F", vs, j), None))
                     if y is not None:
@@ -887,6 +905,10 @@ class PPRankStep:
                     dx = backward(c, j, inbox.pop(("B", vs, j), None))
                     if dx is not None:
                         outbox[("B", vs - 1, j)] = dx
+                if clock is not None:
+                    clock.op((kind, c, j), t0)
+        if clock is not None:
+            clock.end_step()
         for work, _ in later:
             work.wait()
         grads = tree_map(

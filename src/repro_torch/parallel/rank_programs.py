@@ -8,12 +8,16 @@ rank imports nothing but ``repro_torch``.  The device is the one
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import cluster as C
+from repro_torch.core.cluster import cli_cluster, cli_search_kw
 from repro_torch.core.plan import ParallelPlan, StagePlacement
 from repro_torch.iccl import communicator
 from repro_torch.iccl.communicator import Communicator
@@ -21,7 +25,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.optim.adamw import AdamWConfig, tree_leaves, tree_map
 from repro_torch.parallel import groups, pipeline
-from repro_torch.parallel.sharding import shard_tree, zero_dims
+from repro_torch.parallel.sharding import _at, shard_tree, zero_dims
 from repro_torch.profile import runner
 from repro_torch.profile.store import ProfileStore
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -236,7 +240,8 @@ def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
              opt: Optional[Dict[str, Any]] = None,
              moves: bool = False, ckpt_dir: Optional[str] = None,
              ckpt_every: int = 10, start_step: int = 0, after: int = 0,
-             states: bool = False) -> Dict[str, Any]:
+             states: bool = False,
+             replan: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """``steps`` ``Trainer`` steps of a plan on the rank route from a fresh
     state (seed 0) or a checkpoint (below; ``opt``: the ``AdamWConfig``
     fields, None its defaults), with what this rank saw: the losses,
@@ -253,7 +258,9 @@ def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
     outside its launch counts, notes and step times (``after_losses``,
     ``after_step_s``).  With ``states``, this rank's state (numpy, bf16
     widened to fp32) at the start, after the run and after the ``after``
-    steps."""
+    steps.  With ``replan`` (``replan_after_run``'s arguments), the trainer
+    runs with the train CLI's cluster and a profile store, and replans
+    between the run and the ``after`` steps (``replanned``)."""
     dev = _device()
     bundle = registry.get_bundle(**bundle_kw)
     p = ParallelPlan.from_dict(plan)
@@ -265,7 +272,9 @@ def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
                                       seq_len=p.seq_len, tp=p.tps[0],
                                       ckpt_dir=ckpt_dir,
                                       ckpt_every=ckpt_every),
-                plan=p, opt_cfg=AdamWConfig(**(opt or {})), device=dev)
+                plan=p, opt_cfg=AdamWConfig(**(opt or {})), device=dev,
+                cluster=cli_cluster() if replan is not None else None,
+                profile_store=ProfileStore() if replan is not None else None)
     if t.step != start_step:
         raise ValueError(f"{ckpt_dir}: started at step {t.step}, not "
                          f"{start_step}")
@@ -291,6 +300,8 @@ def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
         same = all(all(torch.equal(x, part) for part in
                        data.iallgather(x, tiled=False).unbind(0))
                    for x in tree_leaves(params))
+    replanned = (replan_after_run(t, **replan) if replan is not None
+                 else None)
     later = t.run(after)
     if states:
         kept.append(_numpy_tree(t.state))
@@ -310,10 +321,93 @@ def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
                 a.numel() * a.element_size() for o in opt_state.values()
                 for a, w in zip(tree_leaves(o), tree_leaves(whole)) if w),
             "state_gb": state_gb,
-            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+            "peak_gb": (max(torch.cuda.max_memory_allocated(dev) / 1e9,
+                            (replanned or {}).get("peak_gb_before") or 0.0)
                         if cuda else None),
             "ckpt": ckpt, "after_losses": later["losses"],
-            "after_step_s": later["step_s"], "states": kept}
+            "after_step_s": later["step_s"], "states": kept,
+            "replanned": replanned}
+
+
+def replan_after_run(t: Trainer, kind: str, factor: float,
+                     search_kw: Dict[str, Any]) -> Dict[str, Any]:
+    """``t.replan`` onto the train CLI's cluster with ``kind`` degraded by
+    ``factor``, searched with ``search_kw``, the state moved in memory:
+    what the trainer observed before (the gathered stage ticks, the
+    bubble, ``schedule_health``, its profile store's entries), the plan
+    and the search's log, the seconds of the search and of ``_adopt``, the
+    move's bytes and seconds, and this rank's memory after it.  Every box
+    the move received from another rank is held against the checkpoint of
+    this step in ``t.cfg.ckpt_dir`` bit for bit: ``unequal`` names the
+    leaves that differ."""
+    dev = t.device
+    cuda = dev.type == "cuda"
+    before = {"stage_ticks": t._stage_tick_obs(),
+              "bubble": t.telemetry.bubble() if t.telemetry else None,
+              "health": t.schedule_health(),
+              "entries": [e.to_dict() for e in t.profile_store.entries()],
+              "profiled": t.profiled_cost_source(
+                  t.cluster.degrade(kind, factor)) is not None}
+    peak_before = None
+    if cuda:    # the move's own peak; ``pp_train`` keeps the run's
+        peak_before = torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = t.plan_for(t.cluster.degrade(kind, factor),
+                     global_batch=t.cfg.global_batch,
+                     seq_len=t.cfg.seq_len, **search_kw)
+    search_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    t._adopt(res, t.cluster.degrade(kind, factor))
+    adopt_s = time.perf_counter() - t1
+    mig = dict(t.last_migration or {})
+    moved = mig.pop("moved", [])
+    t2 = time.perf_counter()
+    unequal = _compare_with_checkpoint(t, moved)
+    compare_s = time.perf_counter() - t2
+    # the ranks compare apart; the next step starts on all at once
+    torch.distributed.barrier()
+    return {"plan": res.plan.describe(), "plan_dict": res.plan.to_dict(),
+            "rank_plan": t.run_plan.describe(),
+            "log": [list(x) for x in res.log],
+            "baseline_time": res.baseline_time,
+            "iter_time": res.prediction.iter_time,
+            "search_s": search_s, "adopt_s": adopt_s, "migration": mig,
+            "moved_boxes": len(moved), "unequal": unequal,
+            "compare_s": compare_s,
+            "stage": t.grid.stage, "migrations": dict(t.migrations),
+            "replans": t.replans, **before,
+            "n_params_after": sum(x.numel() for x in
+                                  tree_leaves(t.state["params"])),
+            "mem_gb_after": (torch.cuda.memory_allocated(dev) / 1e9
+                             if cuda else None),
+            "peak_gb_move": (torch.cuda.max_memory_allocated(dev) / 1e9
+                             if cuda else None),
+            "peak_gb_before": peak_before}
+
+
+def _compare_with_checkpoint(t: Trainer, moved) -> List[str]:
+    """The leaves of ``t.state`` whose boxes in ``moved`` (``(path, box in
+    the leaf, box in the whole)``) are unequal, bit for bit, to the
+    checkpoint of ``t.step``, read from it one box at a time."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    bad = set()
+    for path, box, whole in moved:
+        got = ckpt.read_box(t.cfg.ckpt_dir, t.step, "/".join(path), whole)
+        x = _at(t.state, path)[box].cpu()
+        if not (x.dtype == got.dtype and torch.equal(x, got)):
+            bad.add("/".join(path))
+    return sorted(bad)
+
+
+def _unequal(got, want) -> List[str]:
+    """The leaves of ``got`` not equal bit for bit to ``want``'s (on the
+    host)."""
+    from repro_torch.parallel.migrate import _flat
+    ys = _flat(want)
+    return sorted("/".join(p) for p, x in _flat(got).items()
+                  if not (x.dtype == ys[p].dtype
+                          and torch.equal(x.cpu(), ys[p].cpu())))
 
 
 def hop_times(rank: int, world: int, shape: Sequence[int], dtype: str,
@@ -384,3 +478,118 @@ def layer_probes(rank: int, world: int, arch: str, seqs: Sequence[int],
     groups.make_rank_grid(1, 1, dev, tp=world)
     return runner.probe_times(arch, seqs, micro_bss, warmup, reps, smoke,
                               dev, model=Communicator("model", transport))
+
+
+def migrate_cases(rank: int, world: int, bundle_kw: Dict[str, Any],
+                  whole: Dict[str, Any], cases: Sequence[Tuple],
+                  ckpt_dir: str) -> List[Dict[str, Any]]:
+    """For each (old plan, new plan) of ``cases`` (dicts): this rank's
+    part of the whole state ``whole`` (numpy, bf16 leaves widened) under
+    the old plan, written as one ``save_rank`` checkpoint by every rank
+    and moved by ``migrate.redistribute`` onto the new plan: the moved
+    state (numpy), the leaves unequal to this rank's ``restore_rank`` of
+    the checkpoint under the new plan, and the bytes sent and received."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.parallel import migrate
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.train import steps as steps_mod
+    bundle = registry.get_bundle(**bundle_kw)
+    meta = steps_mod.train_state_shapes(bundle)
+    state = tree_map(lambda a, m: torch.as_tensor(np.asarray(a)).to(m.dtype),
+                     whole, meta)
+    out = []
+    for i, (old_d, new_d) in enumerate(cases):
+        old, new = ParallelPlan.from_dict(old_d), ParallelPlan.from_dict(new_d)
+        rules = [ShardingRules(bundle.cfg, tp=p.tps[0]) for p in (old, new)]
+        stage, replica, mr = migrate.rank_coords(old, rank)
+        mine = pipeline.split_state_for_rank(state, old, stage, rules[0], mr,
+                                             replica=replica)
+        d = f"{ckpt_dir}/case{i}"
+        part = ckpt.RankPart(migrate.plan_slices(meta, old, rules[0], rank),
+                             meta, rank, world)
+        ckpt.save_rank(d, 1, mine, part)
+        torch.distributed.barrier()     # rank 0 renamed the checkpoint
+        moved, stats = migrate.redistribute(mine, meta, old, new, bundle.cfg,
+                                            torch.device("cpu"), "cpu")
+        want, _ = ckpt.restore_rank(
+            d, 1, migrate.plan_slices(meta, new, rules[1], rank))
+        out.append({"state": _numpy_tree(moved),
+                    "unequal_to_checkpoint": _unequal(moved, want),
+                    "sent_bytes": stats["sent_bytes"],
+                    "recv_bytes": stats["recv_bytes"]})
+    return out
+
+
+def _card_used_gb(dev: torch.device) -> Optional[float]:
+    """The card's memory in use, the caching allocator's and NCCL's
+    buffers included (None on the CPU)."""
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    return (total - free) / 1e9
+
+
+def replan_cases(rank: int, world: int, bundle_kw: Dict[str, Any],
+                 plan: Dict[str, Any], ckpt_dir: str) -> Dict[str, Any]:
+    """The rank route's closed loop on ``plan``: 2 steps with telemetry
+    off (their ICCL notes), 2 with the train CLI's cluster and a store
+    (their notes, the store's entries, the gathered stage ticks and
+    bubble, ``schedule_health`` and the plan the ranks run), a replan off
+    gpu-a slowed 4x moved in memory (the process groups alive and the
+    card's memory in use before and after), and one step on the new plan beside one step of a fresh rank
+    trainer of the new plan on the gathered state; then a replan onto a
+    3-stage plan of a 3-accelerator cluster, which must raise
+    (``world_error``)."""
+    from repro_torch.parallel.sharding import ShardingRules
+    bundle = registry.get_bundle(**bundle_kw)
+    p = ParallelPlan.from_dict(plan)
+    dev = _device()
+    cfg = TrainerConfig(global_batch=p.global_batch, seq_len=p.seq_len)
+    off = Trainer(bundle, dataclasses.replace(cfg, telemetry="off"), plan=p,
+                  device=dev)
+    with _Notes() as notes_off:
+        off.run(2)
+    del off
+    t = Trainer(bundle, cfg, plan=p, device=dev, cluster=cli_cluster(),
+                profile_store=ProfileStore())
+    with _Notes() as notes:
+        t.run(2)
+    entries = sorted(
+        (e.device_kind, e.op, json.dumps(e.shape, sort_keys=True),
+         json.dumps(e.value, sort_keys=True), e.meta.get("telemetry"),
+         e.meta.get("provenance")) for e in t.profile_store.entries())
+    ticks, bubble = t._stage_tick_obs(), t.telemetry.bubble()
+    health, run_plan = t.schedule_health(), t.run_plan.to_dict()
+    n_groups = len(torch.distributed.distributed_c10d._world.pg_map)
+    used = _card_used_gb(dev)
+    t.replan(t.cluster.degrade("gpu-a", 4.0), global_batch=p.global_batch,
+             seq_len=p.seq_len, **cli_search_kw(p.pp))
+    n_groups = (n_groups,
+                len(torch.distributed.distributed_c10d._world.pg_map))
+    used = (used, _card_used_gb(dev))
+    parts: List[Any] = [None] * world
+    torch.distributed.all_gather_object(parts, _numpy_tree(t.state))
+    rplan = t.train_step.plan
+    whole = pipeline.gather_rank_states(
+        [_torch_tree(s, torch.device("cpu")) for s in parts],
+        ShardingRules(bundle.cfg, tp=rplan.tps[0]), rplan)
+    nxt = t.run(1)["losses"]
+    fresh = Trainer(bundle, cfg, plan=t.plan, state=whole, device=dev)
+    fresh_losses = fresh.run(1)["losses"]
+    big = C.ClusterSpec(groups=(C.NodeGroup(C.AMD, 1, accel_per_node=2),
+                                C.NodeGroup(C.GPU_A, 1, accel_per_node=1)))
+    err = None
+    try:
+        # no baseline: the incumbent of 2 stages could win on 3 devices
+        t.replan(big, global_batch=p.global_batch, seq_len=p.seq_len,
+                 baseline_plan=None, **cli_search_kw(3))
+    except ValueError as e:
+        err = str(e)
+    return {"notes": list(notes), "notes_off": list(notes_off),
+            "entries": entries, "stage_ticks": ticks, "bubble": bubble,
+            "health": health, "run_plan": run_plan, "n_groups": n_groups,
+            "card_used_gb": used,
+            "plan": t.plan.describe(), "migrations": dict(t.migrations),
+            "next_losses": nxt, "fresh_losses": fresh_losses,
+            "world_error": err}

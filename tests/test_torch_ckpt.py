@@ -605,7 +605,7 @@ def test_restart_equals_the_uninterrupted_run(route, tmp_path):
     a = Trainer(b, cfg, plan=plan, opt_cfg=opt, device="cpu")
     assert a._cp_active() == (route == "cp")
     assert a._pipeline_active() == route.startswith("pp")
-    assert a.step == 0 and a.migrations == {"checkpoint": 0}
+    assert a.step == 0 and a.migrations == {"memory": 0, "checkpoint": 0}
     a.run(2)
     assert ckpt.all_steps(str(tmp_path)) == [2]
     losses = a.run(2)["losses"]
@@ -663,7 +663,7 @@ def test_jax_pp_checkpoint_restores_into_the_pp_trainer(tmp_path):
                                   ckpt_dir=str(tmp_path)), plan=plan,
                 opt_cfg=adamw.AdamWConfig(**OPT), device="cpu")
     assert t._pipeline_active() and t.step == 2
-    assert t.migrations == {"checkpoint": 1}
+    assert t.migrations == {"memory": 0, "checkpoint": 1}
     _assert_trees_equal(t.state, want_state)
     loss = t.run(1)["losses"][0]
     assert abs(loss - float(metrics["loss"])) < LOSS_TOL

@@ -1302,3 +1302,194 @@ def test_cli_full_depth_resumes_on_four_cards(dev, tmp_path):
     assert (resumed["start_step"], resumed["steps"]) == (2, 3)
     for got, want in zip(resumed["rank_losses"], saved["rank_losses"]):
         assert got == want[2:], (got, want)
+
+
+# ------------------------------------------------------ the closed loop ----
+def test_tick_events_match_a_synchronized_host_clock(dev):
+    """The pipeline loss's tick marks on the card are CUDA events: a mark
+    that also synchronizes and reads the host clock after its event (in
+    this test only: the step itself never synchronizes) sees the same
+    marks in the same order, each tick within 10% + 0.2 ms of the host
+    clock's."""
+    import time
+
+    from repro_torch.parallel.pipeline import make_pp_loss_fn
+    from repro_torch.telemetry import StageTelemetry
+
+    cfg = registry.get_config("llama3-8b", num_layers=2)
+    params = registry.bundle_for(cfg).init(cfg, seed=0, device=dev)
+    m = 4
+    rec = StageTelemetry(2, 1, m, drop_first=False)
+
+    class Both:
+        host: list = []
+
+        def mark(self, t, like):
+            rec.mark(t, like)
+            torch.cuda.synchronize()
+            self.host.append((t, time.perf_counter()))
+
+    both = Both()
+    fn = make_pp_loss_fn(cfg, 2, m, layers_per_stage=[1, 1], telemetry=both)
+    tok = torch.randint(0, cfg.vocab_size, (m, 1, 1024), device=dev)
+    with torch.no_grad():
+        for _ in range(2):          # warm, then the one read
+            both.host.clear()
+            fn(params, {"tokens": tok, "labels": tok})
+            events = list(rec._events)
+            rec.resolve()
+    assert [t for t, _ in events] == [t for t, _ in both.host] == \
+        list(range(m + 2))
+    first = events[0][1]
+    ev = [first.elapsed_time(e) / 1e3 for _, e in events]
+    host = [h - both.host[0][1] for _, h in both.host]
+    for a, b, c, d in zip(ev, ev[1:], host, host[1:]):
+        assert abs((b - a) - (d - c)) <= 0.1 * (d - c) + 2e-4, (ev, host)
+    assert rec.steps == 2 and len(rec.stage_ticks()) == 2
+
+
+def test_smoke_replan_on_card_matches_cpu(dev):
+    """The SMOKE 6-layer (3, 3) pp trainer with the CLI's cluster and a
+    store, 3 steps, a replan off gpu-a at 4x on the analytic search (the
+    profile's threshold out of reach, so both devices search alike) and 2
+    steps on the new plan: the same plan, and losses within 1e-4 of the
+    CPU's."""
+    from repro_torch.core.cluster import cli_cluster, cli_search_kw
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    from repro_torch.profile.store import ProfileStore
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    b = registry.get_bundle("llama3-8b", smoke=True, num_layers=6)
+    state = init_train_state(b, seed=0, device="cpu")
+    plan = ParallelPlan(stages=(StagePlacement(0, 3, 1, 1, False),
+                                StagePlacement(1, 3, 1, 1, True)),
+                        micro_bs=2, global_batch=8, seq_len=32)
+    out = []
+    for d in ("cpu", dev):
+        t = Trainer(b, TrainerConfig(global_batch=8, seq_len=32,
+                                     replan_profile_min_obs=1e9),
+                    plan=plan, state=state, device=d, cluster=cli_cluster(),
+                    profile_store=ProfileStore())
+        losses = t.run(3)["losses"]
+        res = t.replan(t.cluster.degrade("gpu-a", 4.0), global_batch=8,
+                       seq_len=32, **cli_search_kw(2))
+        losses += t.run(2)["losses"]
+        out.append((res.plan.describe(), losses, t.migrations,
+                    t.telemetry.steps))
+    assert out[0][0] == out[1][0] and out[0][2] == out[1][2]
+    assert out[1][3] == 1           # the rebuilt step's first is dropped
+    torch.testing.assert_close(torch.tensor(out[1][1]),
+                               torch.tensor(out[0][1]), **MODEL_TOL)
+
+
+def test_rank_replan_over_nccl_on_four_cards(dev, tmp_path):
+    """``rank_programs.replan_cases`` (the gloo test's closed loop on
+    ranks) on four cards over NCCL, a card a rank: the SMOKE (3, 1) plan
+    widened to pp 2 x dp 2, a replan off gpu-a at 4x moved in memory over
+    NCCL (ZeRO-1 slices included), and the next step's loss equal bit for
+    bit to a fresh rank trainer's on the gathered state (an element in the
+    wrong place moves it), on every rank; one plan, the old grid's groups
+    released, every rank's store equal."""
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    from repro_torch.kernels import build
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+
+    _four_cards("a replan over NCCL runs a card a rank")
+    build.build()
+    plan = ParallelPlan(stages=(StagePlacement(0, 3, 1, 1, False),
+                                StagePlacement(1, 1, 1, 1, True)),
+                        micro_bs=1, global_batch=4, seq_len=16)
+    assert plan.transport == "gpu"
+    res = run_ranks(rank_programs.replan_cases, 4, timeout_s=600,
+                    backend="cpu:gloo,cuda:nccl", device="cuda",
+                    args=(dict(arch="llama3-8b", smoke=True, num_layers=4),
+                          plan.to_dict(), str(tmp_path)))
+    r0 = res[0]
+    print([{k: r[k] for k in ("plan", "migrations", "next_losses",
+                              "fresh_losses", "n_groups", "card_used_gb")}
+           for r in res])
+    assert ParallelPlan.from_dict(r0["run_plan"]).dps == (2, 2)
+    assert all(r["plan"] == r0["plan"] for r in res)
+    assert r0["migrations"] == {"memory": 1, "checkpoint": 0}
+    assert all(r["next_losses"] == r0["fresh_losses"] for r in res)
+    assert all(r["entries"] == r0["entries"] for r in res)
+    assert all(r["n_groups"][0] == r["n_groups"][1] for r in res)
+
+
+@pytest.mark.parametrize("layers", [16, 32])
+def test_cli_degrade_replans_on_four_cards(dev, layers):
+    """``torchrun`` of the train CLI over four cards (``CLI_ARGS``, 4 steps)
+    at ``layers`` of llama3-8b with ``--degrade gpu-a:4@2``: the ranks
+    replan after step 2 (rank 0 searches, every rank adopts), move their
+    elements to their new ranks over NCCL in memory, and take steps 3-4 on
+    the new plan.  The summary has one replan and one in-memory
+    migration, the analytic search's plan held to the card's memory
+    (``fit_to_card``; gpu-a's layers fewer), widened to dp 2, every rank's
+    losses equal and every peak under the card.  No checkpoint
+    (``--ckpt-dir ''``): the 32-layer state's ~112 GB would not fit the
+    scratch disk.  The elements' places over NCCL are held bit for bit by
+    ``test_rank_replan_over_nccl_on_four_cards``.  ``-s`` prints the
+    summary."""
+    import json
+    import math
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    _four_cards("the CLI's pp 2 x dp 2 plan runs a card a rank")
+    build.build()
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+         *CLI_ARGS[:-1], "4", "--layers", str(layers), "--degrade",
+         "gpu-a:4@2", "--ckpt-dir", ""],
+        cwd=str(root), env=env, capture_output=True, text=True, timeout=900)
+    assert r.returncode == 0, r.stderr[-4000:]
+    lines = r.stdout.strip().splitlines()
+    summary = json.loads(lines[-1])
+    print(json.dumps({k: summary[k] for k in (
+        "rank_losses", "step_s", "rank_peak_mem_gb", "virtual_layers",
+        "migrations", "replans", "dp", "transport")}))
+    print("\n".join(ln for ln in lines if ln.startswith("[train] ")))
+    first = [ln for ln in lines if ln.startswith("[train] plan: ")]
+    rep = [ln for ln in lines if ln.startswith("[train] degraded ")]
+    assert len(first) == len(rep) == 1
+    assert rep[0].startswith("[train] degraded gpu-a:4.0 -> replanned: pp=2 ")
+    assert summary["replans"] == 1
+    assert summary["migrations"] == {"memory": 1, "checkpoint": 0}
+    assert (summary["world"], summary["dp"], summary["steps"]) == (4, 2, 4)
+    # after 2 steps the store holds 3 observations, below the profiled
+    # source's 8: the ranks searched analytically, as this process can
+    from repro_torch.core import planner
+    from repro_torch.core.cluster import cli_cluster, cli_search_kw
+    from repro_torch.launch.train import search_plan
+    from repro_torch.train.trainer import fit_to_card, widen_plan
+    cfg = registry.get_config("llama3-8b", num_layers=layers)
+    old = search_plan(cfg, 2, 8, 4096)
+    degraded = cli_cluster().degrade("gpu-a", 4.0)
+    card, kw = fit_to_card(degraded, cli_search_kw(2),
+                           torch.cuda.get_device_properties(0).total_memory
+                           / 1e9)
+    want = planner.search(card, cfg, global_batch=8, seq_len=4096,
+                          baseline_plan=old, **kw).plan
+    assert rep[0].split("replanned: ")[1].startswith(
+        widen_plan(want, 4).describe())
+    assert summary["virtual_layers"] == list(want.virtual_layers)
+
+    def on_gpu_a(p):
+        return sum(st.n_layers for st in p.stages
+                   if degraded.groups[st.group].device.name == "gpu-a")
+
+    assert on_gpu_a(want) < on_gpu_a(old), (old.describe(), want.describe())
+    losses = summary["rank_losses"]
+    assert all(x == losses[0] for x in losses), losses
+    assert all(map(math.isfinite, losses[0]))
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    assert all(0 < g < card_gb for g in summary["rank_peak_mem_gb"])

@@ -112,6 +112,24 @@ Phases, each raising on failure so the script exits non-zero:
               the initial parameters (the replicas' slices together)
               within 1e-2 of reference b2's, relative, and the replicas'
               parameters equal bit for bit
+  6c. control the train CLI's autonomous controller, elastic membership
+              and observability on the pp cell (llama3-8b at full width,
+              4 layers, batch 2: a plan the controller moves to pp 1 runs
+              the reference route, whose batch 4 would not fit beside the
+              state), each run a child process on this card: --adapt with
+              --degrade gpu-a:4@4 and every obs flag (the controller
+              triggers, searches, gates and migrates by itself; the steps
+              from the injection to its migrate event), the same steps
+              with every obs output off (the step time on against off),
+              and --lose gpu-a@3 --join gpu-a@5 with every obs flag (pp 2
+              -> pp 1 -> pp 2, each move's bytes and seconds); every run's
+              launches equal to the sum over its plans of each plan's
+              launches times its steps, its losses held to the first
+              run's before that run migrates (step 0 bit for bit, later
+              steps on the same plan within 5e-3, pp 1 steps within
+              2e-2), its artifacts passing tools/validate_obs.py
+              --expect-replan and the membership run
+              tools/validate_elastic.py
   6b. plan   the port's planner and profile runner on the card: the cp
               chunks above come from its cp_split; llama3-8b's per-layer
               forward and backward at full width, seq 4096, measured
@@ -131,7 +149,8 @@ Phases, each raising on failure so the script exits non-zero:
               rmsnorm_bwd must run as one kernel a call
 Then one JSON line with every kernel (launches summed over the serve and
 train runs (cp, reference, pp, pp_ranks, tp_ranks, pp vpp, pp_ranks vpp,
-reference b2 and dp_ranks: every rank) and phase 6b;
+reference b2, dp_ranks: every rank, and phase 6c's CLI runs) and phase
+6b;
 rmsnorm and swiglu have a second row at their decode shape,
 which takes the launches made inside decode steps, the first row the rest;
 the scan's row is its S1000 timing; each row with its library call's device
@@ -147,6 +166,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import shutil
 import signal
 import subprocess
@@ -2261,6 +2281,246 @@ def phase_ckpt_pp(torch, dev, smi: str, d: Path, fs: str, pp: dict,
     return summary, launches
 
 
+# ------------------------------------------------------------ phase 6c ---
+# the autonomous controller, elastic membership and observability, through
+# the train CLI on the pp cell at CTL_BATCH sequences: a plan the controller
+# may move to pp 1 runs the reference route, whose batch 4 would not fit
+# the card beside the state (reference b2 peaks at ~53 GB)
+CTL_BATCH = 2
+CTL_STEPS = 8
+CTL_DEGRADE = "gpu-a:4@4"       # the controller sees it two steps later
+CTL_LOSE, CTL_JOIN = 3, 5       # --lose gpu-a@3 --join gpu-a@5
+# two runs of one plan agree bit for bit at step 0, and after an update only
+# to rounding: ring_step_bwd adds dq with float atomics in no fixed order
+CTL_REPEAT_TOL = 5e-3
+OBS_FLAGS = ("trace-out", "metrics-out", "events-out", "prom-out",
+             "flight-out")
+OBS_FILES = dict(zip(OBS_FLAGS, ("trace.json", "metrics.jsonl",
+                                 "events.jsonl", "prom.txt", "flight.json")))
+
+
+def _plan_shape(described: str):
+    """(pp, m) of a ``ParallelPlan.describe()`` string."""
+    fields = dict(f.split("=", 1) for f in described.split() if "=" in f)
+    return int(fields["pp"]), int(fields["m"])
+
+
+def _segment_launches(n_layers: int, plans, n_steps: int) -> dict:
+    """The launches of ``n_steps`` CLI steps that ran ``plans``: ``[(first
+    step, plan description)]``, each from its step on (pp > 1: the pp
+    route, with remat; pp 1: the reference route)."""
+    out: dict = {}
+    bounds = [s for s, _ in plans[1:]] + [n_steps]
+    for (start, described), end in zip(plans, bounds):
+        pp, m = _plan_shape(described)
+        seg = (_pp_launches(m, n_layers, end - start) if pp > 1
+               else _reference_launches(n_layers, end - start))
+        for k, v in seg.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _cli_run(tag: str, d: Path, flags) -> dict:
+    """The train CLI on the pp cell in a child process on this card
+    (``--layers TRAIN_LAYERS --seq TRAIN_SEQ --global-batch CTL_BATCH
+    --pp PP_STAGES --ckpt-dir ''``, then ``flags``): its JSON summary, its
+    stdout kept as ``<tag>.log`` in ``d``."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--layers",
+           str(TRAIN_LAYERS), "--seq", str(TRAIN_SEQ), "--global-batch",
+           str(CTL_BATCH), "--pp", str(PP_STAGES), "--ckpt-dir", "",
+           *flags]
+    env = dict(os.environ, PYTHONPATH=str(SRC), TMPDIR=str(d))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=env, cwd=str(ROOT), capture_output=True,
+                       text=True, timeout=600)
+    (d / f"{tag}.log").write_text(r.stdout)
+    if r.returncode != 0:
+        raise RuntimeError(f"{tag}: the train CLI exited {r.returncode}:\n"
+                           f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    summary = json.loads(r.stdout.strip().splitlines()[-1])
+    summary["wall_s"] = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        if line.startswith(("[adapt]", "[train] plan", "[train] injected",
+                            "[train] membership")):
+            log(f"[ctl] {tag}: {line[:300]}")
+    return summary
+
+
+def _validate(tool: str, *args) -> str:
+    """``tools/<tool>`` (unchanged) in a child process; raises unless it
+    passes."""
+    r = subprocess.run([sys.executable, str(ROOT / "tools" / tool), *args],
+                       capture_output=True, text=True, timeout=120)
+    out = (r.stdout + r.stderr).strip()
+    if r.returncode != 0:
+        raise RuntimeError(f"{tool} failed: {out}")
+    return out
+
+
+def phase_controller(torch, smi: str):
+    """The train CLI's autonomous controller, elastic membership and
+    observability on the pp cell (llama3-8b, full width, TRAIN_LAYERS
+    layers, CTL_BATCH sequences of TRAIN_SEQ) on this card, each run a
+    child process: (a) ``--adapt`` with every obs flag and ``--degrade
+    CTL_DEGRADE``: the controller must trigger, replan and migrate by
+    itself (the steps from the injection to its ``migrate`` event are
+    printed), the artifacts pass ``tools/validate_obs.py
+    --expect-replan``; (b) the same run without the obs flags and the
+    degrade, for the step time with every obs output off against on;
+    (c) ``--lose gpu-a@CTL_LOSE --join gpu-a@CTL_JOIN`` with every obs
+    flag: pp 2 -> pp 1 -> pp 2, each move's bytes and seconds, the events
+    and run log passing ``tools/validate_elastic.py`` and the artifacts
+    ``validate_obs.py --expect-replan``.  Every run's launches equal the
+    sum over the plans it ran of each plan's launches times its steps.
+    The degrade only skews telemetry, so (a)'s losses before its migrate
+    event are the yardstick: (b)'s and (c)'s step 0 equal (a)'s bit for
+    bit, their later steps on (a)'s plan lie within CTL_REPEAT_TOL of
+    (a)'s, and (c)'s pp 1 steps within TRAIN_LOSS_TOL (bf16, another
+    route).  Returns (its summary, the launches)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = Path(tempfile.mkdtemp(prefix="repro-ctl-"))
+    try:
+        return _phase_controller(smi, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _obs_args(d: Path, tag: str):
+    return [a for f in OBS_FLAGS
+            for a in (f"--{f}", str(d / f"{tag}.{OBS_FILES[f]}"))]
+
+
+def _phase_controller(smi: str, d: Path):
+    L, n = TRAIN_LAYERS, CTL_STEPS
+    kind, inject = CTL_DEGRADE.split(":")[0], int(
+        CTL_DEGRADE.partition("@")[2])
+    launches: dict = {}
+
+    def tally(tag, summary, plans):
+        got = summary["kernel_launches"]
+        want = dict.fromkeys(got, 0)
+        want.update(_segment_launches(L, plans, n))
+        log(f"[ctl] {tag} launches {got} expected {want} (plans "
+            f"{plans})")
+        assert got == want, (tag, got, want)
+        assert all(map(math.isfinite, summary["rank_losses"][0])), summary
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (a) the controller on its own, every obs output on
+    a = _cli_run("adapt", d, ["--steps", str(n), "--adapt", "--degrade",
+                              CTL_DEGRADE] + _obs_args(d, "adapt"))
+    first = a["adapt_events"]
+    acts = [e["action"] for e in first]
+    assert "trigger" in acts and "migrate" in acts, acts
+    mig = next(e for e in first if e["action"] == "migrate")
+    trig = next(e for e in first if e["action"] == "trigger")
+    detect = mig["step"] - inject
+    log(f"[ctl] adapt on {smi}: injected {CTL_DEGRADE} at step {inject}, "
+        f"trigger at step {trig['step']} ({trig['detail']}), migrate at "
+        f"step {mig['step']}: {detect} steps from the injection to the "
+        f"controller's migrate event; plan {mig['detail']['plan']}; "
+        f"moves {a['moves']}; step s {a['step_s']}")
+    assert detect > 0, (inject, mig)
+    start_plan = _first_plan(d / "adapt.log")
+    tally("adapt", a, [(0, start_plan), (mig["step"],
+                                         mig["detail"]["plan"])])
+    out = _validate("validate_obs.py", "--expect-replan", "--trace",
+                    str(d / "adapt.trace.json"), "--metrics",
+                    str(d / "adapt.metrics.jsonl"), "--events",
+                    str(d / "adapt.events.jsonl"))
+    log(f"[ctl] adapt artifacts: {out}")
+    # (b) the same steps with every obs output off
+    b = _cli_run("adapt-no-obs", d, ["--steps", str(inject), "--adapt"])
+    on, off = a["step_s"][1:inject], b["step_s"][1:inject]
+    on_s, off_s = sorted(on)[len(on) // 2], sorted(off)[len(off) // 2]
+    log(f"[ctl] obs overhead on {smi}: pp step s (steps 1-{inject - 1}, "
+        f"median) with every obs output {on_s:.4f} ({on}) against none "
+        f"{off_s:.4f} ({off}): {100 * (on_s / off_s - 1):+.2f}%")
+    ref = a["rank_losses"][0]
+    _hold_losses("adapt-no-obs", b["rank_losses"][0], ref,
+                 [(inject, CTL_REPEAT_TOL)])
+    got = b["kernel_launches"]
+    want = dict.fromkeys(got, 0)
+    want.update(_segment_launches(L, [(0, start_plan)], inject))
+    assert got == want, ("adapt-no-obs", got, want)
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    # (c) an island leaves and comes back
+    c = _cli_run("elastic", d, [
+        "--steps", str(n), "--lose", f"{kind}@{CTL_LOSE}", "--join",
+        f"{kind}@{CTL_JOIN}"] + _obs_args(d, "elastic"))
+    migs = [e for e in c["adapt_events"] if e["action"] == "migrate"]
+    shapes = [_plan_shape(start_plan)[0]] + [
+        _plan_shape(e["detail"]["plan"])[0] for e in migs]
+    log(f"[ctl] elastic on {smi}: pp {' -> '.join(map(str, shapes))} at "
+        f"steps {[e['step'] for e in migs]}; moves "
+        + "; ".join(f"{m.get('sent_bytes', 0) / 1e9:.3f} GB sent, "
+                    f"{m['move_s']:.4f} s (checkpoint {m['ckpt_s']:.4f} s)"
+                    for m in c["moves"])
+        + f"; step s {c['step_s']}")
+    assert shapes == [2, 1, 2], shapes
+    lost, joined = (e["step"] for e in migs)
+    assert joined <= mig["step"], (joined, mig)   # (a) still on start_plan
+    _hold_losses("elastic", c["rank_losses"][0], ref,
+                 [(lost, CTL_REPEAT_TOL), (joined, TRAIN_LOSS_TOL)])
+    tally("elastic", c, [(0, start_plan)] + [
+        (e["step"], e["detail"]["plan"]) for e in migs])
+    out = _validate("validate_elastic.py", "--events",
+                    str(d / "elastic.events.jsonl"), "--run-log",
+                    str(d / "elastic.log"))
+    log(f"[ctl] elastic: {out}")
+    out = _validate("validate_obs.py", "--expect-replan", "--trace",
+                    str(d / "elastic.trace.json"), "--metrics",
+                    str(d / "elastic.metrics.jsonl"), "--events",
+                    str(d / "elastic.events.jsonl"))
+    log(f"[ctl] elastic artifacts: {out}")
+    summary = {"batch": CTL_BATCH, "layers": L, "steps": n,
+               "adapt": {"inject_step": inject, "trigger_step": trig["step"],
+                         "migrate_step": mig["step"],
+                         "steps_to_migrate": detect,
+                         "plan": mig["detail"]["plan"],
+                         "step_s": a["step_s"], "moves": a["moves"],
+                         "peak_mem_gb": a["peak_mem_gb"],
+                         "losses": a["rank_losses"][0]},
+               "obs_overhead": {"on_step_s": on, "off_step_s": off,
+                                "on_median_s": on_s, "off_median_s": off_s},
+               "elastic": {"pp": shapes, "steps": [e["step"] for e in migs],
+                           "moves": c["moves"], "step_s": c["step_s"],
+                           "peak_mem_gb": c["peak_mem_gb"],
+                           "losses": c["rank_losses"][0]},
+               "start_plan": start_plan}
+    log(f"[ctl] report {json.dumps(summary)}")
+    return summary, launches
+
+
+def _hold_losses(tag: str, losses, ref, spans) -> None:
+    """Step 0 of ``losses`` equal to ``ref``'s bit for bit, and every later
+    step before ``end`` within ``tol`` of ``ref``'s, for each ``(end, tol)``
+    of ``spans`` in order, each span starting where the last ended."""
+    assert all(map(math.isfinite, losses)), (tag, losses)
+    assert losses[0] == ref[0], (tag, losses[0], ref[0])
+    start = 1
+    for end, tol in spans:
+        diffs = [abs(a - b) for a, b in zip(losses[start:end],
+                                            ref[start:end])]
+        log(f"[ctl] {tag} losses {losses[start:end]} vs adapt's "
+            f"{ref[start:end]} (steps {start}-{end - 1}): diffs {diffs} "
+            f"(tol {tol})")
+        assert len(diffs) == end - start, (tag, losses, ref)
+        assert max(diffs, default=0.0) < tol, (tag, diffs)
+        start = end
+
+
+def _first_plan(log_path: Path) -> str:
+    """The plan a CLI run started on, from its ``[train] plan:`` line."""
+    for line in log_path.read_text().splitlines():
+        if line.startswith("[train] plan: "):
+            return line[len("[train] plan: "):]
+    raise RuntimeError(f"{log_path}: no [train] plan line")
+
+
 # ------------------------------------------------------------ phase 6b ---
 PROFILE_SEQS, PROFILE_MBS = (TRAIN_SEQ,), (1,)
 PROFILE_WARMUP, PROFILE_REPS = 2, 5
@@ -2525,6 +2785,9 @@ def main(argv=None) -> int:
         launches[kname] += n
     train["dp_ranks"], counts = phase_train_dp_ranks(
         torch, dev, smi, train[f"reference b{DP_RANKS}"])
+    for kname, n in counts.items():
+        launches[kname] += n
+    train["controller"], counts = phase_controller(torch, smi)
     for kname, n in counts.items():
         launches[kname] += n
     l_cp, l_ref = train["cp"]["losses"][0], train["reference"]["losses"][0]

@@ -14,14 +14,17 @@ rank), and binds this rank's three to the axis names for
 ``iccl.communicator.Communicator``; ``destroy_rank_grid`` releases them
 when a replan builds another grid.  ``data`` carries the replicas'
 gradient all-reduce and, under ZeRO-1, the all-gather of the parameter
-slices each replica updated.  Left for ROADMAP.md queue A, item A5c (d):
+slices each replica updated.  A grid may hold only some ranks of the
+process group (``ranks``, the trainer's elastic membership): its rank
+order is then over that list, every process still makes every group in
+one order, and a process outside the list gets no grid.  Left for ROADMAP.md queue A, item A5c (d):
 stages of mixed tp widths (the ``pp_reshard`` boundary).
 """
 from __future__ import annotations
 
 import dataclasses
 import socket
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -34,7 +37,9 @@ class RankGrid:
     pp: int
     dp: int
     tp: int
-    rank: int
+    rank: int               # in the grid's rank order
+    # the process group's rank of each grid rank (default: the world)
+    ranks: Tuple[int, ...] = dataclasses.field(default=(), compare=False)
     # this rank's groups, which ``destroy_rank_grid`` releases
     groups: Tuple[dist.ProcessGroup, ...] = dataclasses.field(
         default=(), compare=False, repr=False)
@@ -89,33 +94,74 @@ def bind_world_axis(axis: str, device: torch.device) -> None:
 
 
 def make_rank_grid(pp: int, dp: int, device: torch.device,
-                   tp: int = 1) -> RankGrid:
-    """The grid of this process group (every rank calls this at once) with
-    the ``model``, ``pod`` and ``data`` axes bound; ``device`` is this
-    rank's."""
+                   tp: int = 1, ranks: Optional[Sequence[int]] = None
+                   ) -> Optional[RankGrid]:
+    """The grid of ``ranks`` (default: the whole process group; every
+    process calls this at once, with the same list) with the ``model``,
+    ``pod`` and ``data`` axes bound; ``device`` is this rank's.  None on
+    a process outside ``ranks``."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("make_rank_grid needs an initialised "
                            "torch.distributed process group")
     world = dist.get_world_size()
-    if world != pp * dp * tp:
-        raise ValueError(f"world size {world} is not pp {pp} x dp {dp} x "
+    ranks = tuple(range(world)) if ranks is None else tuple(ranks)
+    if len(ranks) != pp * dp * tp:
+        raise ValueError(f"{len(ranks)} ranks are not pp {pp} x dp {dp} x "
                          f"tp {tp}")
-    grid = RankGrid(pp, dp, tp, dist.get_rank())
+    me = dist.get_rank()
+    grid = RankGrid(pp, dp, tp, ranks.index(me) if me in ranks else -1,
+                    ranks)
     keys = _device_keys(device)
     nccl = "nccl" in str(dist.get_backend())
     mine = []
-    for axis, ranks in _axes(grid):     # every rank makes every group
-        group = dist.new_group(list(ranks))
-        if grid.rank in ranks:
-            bind_axis(axis, group, ranks, [keys[r] for r in ranks], nccl)
+    pod = None
+    for axis, local in _axes(grid):     # every rank makes every group
+        members = [ranks[r] for r in local]
+        group = dist.new_group(members)
+        if me in members:
+            bind_axis(axis, group, members, [keys[r] for r in members],
+                      nccl)
             mine.append(group)
+            if axis == "pod":
+                pod = (group, members)
+    if me not in ranks:
+        return None
     if nccl and torch.device(device).type == "cuda" and \
-            len(set(keys)) == world:
+            len(set(keys[r] for r in ranks)) == len(ranks):
         # NCCL wants a group's first call made by all its ranks, and a
         # pipeline's first hop is made by two
         for group in mine:
             dist.all_reduce(torch.zeros(1, device=device), group=group)
+        _connect_stages(*pod, device)
     return dataclasses.replace(grid, groups=tuple(mine))
+
+
+def _connect_stages(group: dist.ProcessGroup, members: Sequence[int],
+                    device: torch.device) -> None:
+    """Connect this rank with its neighbours on the ``pod`` ring (the
+    stages before and after it, the last stage's next being the first, as
+    interleaving sends) both ways now, one send to and one receive from
+    each posted at once.  Without it the CLI's 8-layer ``gpipe`` plan at
+    pp 2 x dp 2 hung over NCCL at the pivot: stage 0's ranks waited in
+    ``batch_isend_irecv`` of the batch that posts its last activation's
+    send with its first gradient's receive, the first message stage 0
+    takes from stage 1, and stage 1's ranks waited on the card inside the
+    backward engine (which of that backward's calls waits is not known).
+    NCCL connects a pair's direction on its first message; with the
+    stages' pairs connected before the first step, the plan finishes."""
+    if len(members) < 2:
+        return
+    i = members.index(dist.get_rank())
+    peers = {members[(i + 1) % len(members)], members[i - 1]}
+    ops = []
+    for peer in sorted(peers):
+        ops.append(dist.P2POp(dist.isend, torch.zeros(1, device=device),
+                              peer, group))
+        ops.append(dist.P2POp(dist.irecv, torch.zeros(1, device=device),
+                              peer, group))
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    torch.cuda.synchronize(device)
 
 
 def destroy_rank_grid(grid: RankGrid) -> None:

@@ -12,7 +12,9 @@ of the new plan likewise.  For each leaf, in one fixed order on every
 rank, each element goes from its old writer to every new rank that holds
 it: a rank sends the boxes it writes to each peer as one message, receives
 the boxes it needs from each peer as one message, and copies those it
-keeps.  The stage chunks under vpp, the tp slice and the ZeRO-1 slices of
+keeps.  The two plans may run on different ranks of the process group
+(elastic membership): a rank that leaves sends what it writes and ends
+with nothing, a rank that comes back starts from nothing.  The stage chunks under vpp, the tp slice and the ZeRO-1 slices of
 ``m``, ``v`` and the master come out of the slices; ``step`` and the
 AdamW count go from rank 0 to every rank.  Nothing is gathered: a rank
 holds, beside its new leaf, only the leaf it still has to send from.
@@ -113,22 +115,29 @@ def _plan_moves(old: Sequence[LeafSlices], new: Sequence[LeafSlices]
 
 def redistribute(state: Dict[str, Any], whole: Dict[str, Any],
                  old_plan: ParallelPlan, new_plan: ParallelPlan,
-                 cfg, device: torch.device, transport: str
-                 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+                 cfg, device: torch.device, transport: str,
+                 old_ranks: Optional[Sequence[int]] = None,
+                 new_ranks: Optional[Sequence[int]] = None
+                 ) -> Tuple[Optional[Dict[str, Any]], Dict[str, Any]]:
     """This rank's state under ``new_plan`` from every rank's state under
     ``old_plan`` (every rank of the process group calls it at once, with
-    the same plans; ``whole``: the whole state's shapes and dtypes, a
-    ``meta`` tree).  ``state`` is consumed: each old leaf is dropped once
-    its boxes are sent.  Returns (the new state on ``device``, stats:
-    ``sent_bytes``, ``recv_bytes``, ``kept_bytes``, ``seconds`` and
-    ``moved``, the ``(path, box in the new leaf, box in the whole leaf)``
-    of every box this rank received)."""
+    the same plans and rank lists; ``whole``: the whole state's shapes and
+    dtypes, a ``meta`` tree).  ``old_ranks`` / ``new_ranks``: the process
+    group's ranks each plan runs on, in its rank order (default: the
+    whole group); a rank outside ``old_ranks`` passes an empty state, and
+    one outside ``new_ranks`` gets None.  ``state`` is consumed: each old
+    leaf is dropped once its boxes are sent.  Returns (the new state on
+    ``device``, stats: ``sent_bytes``, ``recv_bytes``, ``kept_bytes``,
+    ``seconds`` and ``moved``, the ``(path, box in the new leaf, box in
+    the whole leaf)`` of every box this rank received)."""
     world, me = dist.get_world_size(), dist.get_rank()
-    for p in (old_plan, new_plan):
-        if p.pp * p.dps[0] * p.tps[0] != world:
+    old_ranks = list(range(world)) if old_ranks is None else list(old_ranks)
+    new_ranks = list(range(world)) if new_ranks is None else list(new_ranks)
+    for p, ranks in ((old_plan, old_ranks), (new_plan, new_ranks)):
+        if p.pp * p.dps[0] * p.tps[0] != len(ranks):
             raise ValueError(f"plan {p.describe()} holds "
-                             f"{p.pp * p.dps[0] * p.tps[0]} ranks, the "
-                             f"process group {world}")
+                             f"{p.pp * p.dps[0] * p.tps[0]} ranks, not the "
+                             f"{len(ranks)} it runs on ({ranks})")
     device = torch.device(device)
     staged = device.type == "cuda" and transport == "cpu"
     if device.type == "cuda" and not staged:
@@ -141,11 +150,16 @@ def redistribute(state: Dict[str, Any], whole: Dict[str, Any],
         # leaf's messages may leave some out
         dist.all_reduce(torch.zeros(1, device=device))
     rules = [ShardingRules(cfg, tp=p.tps[0]) for p in (old_plan, new_plan)]
-    old = [_flat(plan_slices(whole, old_plan, rules[0], r))
-           for r in range(world)]
-    new_tree = plan_slices(whole, new_plan, rules[1], me)
-    new = [_flat(plan_slices(whole, new_plan, rules[1], r))
-           if r != me else _flat(new_tree) for r in range(world)]
+    old: List[Dict[Path, Any]] = [{} for _ in range(world)]
+    for i, r in enumerate(old_ranks):
+        old[r] = _flat(plan_slices(whole, old_plan, rules[0], i))
+    new: List[Dict[Path, Any]] = [{} for _ in range(world)]
+    new_tree = None
+    for i, r in enumerate(new_ranks):
+        tree = plan_slices(whole, new_plan, rules[1], i)
+        if r == me:
+            new_tree = tree
+        new[r] = _flat(tree)
     mine = _flat(state)
     _clear(state)
     shapes = _flat(whole)
@@ -179,6 +193,8 @@ def redistribute(state: Dict[str, Any], whole: Dict[str, Any],
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     stats["seconds"] = time.perf_counter() - t0
+    if new_tree is None:
+        return None, stats
     return map_with_path(lambda path, _: out[path], new_tree), stats
 
 

@@ -730,7 +730,8 @@ class PPRankStep:
     background and is waited on at the end of the step.  The order never
     depends on timing, so the gradients are the same from run to run.  With pp = 1 it is the reference loss (``steps.make_loss_fn``)
     over this replica's rows ``(B / dp, S)``, its blocks kept whole as the
-    reference route keeps them (no remat).
+    reference route keeps them (no remat); a plan of m > 1 microbatches
+    of those rows takes them one at a time, adding up the gradients.
 
     At tp > 1 every layer, the embedding and the loss run on this model
     rank's shard over the ``model`` axis's communicator, which takes the
@@ -832,15 +833,12 @@ class PPRankStep:
         gradients of this rank's parameters)."""
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
         if self.plan.pp == 1:
-            loss, _ = self._loss(p, batch)
-            it = iter(torch.autograd.grad(loss, tree_leaves(p),
-                                          allow_unused=True))
-
-            def take(t):
-                g = next(it)
-                return torch.zeros_like(t) if g is None else g
-
-            return loss.detach(), self._whole_grads(tree_map(take, p))
+            rows = batch["tokens"].shape[0]
+            if rows % self.m:
+                raise ValueError(f"the batch holds {rows} rows, not a "
+                                 f"multiple of the plan's {self.m} "
+                                 f"microbatches")
+            return self._accumulated(p, batch, rows // self.m)
         cfg, s, m, pp = self.cfg, self.stage, self.m, self.plan.pp
         V = pp * self.plan.vpp
         tokens, labels = batch["tokens"], batch["labels"]
@@ -914,6 +912,23 @@ class PPRankStep:
         grads = tree_map(
             lambda t: torch.zeros_like(t) if t.grad is None else t.grad, p)
         return ce_sum / m, self._whole_grads(grads)
+
+    def _accumulated(self, p: Dict[str, Any], batch: Dict[str, torch.Tensor],
+                     rows: int):
+        """pp 1 over the plan's m microbatches of ``rows`` rows, one at a
+        time, each loss's gradient / m added into the leaves' grads (as
+        the pipeline's backwards add theirs): the activations of one
+        microbatch at a time, the memory the plan was priced at."""
+        ce_sum = None
+        for j in range(self.m):
+            mb = {k: v[j * rows:(j + 1) * rows] for k, v in batch.items()}
+            loss, _ = self._loss(p, mb)
+            (loss / self.m).backward()
+            ce_sum = loss.detach() if ce_sum is None else \
+                ce_sum + loss.detach()
+        grads = tree_map(
+            lambda t: torch.zeros_like(t) if t.grad is None else t.grad, p)
+        return ce_sum / self.m, self._whole_grads(grads)
 
     def __call__(self, state: Dict[str, Any],
                  batch: Dict[str, torch.Tensor]):

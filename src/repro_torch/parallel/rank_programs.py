@@ -593,3 +593,102 @@ def replan_cases(rank: int, world: int, bundle_kw: Dict[str, Any],
             "plan": t.plan.describe(), "migrations": dict(t.migrations),
             "next_losses": nxt, "fresh_losses": fresh_losses,
             "world_error": err}
+
+
+def elastic_ranks(rank: int, world: int, bundle_kw: Dict[str, Any],
+                  plan: Dict[str, Any], cluster: Sequence[Dict[str, Any]],
+                  search_kw: Dict[str, Any], script: Sequence[Any],
+                  ckpt_dir: Optional[str] = None,
+                  lr: float = 3e-4) -> Dict[str, Any]:
+    """A rank trainer on ``plan`` and ``cluster`` (its groups' ``to_dict``)
+    under the aggregator over the ranks, its membership searches
+    constrained by ``search_kw``, driven by ``script``: ``(steps, op,
+    kind, mark)`` runs ``steps`` steps, then tells every rank ``op``
+    ("lose", "join" or None) of island ``kind`` (``mark``: the aggregator
+    rank passed along).  After each run: this rank's losses, its grid
+    (None outside the plan), the plan the ranks run, the adaptation
+    events so far, the process groups alive, this rank's state (numpy;
+    None outside the plan) and, when the run moved the state, the move's
+    stats and, with ``ckpt_dir``, the leaves of this rank's state unequal
+    bit for bit to ``split_state_for_rank`` of the checkpoint of the move's
+    step (``_adopt`` writes it before moving)."""
+    from repro_torch.adapt import ProcessAllGatherAggregator
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.train import steps as steps_mod
+    bundle = registry.get_bundle(**bundle_kw)
+    p = ParallelPlan.from_dict(plan)
+    dev = _device()
+    agg = ProcessAllGatherAggregator()
+    t = Trainer(bundle, TrainerConfig(global_batch=p.global_batch,
+                                      seq_len=p.seq_len, ckpt_dir=ckpt_dir,
+                                      ckpt_every=1000,
+                                      replan_profile_min_obs=4),
+                plan=p, opt_cfg=AdamWConfig(lr=lr), device=dev,
+                cluster=C.ClusterSpec(groups=tuple(
+                    C.NodeGroup.from_dict(g) for g in cluster)),
+                profile_store=ProfileStore(), aggregator=agg,
+                adapt_search_kw=search_kw)
+    pg_map = torch.distributed.distributed_c10d._world.pg_map
+    out: List[Dict[str, Any]] = []
+    for steps, op, kind, mark in script:
+        last = t.last_migration
+        r = t.run(steps)
+        rec: Dict[str, Any] = {
+            "losses": r["losses"], "step": t.step,
+            "grid": (None if t.grid is None else
+                     [t.grid.stage, t.grid.replica, t.grid.rank,
+                      list(t.grid.ranks)]),
+            "run_plan": t.run_plan.to_dict(), "plan": t.plan.describe(),
+            "events": [e.to_dict() for e in t.adapt_log],
+            "n_groups": len(pg_map), "leader": agg.leader_rank(),
+            "state": None if t.state is None else _numpy_tree(t.state),
+            "migrations": dict(t.migrations)}
+        if t.last_migration is not last:
+            mig = dict(t.last_migration)
+            moved = mig.pop("moved", [])
+            rec["move"] = {**mig, "boxes": len(moved)}
+            if ckpt_dir and t.state is not None:
+                whole = steps_mod.train_state_shapes(bundle)
+                full, _ = ckpt.restore_rank(
+                    ckpt_dir, t.step, pipeline.rank_leaf_slices(
+                        whole, [bundle.cfg.num_layers], 0),
+                    torch.device("cpu"))
+                g, rplan = t.grid, t.run_plan
+                want = pipeline.split_state_for_rank(
+                    full, rplan, g.stage, ShardingRules(bundle.cfg,
+                                                        tp=rplan.tps[0]),
+                    g.model_rank, replica=g.replica)
+                rec["unequal"] = _unequal(t.state, want)
+        out.append(rec)
+        if op == "lose":
+            t.lose_node(kind, rank=mark)
+        elif op == "join":
+            t.join_node(kind, rank=mark)
+    return {"records": out}
+
+
+def aggregate_ranks(rank: int, world: int,
+                    entries: Sequence[Sequence[Any]]) -> Dict[str, Any]:
+    """``adapt.ProcessAllGatherAggregator`` on the ranks: this rank's store
+    of ``entries[rank]`` (``(device kind, op, shape, value, meta)`` puts), its
+    wire payload, the entries of its gathered view, and three broadcasts
+    — from rank 0, of None, and from rank 1 once rank 0 is lost — with
+    the leader before and after the loss."""
+    from repro_torch.adapt import ProcessAllGatherAggregator
+    a = ProcessAllGatherAggregator()
+    store = ProfileStore()
+    for dev, op, shape, value, meta in entries[rank]:
+        store.put(dev, op, shape, value, meta=meta)
+    view = a.gather(store)
+    leaders = [a.leader_rank()]
+    got = [a.broadcast({"from": 0} if rank == 0 else None),
+           a.broadcast(None)]
+    a.lose_rank(0)
+    leaders.append(a.leader_rank())
+    got.append(a.broadcast({"from": rank} if a.is_leader() else None))
+    return {"wire": a._encode(store), "directives": got, "leaders": leaders,
+            "entries": sorted(
+                (e.device_kind, e.op, json.dumps(e.shape, sort_keys=True),
+                 json.dumps(e.value, sort_keys=True))
+                for e in view.entries())}

@@ -220,7 +220,9 @@ class StageTelemetry:
                   padded_per_stage: Sequence[int],
                   micro_bs_per_stage: Sequence[int],
                   stage_scale: Optional[Sequence[float]] = None,
-                  stage_obs_scale: Optional[Sequence[float]] = None) -> int:
+                  stage_obs_scale: Optional[Sequence[float]] = None,
+                  stages: Optional[Sequence[int]] = None,
+                  bubble: bool = True) -> int:
         """Fold every not-yet-folded step observation into ``store`` as
         ``observed_stage_tick`` / ``observed_bubble`` running means.
         ``device_kinds`` names the device kind hosting each PHYSICAL
@@ -229,7 +231,10 @@ class StageTelemetry:
         folding (the straggler injection hook, ``Trainer.inject_degrade``);
         ``stage_obs_scale`` is the total slowdown each stage's fold was
         observed under (default: ``stage_scale``, else 1.0), folded as
-        ``obs_scale``.  Returns the number of steps folded."""
+        ``obs_scale``.  ``stages`` (default: every stage) and ``bubble``
+        pick what this process folds, where each process of a run folds
+        its own part of a shared observation.  Returns the number of
+        steps folded."""
         folded = 0
         meta_extra = {"telemetry": self.mode,
                       "provenance": ("bucketed" if self.mode == "timer"
@@ -237,7 +242,7 @@ class StageTelemetry:
         for durs in self._fresh:
             ticks = self._stage_ticks(durs)
             bub = self._bubble_of(durs)
-            for i in range(self.pp):
+            for i in (range(self.pp) if stages is None else stages):
                 tick_s = sum(ticks[ch * self.pp + i]
                              for ch in range(self.vpp))
                 if stage_scale is not None:
@@ -257,7 +262,7 @@ class StageTelemetry:
                      "micro_bs": micro_bs_per_stage[i]},
                     "tick_s", tick_s, also={"obs_scale": float(obs_sc)})
                 e.meta.update(meta_extra)
-            for dev in dict.fromkeys(device_kinds):
+            for dev in dict.fromkeys(device_kinds if bubble else ()):
                 e = store.fold(
                     dev, "observed_bubble",
                     {"arch": arch, "schedule": schedule, "pp": self.pp,
@@ -358,6 +363,8 @@ class RankTelemetry(StageTelemetry):
         share = [0.0] * self.pp
         count = [0] * self.pp
         for r in reports:
+            if r is None:       # a process outside the plan's ranks
+                continue
             s = r["stage"]
             count[s] += 1
             share[s] += r["busy"] / max(r["span"], _EPS_S)

@@ -1132,6 +1132,7 @@ def test_pp_vpp_dp2_ranks_on_four_cards_match_one_process(dev):
     parameters equal bit for bit; each replica holds half of its stage's
     optimizer state.  ``-s`` prints both runs."""
     import dataclasses
+    import gc
     import json
     import math
 
@@ -1167,6 +1168,11 @@ def test_pp_vpp_dp2_ranks_on_four_cards_match_one_process(dev):
                   device=dev)
     assert one._pipeline_active()
     out, moved = rank_programs.run_steps(one, 3, moves=True)
+    # the one-process state off card 0, or the next four-card run on it
+    # finds ~57 GB still cached
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
     want = out["losses"]
     # the whole model's master move a step: every rank's leaves together
     move = [math.sqrt(sum(sum(r["master_moves"][i]) for r in res))
@@ -1493,3 +1499,235 @@ def test_cli_degrade_replans_on_four_cards(dev, layers):
     assert all(map(math.isfinite, losses[0]))
     card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
     assert all(0 < g < card_gb for g in summary["rank_peak_mem_gb"])
+
+
+# ------------------- the controller, membership and queue C on the cards ----
+def _ctl_trainer(d, policy=None, **cfg_kw):
+    """The SMOKE 6-layer (3, 3) pp trainer of ``tests/test_adapt.py`` on
+    two one-accelerator islands, seed 0, the analytic search (the profile's
+    threshold out of reach, so both devices search alike)."""
+    from repro_torch.core.cluster import ClusterSpec, GPU_A, AMD, NodeGroup
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    from repro_torch.profile.store import ProfileStore
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    b = registry.get_bundle("llama3-8b", smoke=True, num_layers=6)
+    plan = ParallelPlan(stages=(StagePlacement(0, 3, 1, 1, False),
+                                StagePlacement(1, 3, 1, 1, True)),
+                        micro_bs=2, global_batch=8, seq_len=32)
+    cl = ClusterSpec(groups=(NodeGroup(AMD, 1, accel_per_node=1),
+                             NodeGroup(GPU_A, 1, accel_per_node=1)))
+    return Trainer(b, TrainerConfig(global_batch=8, seq_len=32,
+                                    replan_profile_min_obs=1e9, **cfg_kw),
+                   plan=plan, state=init_train_state(b, seed=0, device="cpu"),
+                   device=d, cluster=cl, profile_store=ProfileStore(),
+                   policy=policy,
+                   adapt_search_kw=dict(pp_options=[1, 2], tp_options=[1],
+                                        micro_bs_options=[2],
+                                        require_fit=False,
+                                        include_tp_comm=False,
+                                        schedule="1f1b",
+                                        explore_orders=False))
+
+
+def test_controller_and_membership_on_card_match_cpu(dev):
+    """The SMOKE pp trainer on the card and on the CPU: gpu-a lost after
+    step 3 and rejoined after step 5 (pp 2 -> pp 1 -> the analytic
+    search's choice at SMOKE widths: the same plans and events on both,
+    losses within 1e-4); then the controller on its own
+    after an injected 8x on gpu-a: on both devices it triggers on stage 1,
+    searches and migrates, moving layers off gpu-a, the losses before the
+    move within 1e-4."""
+    from repro_torch.adapt import AdaptConfig, ReplanPolicy
+
+    runs = []
+    for d in ("cpu", dev):
+        t = _ctl_trainer(d)
+        losses = t.run(3)["losses"]
+        t.lose_node("gpu-a")
+        losses += t.run(2)["losses"]
+        lost = t.plan.describe()
+        t.join_node("gpu-a")
+        losses += t.run(2)["losses"]
+        runs.append((lost, t.plan.describe(),
+                     [(e.step, e.action) for e in t.adapt_log], losses,
+                     dict(t.migrations)))
+    (cpu, card) = runs
+    print(runs)
+    assert cpu[:3] == card[:3] and cpu[4] == card[4]
+    assert cpu[0].startswith("pp=1 ")     # one island holds one stage
+    torch.testing.assert_close(torch.tensor(card[3]), torch.tensor(cpu[3]),
+                               **MODEL_TOL)
+    auto = []
+    for d in ("cpu", dev):
+        policy = ReplanPolicy(AdaptConfig(patience=2, cooldown=4,
+                                          baseline_steps=2, ewma=1.0,
+                                          min_gain=0.0))
+        t = _ctl_trainer(d, policy=policy)
+        losses = t.run(4)["losses"]
+        t.inject_degrade("gpu-a", 8.0)
+        losses += t.run(6)["losses"]
+        trig = next(e for e in t.adapt_log if e.action == "trigger")
+        mig = next(e for e in t.adapt_log if e.action == "migrate")
+        on_gpu_a = sum(st.n_layers for st in t.plan.stages
+                       if t.cluster.groups[st.group].device.name == "gpu-a")
+        auto.append((trig.detail["stage"], on_gpu_a, losses[:mig.step],
+                     t.migrations))
+    print(auto)
+    for stage, on_gpu_a, _, mig in auto:
+        assert stage == 1 and on_gpu_a < 3
+        assert mig == {"memory": 1, "checkpoint": 0}
+    n = min(len(auto[0][2]), len(auto[1][2]))
+    torch.testing.assert_close(torch.tensor(auto[1][2][:n]),
+                               torch.tensor(auto[0][2][:n]), **MODEL_TOL)
+
+
+def _torchrun_cli(*args, timeout=900):
+    """``torchrun`` of the train CLI over four cards at llama3-8b's 8
+    layers (the CLI's own ``gpipe`` plan, ``CLI_ARGS``), no checkpoint:
+    (its stdout lines, its JSON summary)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    _four_cards("the CLI's pp 2 x dp 2 plan runs a card a rank")
+    build.build()       # the ranks then only load the library
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+         *CLI_ARGS[:-1], *args, "--layers", "8", "--ckpt-dir", ""],
+        cwd=str(root), env=env, capture_output=True, text=True,
+        timeout=timeout)
+    first = max(r.stderr.find("Traceback"), 0)    # the rank that raised
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[first:first + 6000]
+    lines = r.stdout.strip().splitlines()
+    return lines, json.loads(lines[-1])
+
+
+GPIPE_PLAN = "pp=2 tp=1 dp=2 mbs=1 m=4 sched=gpipe seg=53"
+
+
+def test_cli_gpipe_plan_on_four_cards_matches_a_1f1b_witness(dev):
+    """ROADMAP queue C's regression test: the train CLI's own plan for
+    llama3-8b at 8 layers on four cards (gpipe, pp 2 x dp 2 over NCCL),
+    which stalled before every pair of a grid's groups was connected when
+    the grid is made.  It finishes its 3 steps with finite losses equal on
+    every rank, within 2e-2 (bf16) of a 1f1b witness of the same stages,
+    dp, seed, batches and AdamW on ``run_ranks``."""
+    import dataclasses
+    import json
+    import math
+
+    from repro_torch.launch.train import search_plan
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+
+    lines, cli = _torchrun_cli("3")
+    assert [ln for ln in lines if ln.startswith("[train] plan: ")] == \
+        [f"[train] plan: {GPIPE_PLAN}"], lines[:4]
+    losses = cli["rank_losses"]
+    assert all(x == losses[0] for x in losses)
+    assert len(losses[0]) == 3 and all(map(math.isfinite, losses[0]))
+    kw = dict(arch="llama3-8b", num_layers=8)
+    found = search_plan(registry.get_config(**kw), 2, 8, 4096)
+    assert found.schedule == "gpipe"
+    plan = dataclasses.replace(
+        found, schedule="1f1b",
+        stages=tuple(dataclasses.replace(st, dp=2) for st in found.stages))
+    res = run_ranks(rank_programs.pp_train, 4, timeout_s=900,
+                    backend="cpu:gloo,cuda:nccl", device="cuda",
+                    args=(kw, plan.to_dict(), 3,
+                          dict(lr=3e-4, warmup_steps=20)))
+    print(json.dumps({"cli": losses[0], "cli_step_s": cli["step_s"],
+                      "peaks": cli["rank_peak_mem_gb"],
+                      "witness": res[0]["losses"],
+                      "witness_step_s": res[0]["step_s"]}))
+    assert all(r["losses"] == res[0]["losses"] for r in res)
+    assert max(abs(a - b) for a, b in zip(res[0]["losses"], losses[0])) \
+        < 2e-2
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    assert all(0 < g < card_gb for g in cli["rank_peak_mem_gb"])
+
+
+def test_cli_lose_join_on_four_cards(dev, tmp_path):
+    """``--lose gpu-a@2 --join gpu-a@4`` on the CLI's 8-layer plan over four
+    cards: after step 3 the two gpu-a ranks (the plan's stage on gpu-a)
+    send their elements over NCCL and leave (pp 1 x dp 2 on the amd ranks,
+    which take the plan's microbatches one at a time; the leaving ranks'
+    allocated memory back to ~0 GB while out), after step 5 they come back
+    (pp 2 x dp 2); two in-memory migrations, ``tools/validate_elastic.py``
+    passing on the events of the rank that led the loss, and every rank's
+    losses equal on the steps it took."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    lines, s = _torchrun_cli("6", "--lose", "gpu-a@2", "--join", "gpu-a@4",
+                             "--events-out", str(tmp_path / "events.jsonl"))
+    log = tmp_path / "run.log"
+    log.write_text("\n".join(lines) + "\n")
+    print(json.dumps({k: s[k] for k in (
+        "rank_losses", "step_s", "rank_peak_mem_gb", "rank_mem_gb",
+        "moves", "migrations")}))
+    print("\n".join(ln for ln in lines if ln.startswith(("[adapt]",
+                                                         "[train]"))))
+    losses = s["rank_losses"]
+    stayed = [r for r in range(4) if len(losses[r]) == 6]
+    left = [r for r in range(4) if r not in stayed]
+    assert len(stayed) == len(left) == 2, losses
+    full = losses[stayed[0]]
+    for r in stayed:
+        assert losses[r] == full
+    for r in left:         # out for steps 4 and 5
+        assert losses[r] == full[:3] + full[5:]
+        assert s["rank_mem_gb"][r][1] < 0.5      # after step 4: released
+        assert s["rank_mem_gb"][r][2] > 5        # back after the join
+    # the events of the rank that led the loss (the lowest survivor; a
+    # follower logs no replan of its own)
+    lead = stayed[0]
+    events = tmp_path / ("events.jsonl" if lead == 0
+                         else f"events.rank{lead}.jsonl")
+    root = Path(__file__).resolve().parents[1]
+    v = subprocess.run([sys.executable, str(root / "tools" /
+                                            "validate_elastic.py"),
+                        "--events", str(events), "--run-log", str(log)],
+                       capture_output=True, text=True)
+    assert v.returncode == 0, v.stdout
+    assert s["migrations"] == {"memory": 2, "checkpoint": 0}
+    acts = [e["action"] for e in s["adapt_events"]]
+    assert acts.count("node-lost") == acts.count("node-joined") == 1
+    lost = next(e for e in s["adapt_events"] if e["action"] == "migrate")
+    assert lost["detail"]["plan"].startswith("pp=1 ")
+    # rank 0's state moves away and back, or in and out
+    assert s["moves"][0]["sent_bytes"] + s["moves"][0]["recv_bytes"] > 0
+    assert s["moves"][1]["sent_bytes"] + s["moves"][1]["recv_bytes"] > 0
+
+
+def test_cli_adapt_on_four_cards(dev):
+    """``--adapt --degrade gpu-a:4@4`` on the CLI's 8-layer plan over four
+    cards: the ranks' telemetry gathered over gloo, the leader's policy
+    triggers on gpu-a's stage, searches (held to the card), and every rank
+    migrates over NCCL.  (At ``@2`` the injection would land inside the
+    policy's two-step healthy baseline and nothing would trigger, in the
+    JAX CLI as here.)"""
+    import json
+    import math
+
+    lines, s = _torchrun_cli("8", "--adapt", "--degrade", "gpu-a:4@4")
+    print(json.dumps({k: s[k] for k in ("rank_losses", "step_s",
+                                        "rank_peak_mem_gb", "moves",
+                                        "adapt_events")}))
+    acts = [e["action"] for e in s["adapt_events"]]
+    assert "trigger" in acts and "migrate" in acts, acts
+    assert s["migrations"] == {"memory": 1, "checkpoint": 0}
+    losses = s["rank_losses"]
+    assert all(x == losses[0] for x in losses)
+    assert len(losses[0]) == 8 and all(map(math.isfinite, losses[0]))

@@ -27,7 +27,7 @@ the port is held against the pieces the JAX trainer composes:
     -> vpp 1 and pp 2 x tp 2; the trainer's replan on ranks, its next
     loss equal to a fresh rank trainer's on the gathered state, every
     rank's store equal, the ICCL notes unchanged, and a plan that does
-    not fit the world refused naming A6c;
+    not fit the ranks present refused naming them;
   * the CLI's ``--degrade`` in one process and under ``torchrun``, and
     ``degrade_spec`` against JAX's.
 """
@@ -36,7 +36,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 from pathlib import Path
 from unittest import mock
 
@@ -71,8 +70,8 @@ from repro_torch.profile.model import ProfiledCostModel  # noqa: E402
 from repro_torch.profile.store import ProfileStore  # noqa: E402
 from repro_torch.telemetry import recorder as trec  # noqa: E402
 from repro_torch.train import steps as tsteps  # noqa: E402
-from repro_torch.train.trainer import (A6C, Trainer,  # noqa: E402
-                                       TrainerConfig)
+from repro_torch.train import trainer as ttrainer  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT = 120
@@ -526,27 +525,30 @@ def test_adopt_uses_a_checkpoint_of_this_step_and_refuses_bad_modes(
 
 def test_straggler_callback_after_patience_slow_steps():
     """The EWMA detection: ``on_straggler`` once ``straggler_patience``
-    steps in a row take over ``straggler_factor`` x the EWMA."""
+    steps in a row take over ``straggler_factor`` x the EWMA.  The
+    trainer's clock is scripted (10 ms a step, 1 s from step 4 on): a
+    host's own ~10 ms steps vary by more than the factor under load."""
     t = Trainer(treg.get_bundle("llama3-8b", smoke=True),
                 TrainerConfig(global_batch=2, seq_len=16,
                               straggler_patience=2, straggler_factor=1.5),
                 device="cpu")
-    step, slow = t.train_step, []
+    step, now = t.train_step, [100.0]
 
     def sleepy(state, batch):
-        if t.step >= 4:
-            time.sleep(1.0)
+        now[0] += 1.0 if t.step >= 4 else 0.01
         return step(state, batch)
 
     t.train_step = sleepy
     calls = []
-    t.run(4, on_straggler=calls.append)
-    assert calls == [] and t._slow == 0
-    t.run(1, on_straggler=calls.append)
-    assert calls == [] and t._slow == 1
-    t.run(1, on_straggler=calls.append)
+    with mock.patch.object(ttrainer.time, "perf_counter",
+                           lambda: now[0]):
+        t.run(4, on_straggler=calls.append)
+        assert calls == [] and t._slow == 0
+        assert t._ewma == pytest.approx(0.01)
+        t.run(1, on_straggler=calls.append)
+        assert calls == [] and t._slow == 1
+        t.run(1, on_straggler=calls.append)
     assert calls == [t] and t._slow == 0
-    assert slow == []
 
 
 def test_inject_degrade_errors_and_tags_as_jax():
@@ -821,9 +823,11 @@ def test_rank_replan_leaves_the_iccl_notes_unchanged(rank_replan):
 
 
 def test_rank_replan_refuses_a_plan_that_changes_the_world(rank_replan):
+    """A plan of 3 ranks cannot run on the 4 ranks present: every rank
+    raises, naming them."""
     for r in rank_replan:
-        assert A6C in r["world_error"] and "needs 3 ranks" in \
-            r["world_error"]
+        assert "needs 3 ranks" in r["world_error"] and \
+            "ranks present (4: [0, 1, 2, 3])" in r["world_error"]
 
 
 @pytest.mark.parametrize("layers", [16, 32])

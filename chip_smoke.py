@@ -20,23 +20,43 @@ Phases, each raising on failure so the script exits non-zero:
               rmsnorm and swiglu also at a decode step's 8 rows, the scan
               at each prefill length of the trace (S 128, 500, 1000); the
               flash forward also at the reference training route's B1
-              S4096, beside SDPA; the training kernels (ring_step, ring_step_bwd,
-              rmsnorm_bwd, swiglu_bwd, the flash backward and its lse) at
+              S4096, beside SDPA, at head dims 120 and 24 (the tile of
+              the next width, windowed, causal, softcapped), and at
+              h2o-danube-3-4b's prefill of 6000 (hd 120, window 4096),
+              timed beside SDPA with the same boolean band mask; the
+              training kernels (ring_step, ring_step_bwd, rmsnorm_bwd,
+              swiglu_bwd, the flash backward and its lse) at
               the training shapes: the cp ring's, and B1 S4096 for the
               flash backward.  bf16 attention (the tensor cores take P and
               dS as bf16 operands, P of the ring hop as a hi + lo pair; the
               plain versions keep them in fp32) is also held by each
               output's norm-relative error (REL_TOL), read beside SDPA's
               and the controls'
-  4. model    llama3-8b and falcon-mamba-7b SMOKE in fp32: the kernels on
-              the card against the plain versions on the CPU through
-              forward/prefill/the cache/decode
-  5. serve    llama3-8b, then falcon-mamba-7b, at full width and depth
-              (bf16, seeded random weights) through ServeEngine(max_batch=8,
-              max_len=2048) on the same 16-request trace; every kernel's
-              launch count equals its expected count for that path, first
-              tokens equal decode_sequential's, logits are finite; each path
-              reports its own peak memory
+  4. model    llama3-8b, falcon-mamba-7b, qwen3-14b, nemotron-4-15b and
+              h2o-danube-3-4b SMOKE in fp32: the kernels on the card
+              against the plain versions on the CPU through forward/
+              prefill/the cache/decode (danube's prompt past its window)
+  5. serve    llama3-8b, falcon-mamba-7b, qwen3-14b, nemotron-4-15b and
+              h2o-danube-3-4b, one after another, each at full width and
+              depth (bf16, seeded random weights) through
+              ServeEngine(max_batch=8) on a 16-request trace: prompts
+              {128, 500, 1000} at max_len 2048, danube's {1000, 4500,
+              6000} at max_len 8192 (its window of 4096 binds in the
+              prefill's flash band and wraps the decode's rolling
+              buffer); every kernel's launch count equals its expected
+              count for that path (qk_norm's two norms a layer,
+              nemotron's MLP without the swiglu kernel), first tokens
+              equal decode_sequential's (the new archs' sequential pass
+              decodes 4 tokens a request), logits are finite; each path
+              reports its own peak memory, its model freed before the
+              next is made.  danube also: one request's prefill of 6000
+              tokens and 4 decode steps across the wrapped buffer against
+              lm_forward of the same tokens, logits within 2e-2 by norm
+              in bf16 and 1e-4 with the same weights in fp32, where a
+              control decoding from JAX's front-written layout must miss.
+              Then the serve CLI (h2o-danube-3-4b, full width) with
+              --plan --metrics-out --prom-out in a child process, its
+              artifacts through tools/validate_serve.py
   6. train    llama3-8b SMOKE fp32, 3 Trainer steps on the card against 3 on
               the CPU from one state, on the cp route (chunks 40/31/25), the
               reference route and the pipeline over an interleaved plan
@@ -153,8 +173,10 @@ reference b2, dp_ranks: every rank, and phase 6c's CLI runs) and phase
 6b;
 rmsnorm and swiglu have a second row at their decode shape,
 which takes the launches made inside decode steps, the first row the rest;
-the scan's row is its S1000 timing; each row with its library call's device
-time and the floor), the card line, and the last line
+the flash forward has a second row at h2o-danube-3-4b's prefill shape,
+which takes that serve cell's launches; the scan's row is its S1000
+timing; each row with its library call's device time and the floor), the
+card line, and the last line
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
 check and timing there as JSON.  Imports nothing of JAX.
 """
@@ -211,7 +233,32 @@ REL_TOL = 1e-2
 # the selective scan: an fp32 sum over up to S decayed terms, added in
 # another order than the plain loop's (tests/test_kernels.py:102-103)
 SCAN_TOL = dict(rtol=2e-4, atol=2e-4)
-SERVE_ARCHS = ("llama3-8b", "falcon-mamba-7b")
+# the serve cells: arch -> (prompt lengths, max_len, the tokens a request
+# of the decode_sequential pass decodes (None: its whole stream)).  The
+# dense family after llama takes llama's trace; h2o-danube-3-4b's longer
+# prompts put its window (4096) inside the prefill's flash band and wrap
+# its decode's rolling buffer.  Their sequential pass, which checks the
+# first tokens, decodes the first 4 tokens of each request, to keep the
+# script inside its time.
+SERVE_CELLS = {
+    "llama3-8b": ((128, 500, 1000), 2048, None),
+    "falcon-mamba-7b": ((128, 500, 1000), 2048, None),
+    "qwen3-14b": ((128, 500, 1000), 2048, 4),
+    "nemotron-4-15b": ((128, 500, 1000), 2048, 4),
+    "h2o-danube-3-4b": ((1000, 4500, 6000), 8192, 4),
+}
+SERVE_ARCHS = tuple(SERVE_CELLS)
+# the SWA check (phase_swa): one danube request's prefill of SWA_PROMPT
+# tokens and SWA_STEPS decode steps across the wrapped buffer against
+# lm_forward of the same tokens, by the logits' norm-relative error: in
+# bf16 (24 layers: the prefill and the forward take other GEMM shapes,
+# the decode plain attention with bf16 weights; the bf16 tolerance), and
+# with the same weights in fp32 (the fp32 model tolerance)
+SWA_PROMPT, SWA_STEPS = 6000, 4
+SWA_REL_TOL, SWA_FP32_TOL = 2e-2, 1e-4
+# the serve CLI's --plan --metrics-out --prom-out run on the card, checked
+# by tools/validate_serve.py
+SERVE_CLI_ARCH = "h2o-danube-3-4b"
 # the prompt lengths of the serve trace: each Mamba prefill scans one
 SCAN_SEQS = (128, 500, 1000)
 # model-level fp32 tolerance: two layers of matmuls summed in other orders
@@ -466,6 +513,16 @@ def phase_kernels(torch, dev, name, device_only=False):
         ("S257 ragged", 2, 257, 257, 32, 8, 128, {}, (bf, f32)),
         ("Sq300>Sk200 masked rows", 1, 300, 200, 8, 2, 128, {}, (bf, f32)),
         ("S200 hd64 MQA", 2, 200, 200, 8, 1, 64, {}, (bf, f32)),
+        # head dims between the tile widths: h2o-danube-3-4b's 120 and
+        # nemotron-4-15b SMOKE's 24, windowed, causal, softcapped
+        ("S1000 hd120 window256", 1, 1000, 1000, 32, 8, 120,
+         {"window": 256}, (bf, f32)),
+        ("S300 hd120 softcap30", 1, 300, 300, 8, 2, 120, {"softcap": 30.0},
+         (bf,)),
+        ("Sq100<Sk700 hd24 window64", 2, 100, 700, 4, 2, 24,
+         {"window": 64}, (bf, f32)),
+        ("S257 hd24 softcap20 window40", 1, 257, 257, 4, 2, 24,
+         {"softcap": 20.0, "window": 40}, (bf,)),
     ]
     for label, B, Sq, Sk, H, Hk, hd, kw, dts in fl_cases:
         for dt in dts:
@@ -553,6 +610,25 @@ def phase_kernels(torch, dev, name, device_only=False):
     el = 2                            # bf16 bytes
     di, ds = 8192, 16
     scans = {S_: scan_inputs(1, S_, di, ds, bf) for S_ in SCAN_SEQS}
+    # h2o-danube-3-4b's prefill of its longest prompt: hd 120, window 4096
+    Sw_, W_ = SWA_PROMPT, 4096
+    qw = randn(1, Sw_, 32, 120, dtype=bf)
+    kw_, vw = randn(1, Sw_, 8, 120, dtype=bf), randn(1, Sw_, 8, 120,
+                                                    dtype=bf)
+    qwt, kwt, vwt = (t.transpose(1, 2) for t in (qw, kw_, vw))
+    band = ref.attention_mask(Sw_, Sw_, causal=True, window=W_, device=dev)
+    band_pairs = sum(min(i + 1, W_) for i in range(Sw_))
+    if not device_only:
+        case = f"B1 S{Sw_} H32 Hk8 hd120 window{W_} {bf}"
+        want = ref.flash_attention(qw, kw_, vw, window=W_)
+        compare("flash_attention", case,
+                fa.flash_attention(qw, kw_, vw, window=W_), want, BF16_TOL,
+                rel=True)
+        _reading(readings, "flash_attention", case, "SDPA, band mask",
+                 F.scaled_dot_product_attention(
+                     qwt, kwt, vwt, attn_mask=band,
+                     enable_gqa=True).transpose(1, 2), want)
+        del want
     xd = randn(8, 4096, dtype=bf)     # a decode step's rows
     gd, ud = randn(8, 14336, dtype=bf), randn(8, 14336, dtype=bf)
 
@@ -622,6 +698,22 @@ def phase_kernels(torch, dev, name, device_only=False):
             kernels=("flash_fwd",),
             bytes=(2 * S * H * hd + 2 * S * Hk * hd) * el,
             ops=[(4 * pairs * hd * H, bf16_peak)]),
+        # the same kernel at h2o-danube-3-4b's longest prefill (hd 120 in
+        # the 128 tile); its bound counts the window band's pairs at the
+        # real hd; the library call is SDPA with the same boolean band
+        "flash_attention hd120": dict(
+            name="flash_attention",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:91",
+            shape=f"B1 S{Sw_} H32 Hk8 hd120 window{W_} causal bf16",
+            fn=lambda: fa.flash_attention(qw, kw_, vw, window=W_),
+            plain=lambda: ref.flash_attention(qw, kw_, vw, window=W_),
+            plain_iters=3,
+            library=lambda: F.scaled_dot_product_attention(
+                qwt, kwt, vwt, attn_mask=band, enable_gqa=True),
+            kernels=("flash_fwd",),
+            bytes=(2 * Sw_ * 32 * 120 + 2 * Sw_ * 8 * 120) * el,
+            ops=[(4 * band_pairs * 120 * 32, bf16_peak)]),
     }
     # the scan at each prefill length of the serve trace; the longest is
     # the kernel's row
@@ -650,7 +742,9 @@ def phase_kernels(torch, dev, name, device_only=False):
             "replaces": r["replaces"], "shape": r["shape"],
             "max_abs_err": err,
             "ms": event_ms(r["fn"]),
-            "plain_ms": event_ms(r["plain"]),
+            "plain_ms": (event_ms(r["plain"], iters=r["plain_iters"],
+                                  warmup=1) if "plain_iters" in r
+                         else event_ms(r["plain"])),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": (event_ms(r["library"])
@@ -1169,6 +1263,9 @@ def _tree(node, fn):
 
 # ------------------------------------------------------------- phase 5 ---
 def phase_serve(torch, dev, arch):
+    """One serve cell of SERVE_CELLS at full width and depth: the engine's
+    exact launch counts, first tokens equal decode_sequential's, finite
+    logits, the report; an SWA arch also the SWA check."""
     from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.serve import ServeEngine, decode_sequential, scripted_trace
@@ -1188,8 +1285,9 @@ def phase_serve(torch, dev, arch):
     log(f"[serve] {arch} init {n_params / 1e9:.3f} B params on {dev} in "
         f"{init_s:.1f} s")
 
+    prompt_lens, max_len, seq_tokens = SERVE_CELLS[arch]
     reqs = scripted_trace(16, vocab_size=cfg.vocab_size, seed=0,
-                          prompt_lens=(128, 500, 1000),
+                          prompt_lens=prompt_lens,
                           gen_lens=(16, 32, 64), arrival_every=1)
     # the timed engine runs the plain bundle, its decode steps' launches
     # counted apart (two reads of the counters a step); the logits are
@@ -1204,7 +1302,7 @@ def phase_serve(torch, dev, arch):
         return out
 
     eng = ServeEngine(dataclasses.replace(base, decode_step=counted_decode),
-                      params, max_batch=8, max_len=2048, device=dev)
+                      params, max_batch=8, max_len=max_len, device=dev)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     report = eng.run(reqs)
@@ -1219,14 +1317,18 @@ def phase_serve(torch, dev, arch):
     L = cfg.num_layers
     expect = dict.fromkeys(launches, 0)
     if cfg.family == "ssm":   # {ln1, ssm} blocks; the scan in prefill only
-        expect.update(rmsnorm=(L + 1) * steps, ssm_scan=L * len(reqs))
+        per_step, sg_step = L + 1, 0
+        expect.update(rmsnorm=per_step * steps, ssm_scan=L * len(reqs))
     else:
-        expect.update(rmsnorm=(2 * L + 1) * steps, swiglu=L * steps,
+        # ln1, ln2 (and qk_norm's q_norm, k_norm) a layer, the final norm;
+        # the swiglu kernel only for swiglu MLPs (nemotron's squared ReLU
+        # is plain torch, as in the JAX package); flash in prefills only
+        per_step = (2 + 2 * cfg.qk_norm) * L + 1
+        sg_step = L if cfg.act == "swiglu" else 0
+        expect.update(rmsnorm=per_step * steps, swiglu=sg_step * steps,
                       flash_attention=L * len(reqs))
     log(f"[serve] {arch} launches {launches} expected {expect}")
     assert launches == expect, (launches, expect)
-    per_step = L + 1 if cfg.family == "ssm" else 2 * L + 1
-    sg_step = 0 if cfg.family == "ssm" else L
     log(f"[serve] {arch} rmsnorm / swiglu launches in decode steps "
         f"{decode_launches['rmsnorm']} / {decode_launches['swiglu']} "
         f"expected {per_step * report.decode_steps} / "
@@ -1245,17 +1347,24 @@ def phase_serve(torch, dev, arch):
     checked = dataclasses.replace(
         base, prefill=finite(base.prefill, "prefill"),
         decode_step=finite(base.decode_step, "decode"))
-    seq = decode_sequential(checked, params, reqs, max_len=2048, device=dev)
+    seq_reqs = reqs if seq_tokens is None else [
+        dataclasses.replace(r, max_new_tokens=min(r.max_new_tokens,
+                                                  seq_tokens))
+        for r in reqs]
+    seq = decode_sequential(checked, params, seq_reqs, max_len=max_len,
+                            device=dev)
     first_equal = all(comps[r.rid].tokens[0] == seq[r.rid][0] for r in reqs)
     agree = sum(a == b for r in reqs
                 for a, b in zip(comps[r.rid].tokens[1:], seq[r.rid][1:]))
-    n_dec = sum(len(comps[r.rid].tokens) - 1 for r in reqs)
-    full_equal = sum(comps[r.rid].tokens == seq[r.rid] for r in reqs)
+    n_dec = sum(len(seq[r.rid]) - 1 for r in reqs)
+    full_equal = sum(comps[r.rid].tokens[:len(seq[r.rid])] == seq[r.rid]
+                     for r in reqs)
     log(f"[serve] {arch} first tokens equal decode_sequential: "
         f"{first_equal}; "
         f"decode tokens agreeing at their position: {agree}/{n_dec}; "
         f"streams fully equal: {full_equal}/{len(reqs)}")
     assert first_equal, "first tokens differ from decode_sequential"
+    swa = phase_swa(torch, dev, base, params) if cfg.window else None
 
     # the same statistics (mean, median, max over requests) as the CLI's
     summary = {
@@ -1265,10 +1374,118 @@ def phase_serve(torch, dev, arch):
         "decode_launches": decode_launches,
         "decode_agree": [agree, n_dec], "streams_equal": [full_equal,
                                                           len(reqs)],
+        "sequential_tokens": seq_tokens, "max_len": max_len,
+        "prompt_lens": list(prompt_lens), "swa": swa,
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
     }
     log(f"[serve] {arch} report {json.dumps(summary)}")
     return summary, launches
+
+
+def phase_swa(torch, dev, b, params):
+    """An SWA arch at full width: one request's prefill of SWA_PROMPT
+    tokens (past the window, so the rolling buffer holds positions
+    SWA_PROMPT - Sw .. SWA_PROMPT - 1 at their index mod Sw) and SWA_STEPS
+    decode steps, each step's logits against lm_forward over the whole
+    sequence so far (the flash kernel's window band) at its last
+    position, by norm: in bf16 within SWA_REL_TOL, the distance between
+    two bf16 routes; then the same weights in fp32 within SWA_FP32_TOL.
+    A control decodes from JAX's front-written buffer layout.  With random
+    weights attention is near uniform over the 4096 keys, so the key or
+    two such a fault misplaces a step moves the logits by about the bf16
+    distance; in fp32 the control must read above the limit."""
+    cfg = b.cfg
+    S, n = SWA_PROMPT, SWA_STEPS
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, S + n),
+                           generator=gen).to(dev)
+
+    def check(b_, params_):
+        """(rel err, max abs err, the control's rel err) of b_'s steps."""
+        full, _ = b_.forward(params_, {"tokens": tokens}, b_.cfg)
+        want = full[0, S - 1:].clone()
+        del full
+
+        def decode_from(last, cache):
+            got = [last[0]]
+            for t in range(n):
+                lg, cache = b_.decode_step(
+                    params_, tokens[:, S + t:S + t + 1], cache, b_.cfg)
+                got.append(lg[0])
+            return torch.stack(got)
+
+        last, cache = b_.prefill(params_, {"tokens": tokens[:, :S]}, b_.cfg,
+                                 8192)
+        Sw = cache["kv"]["k"].shape[2]
+        # JAX's layout: the kept positions S - Sw .. S - 1 at the front
+        front = {"pos": torch.tensor(S, device=dev),
+                 "kv": {k: torch.roll(v, -(S % Sw), dims=2)
+                        for k, v in cache["kv"].items()}}
+        got = decode_from(last, cache)
+        ctl = decode_from(last, front)
+        return (_rel_err(got, want), _max_err(got, want),
+                _rel_err(ctl, want), Sw)
+
+    rel, err, ctl, Sw = check(b, params)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", dtype="float32")
+    p32 = _tree(params, lambda t: t.float())
+    rel32, err32, ctl32, _ = check(dataclasses.replace(b, cfg=cfg32), p32)
+    del p32
+    log(f"[serve] {cfg.name} SWA: prefill S{S} (window {cfg.window}, "
+        f"buffer {Sw}) + {n} decode steps vs lm_forward: bf16 rel_err "
+        f"{rel:.3e} (limit {SWA_REL_TOL}), max_abs_err {err:.3e}, control "
+        f"(JAX's front layout) {ctl:.3e}; fp32 rel_err {rel32:.3e} (limit "
+        f"{SWA_FP32_TOL}), max_abs_err {err32:.3e}, control {ctl32:.3e}")
+    assert rel <= SWA_REL_TOL, (rel, SWA_REL_TOL)
+    assert rel32 <= SWA_FP32_TOL, (rel32, SWA_FP32_TOL)
+    assert ctl32 > SWA_FP32_TOL, ("the control reads inside the limit",
+                                  ctl32)
+    return {"prompt": S, "steps": n, "buffer": Sw, "rel_err": rel,
+            "max_abs_err": err, "control_rel_err": ctl,
+            "fp32_rel_err": rel32, "fp32_max_abs_err": err32,
+            "fp32_control_rel_err": ctl32}
+
+
+def phase_serve_cli(torch):
+    """The serve CLI with --plan --metrics-out --prom-out at full width on
+    this card, in a child process; its artifacts through
+    tools/validate_serve.py.  Returns its summary."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = Path(tempfile.mkdtemp(prefix="repro-serve-"))
+    try:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               SERVE_CLI_ARCH, "--plan", "--metrics-out",
+               str(d / "metrics.jsonl"), "--prom-out", str(d / "m.prom")]
+        env = dict(os.environ, PYTHONPATH=str(SRC), TMPDIR=str(d))
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, env=env, cwd=str(ROOT), capture_output=True,
+                           text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        (d / "run.log").write_text(r.stdout)
+        if r.returncode != 0:
+            raise RuntimeError(f"the serve CLI exited {r.returncode}:\n"
+                               f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        lines = r.stdout.strip().splitlines()
+        summary = json.loads(lines[-1])
+        assert lines[0].startswith("serving plan: "), lines[0]
+        assert summary["run_id"] and "plan" in summary, summary
+        assert summary["device"].startswith("cuda"), summary["device"]
+        assert summary["kernel_launches"]["flash_attention"] > 0
+        out = _validate("validate_serve.py", "--metrics",
+                        str(d / "metrics.jsonl"), "--run-log",
+                        str(d / "run.log"))
+        prom = (d / "m.prom").read_text()
+        assert "serve_tpot_s_count" in prom, prom[:500]
+        log(f"[serve-cli] {SERVE_CLI_ARCH} {lines[0]}")
+        log(f"[serve-cli] run_id {summary['run_id']} replans "
+            f"{summary['replans']} occupancy {summary['occupancy']} "
+            f"launches {summary['kernel_launches']} in {wall:.1f} s; "
+            f"validate_serve.py: {out}")
+        summary["wall_s"] = wall
+        return summary
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def _cp_plan(chunks, global_batch: int, n_layers: int):
@@ -2738,6 +2955,9 @@ def main(argv=None) -> int:
     # (8 rows or fewer), and the rest (prefills and training)
     decode = {k: sum(serve[a]["decode_launches"][k] for a in SERVE_ARCHS)
               for k in ("rmsnorm", "swiglu")}
+    # flash's row at danube's prefill shape takes that cell's launches
+    swa_flash = serve["h2o-danube-3-4b"]["launches"]["flash_attention"]
+    serve_cli = phase_serve_cli(torch)
     train_parity = phase_train_parity(torch, dev)
     train = {}
     for route in ("cp", "reference"):
@@ -2818,7 +3038,8 @@ def main(argv=None) -> int:
             and all("rmsnorm_bwd_ring_kernel" in k for k in runs)), runs
     extra["ring_step_bwd_cp4_per_launch_device_ms"] = device[
         "ring_step_bwd_cp4_per_launch_device_ms"]
-    row_launches = {}
+    row_launches = {"flash_attention": launches["flash_attention"]
+                    - swa_flash, "flash_attention hd120": swa_flash}
     for k, n in decode.items():
         row_launches[k], row_launches[f"{k} decode"] = launches[k] - n, n
 
@@ -2844,6 +3065,7 @@ def main(argv=None) -> int:
               "checks": checks, "worst_err_by_kernel": worst,
               "timed": timed, "timed_extra": extra,
               "model_max_abs_err": model_err, "serve": serve,
+              "serve_cli": serve_cli,
               "train_parity": train_parity, "train": train, "plan": plan,
               "launches": launches}
     if args.report:

@@ -11,6 +11,12 @@
 // One block owns a (b, h, 64-row q tile), heaviest tiles first, and walks
 // the kv tiles inside the causal/window band; m, l and O stay on chip.
 //
+// Head dims: any multiple of 8 up to 128.  The tiles are instantiated at
+// 16, 32, 64 and 128 columns; a narrower head dim (h2o-danube-3-4b's 120,
+// a SMOKE config's 24) runs in the next tile width, its columns past hd
+// zero-filled on load (they add 0 to every score and give 0 output
+// columns) and never stored.  The scale stays 1/sqrt(hd) of the real hd.
+//
 // Bound: at the serving and training shapes (S 1000-4096, hd 128) the work
 // is ~4*S^2/2*hd operations per head against ~4*S*hd*2 bytes: the bf16
 // tensor-core rate.
@@ -51,6 +57,7 @@ struct FlashParams {
   void* o;
   float* lse;     // nullptr: not written
   int B, Sq, Sk, H, Hk;
+  int hd;         // the real head dim: columns of q/k/v/o (<= the tile's)
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -107,7 +114,7 @@ flash_fwd_kernel(const FlashParams p) {
   for (int idx = tid; idx < kBQ * HD; idx += kThreads) {
     const int r = idx / HD, d = idx % HD;
     const int qi = q0 + r;
-    Qs[d * (kBQ + 1) + r] = qi < p.Sq ? qg[qi * p.q_ss + d] : 0.f;
+    Qs[d * (kBQ + 1) + r] = qi < p.Sq && d < p.hd ? qg[qi * p.q_ss + d] : 0.f;
   }
 
   float m[kRowsPerThread], l[kRowsPerThread];
@@ -125,7 +132,7 @@ flash_fwd_kernel(const FlashParams p) {
     for (int idx = tid; idx < kBK * HD; idx += kThreads) {
       const int r = idx / HD, d = idx % HD;
       const int kj = k0 + r;
-      const bool in = kj < p.Sk;
+      const bool in = kj < p.Sk && d < p.hd;
       Ks[d * (kBK + 1) + r] = in ? kg[kj * p.k_ss + d] : 0.f;
       Vs[r * HD + d] = in ? vg[kj * p.v_ss + d] : 0.f;
     }
@@ -215,16 +222,18 @@ flash_fwd_kernel(const FlashParams p) {
     }
   }
 
-  // out is contiguous (B, Sq, H, HD)
-  float* og = static_cast<float*>(p.o) + ((long long)b * p.Sq * p.H + h) * HD;
+  // out is contiguous (B, Sq, H, hd)
+  float* og =
+      static_cast<float*>(p.o) + ((long long)b * p.Sq * p.H + h) * p.hd;
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= p.Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    float* orow = og + (long long)qi * p.H * HD;
+    float* orow = og + (long long)qi * p.H * p.hd;
 #pragma unroll
-    for (int j = 0; j < kOutCols; ++j) orow[tx + 8 * j] = acc[i][j] * inv;
+    for (int j = 0; j < kOutCols; ++j)
+      if (tx + 8 * j < p.hd) orow[tx + 8 * j] = acc[i][j] * inv;
     if (p.lse != nullptr && tx == 0)
       p.lse[((long long)b * p.Sq + qi) * p.H + h] =
           l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
@@ -301,12 +310,12 @@ flash_fwd_mma_kernel(const FlashParams p) {
   auto load_kv = [&](int it) {
     const int st = it % kStages, k0 = (t_lo + it) * kBK;
     tc::load_tile<HD, kBK, kThreads>(Ks + st * kBK * HD, kg, p.k_ss, k0,
-                                     p.Sk);
+                                     p.Sk, p.hd);
     tc::load_tile<HD, kBK, kThreads>(Vs + st * kBK * HD, vg, p.v_ss, k0,
-                                     p.Sk);
+                                     p.Sk, p.hd);
   };
   // Q's group, then one group a K/V tile, kStages - 1 ahead
-  tc::load_tile<HD, kBQ, kThreads>(Qs, qg, p.q_ss, q0, p.Sq);
+  tc::load_tile<HD, kBQ, kThreads>(Qs, qg, p.q_ss, q0, p.Sq, p.hd);
   tc::cp_async_commit();
 #pragma unroll
   for (int it = 0; it < kStages - 1; ++it) {
@@ -433,8 +442,9 @@ flash_fwd_mma_kernel(const FlashParams p) {
   }
   tc::cp_async_wait<0>();  // no copy outlives the block (n_tiles == 0)
 
-  // out is contiguous (B, Sq, H, HD)
-  bf16* og = static_cast<bf16*>(p.o) + ((long long)b * p.Sq * p.H + h) * HD;
+  // out is contiguous (B, Sq, H, hd)
+  bf16* og =
+      static_cast<bf16*>(p.o) + ((long long)b * p.Sq * p.H + h) * p.hd;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     float lr = l[rr];
@@ -443,11 +453,12 @@ flash_fwd_mma_kernel(const FlashParams p) {
     const int qi = q0 + warp * 16 + gid + 8 * rr;
     if (qi >= p.Sq) continue;
     const float inv = lr > 0.f ? 1.f / lr : 0.f;
-    bf16* orow = og + (long long)qi * p.H * HD + 2 * tig;
+    bf16* orow = og + (long long)qi * p.H * p.hd + 2 * tig;
 #pragma unroll
     for (int n = 0; n < kOutTiles; ++n)
-      *reinterpret_cast<uint32_t*>(orow + 8 * n) =
-          tc::pack_bf16(o[n][2 * rr] * inv, o[n][2 * rr + 1] * inv);
+      if (8 * n < p.hd)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+            tc::pack_bf16(o[n][2 * rr] * inv, o[n][2 * rr + 1] * inv);
     if (p.lse != nullptr && tig == 0)
       p.lse[((long long)b * p.Sq + qi) * p.H + h] =
           lr > 0.f ? m[rr] * kLn2 + logf(lr) : INFINITY;
@@ -495,11 +506,18 @@ cudaError_t attrs(int* out) {
 
 }  // namespace mma_fwd
 
-cudaError_t dispatch_hd(const FlashParams& p, int hd, int dtype,
+// The tile width a head dim runs in: the narrowest of 16, 32, 64 and 128
+// that holds it (hd a multiple of 8), else 0.
+int tile_width(int hd) {
+  if (hd < 8 || hd > 128 || hd % 8 != 0) return 0;
+  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128;
+}
+
+cudaError_t dispatch_hd(const FlashParams& p, int dtype,
                         cudaStream_t stream) {
   const bool bf = dtype == REPRO_BF16;
   if (!bf && dtype != REPRO_F32) return cudaErrorInvalidValue;
-  switch (hd) {
+  switch (tile_width(p.hd)) {
     case 16:
       return bf ? mma_fwd::launch<16>(p, stream) : launch_f32<16>(p, stream);
     case 32:
@@ -515,8 +533,9 @@ cudaError_t dispatch_hd(const FlashParams& p, int hd, int dtype,
 
 }  // namespace
 
-// q: (B,Sq,H,hd), k/v: (B,Sk,Hk,hd) with unit stride on hd and the given
-// element strides for b, s, h; o: contiguous (B,Sq,H,hd) of q's dtype;
+// q: (B,Sq,H,hd), k/v: (B,Sk,Hk,hd), hd a multiple of 8 up to 128, with
+// unit stride on hd and the given element strides for b, s, h; o:
+// contiguous (B,Sq,H,hd) of q's dtype;
 // lse: contiguous fp32 (B,Sq,H) or nullptr.  bf16 runs on the tensor
 // cores and needs 16-byte aligned bases and b, s, h strides; fp32 runs on
 // the FMA kernel.
@@ -532,16 +551,17 @@ extern "C" int flash_attention_fwd(
     return cudaErrorInvalidValue;
   const FlashParams p{q,    k,    v,    o,    static_cast<float*>(lse),
                       B,    Sq,   Sk,   H,    Hk,
-                      q_sb, q_ss, q_sh, k_sb, k_ss,
-                      k_sh, v_sb, v_ss, v_sh, causal,
-                      window, softcap, sm_scale};
-  return dispatch_hd(p, hd, dtype, static_cast<cudaStream_t>(stream));
+                      hd,   q_sb, q_ss, q_sh, k_sb,
+                      k_ss, k_sh, v_sb, v_ss, v_sh,
+                      causal, window, softcap, sm_scale};
+  return dispatch_hd(p, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 kernel's registers, spill bytes, dynamic shared memory and
-// resident blocks per SM at head dim hd, into out[0..3].
+// resident blocks per SM at head dim hd (its tile width's kernel), into
+// out[0..3].
 extern "C" int flash_attention_fwd_attrs(int hd, int* out) {
-  switch (hd) {
+  switch (tile_width(hd)) {
     case 16: return mma_fwd::attrs<16>(out);
     case 32: return mma_fwd::attrs<32>(out);
     case 64: return mma_fwd::attrs<64>(out);

@@ -144,20 +144,21 @@ __device__ __forceinline__ int swz(int r, int c) {
 
 // Copy rows [row0, row0 + ROWS) of a bf16 matrix with row stride rs
 // (elements) into a swizzled [ROWS][D] tile with cp.async; rows at or past
-// n_rows are zero-filled.  Every thread of the block takes part.
+// n_rows, and the columns at or past cols (a multiple of 8: a row narrower
+// than the tile), are zero-filled.  Every thread of the block takes part.
 template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long rs, int row0,
-                                          int n_rows) {
+                                          int n_rows, int cols = D) {
   constexpr int kChunks = D / 8;
   static_assert((ROWS * kChunks) % THREADS == 0, "whole chunks a thread");
 #pragma unroll
   for (int j = 0; j < ROWS * kChunks / THREADS; ++j) {
     const int i = threadIdx.x + j * THREADS;
     const int r = i / kChunks, c = i % kChunks;
-    const bool in = row0 + r < n_rows;
+    const bool in = row0 + r < n_rows && c * 8 < cols;
     cp_async16(dst + swz<D>(r, c),
-               src + (in ? (long long)(row0 + r) * rs : 0) + c * 8, in);
+               src + (in ? (long long)(row0 + r) * rs + c * 8 : 0), in);
   }
 }
 

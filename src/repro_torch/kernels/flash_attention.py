@@ -11,7 +11,11 @@ tensor cores (``mma.sync`` m16n8k16, Q's fragments held in registers,
 K/V tiles through a 3-stage ``cp.async`` ring, P rounded to bf16 for the
 PV product as SDPA does); fp32 inputs keep the fp32 FMA kernel, since the
 tensor cores would round them to TF32 (PERF.md has both kernels' distance
-from the bound).  Asked for it, the kernel also writes each row's logsumexp, which the backward
+from the bound).  Any head dim that is a multiple of 8 up to 128 runs:
+the tiles are built at ``HEAD_DIMS``' widths, and a narrower head dim
+(h2o-danube-3-4b's 120) takes the next one, its extra columns
+zero-filled on load and never stored.  Asked for it, the kernel also
+writes each row's logsumexp, which the backward
 (``kernels/ops.py::FlashAttentionFn``, through the one-rank
 ``ring_step_bwd``) needs.  Plain version: ``kernels/ref.py::
 flash_attention``.
@@ -25,7 +29,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)   # the tile widths the kernel is built at
 launches = 0   # kernel launches since the last reset
 
 
@@ -33,11 +37,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     return_lse: bool = False):
-    """q: (B,Sq,H,hd); k/v: (B,Sk,Hk,hd), any strides with unit stride on
-    hd (bf16: 16-byte aligned bases and strides, for the tensor-core
-    kernel's 16-byte copies).  Returns a contiguous (B,Sq,H,hd) tensor of
-    q's dtype, and with ``return_lse`` also the rows' logsumexp, fp32
-    (B,Sq,H)."""
+    """q: (B,Sq,H,hd); k/v: (B,Sk,Hk,hd), hd a multiple of 8 up to 128,
+    any strides with unit stride on hd (bf16: 16-byte aligned bases and
+    strides, for the tensor-core kernel's 16-byte copies).  Returns a
+    contiguous (B,Sq,H,hd) tensor of q's dtype, and with ``return_lse``
+    also the rows' logsumexp, fp32 (B,Sq,H)."""
     global launches
     build.forbid_grad("flash_attention", "call kernels.ops.flash_attention",
                       q, k, v)
@@ -52,8 +56,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "in batch or head dim")
     if Hk == 0 or H % Hk:
         raise ValueError(f"n_heads {H} not a multiple of n_kv_heads {Hk}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if hd % 8 or not 8 <= hd <= HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {hd}: the flash kernel takes multiples "
+                         f"of 8 up to {HEAD_DIMS[-1]}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
     code = build.dtype_code(q)

@@ -215,6 +215,11 @@ class FlashAttentionFn(torch.autograd.Function):
                 "the flash backward takes neither a window nor a softcap "
                 "yet (ROADMAP.md queue A, item 4)")
         q, k, v, o, lse = ctx.saved_tensors
+        if not _on_cpu(q) and q.shape[-1] not in _ra.HEAD_DIMS:
+            raise NotImplementedError(
+                f"the flash backward on the card takes head dims "
+                f"{_ra.HEAD_DIMS}, not {q.shape[-1]} (ROADMAP.md queue A, "
+                "item 4)")
         Sq, Sk = q.shape[1], k.shape[1]
         # one rank whose queries sit at the end of the keys
         hops = [(Sk - Sq, 0, 0, Sk, Sq)]

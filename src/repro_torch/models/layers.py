@@ -4,10 +4,12 @@ Plain functions on dicts of tensors, with the JAX package's layouts:
 weights ``(in, out)`` (``wq (D, H*hd)``, ``w_gate (D, F)``), attention
 tensors ``(B, S, H, hd)``, KV caches ``(L, B, S, Hk, hd)``.
 
-RMSNorm, the SwiGLU gate and prefill attention go through ``kernels.ops``
-(the Hopper kernels on the card, their plain versions on the CPU), whose
-autograd functions carry the backward kernels, so ``lm_forward`` trains.
-Cached decode attention is plain torch, as in the JAX package.
+RMSNorm (qk_norm's too), the SwiGLU gate and prefill attention go through
+``kernels.ops`` (the Hopper kernels on the card, their plain versions on
+the CPU), whose autograd functions carry the backward kernels, so
+``lm_forward`` trains.  Cached decode attention is plain torch, as in the
+JAX package, and so are the other MLP activations (``sq_relu``, ``gelu``,
+``geglu``), for which the JAX package has no kernel either.
 
 Where bf16 rounds: a ``torch.matmul`` of bf16 operands accumulates in fp32
 and rounds its output to bf16 once, which is what the JAX code's
@@ -20,6 +22,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.iccl.communicator import Communicator
 from repro_torch.kernels import ops
@@ -149,16 +152,34 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 # ----------------------------------------------------- cached decoding -----
+def kv_len(cfg: ModelConfig, max_len: int) -> int:
+    """Positions a KV cache holds: an SWA arch keeps a rolling buffer of
+    ``min(max_len, window)``, where position a sits at index a mod its
+    length."""
+    return min(max_len, cfg.window) if cfg.window else max_len
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   n_layers: int, device) -> dict:
     """Cache for the attention layers, stacked on a leading layer dim."""
-    if cfg.window:
-        raise NotImplementedError(
-            "rolling-buffer SWA cache is not ported yet (ROADMAP.md queue A, "
-            "item 1)")
-    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    shape = (n_layers, batch, kv_len(cfg, max_len), cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.adtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.adtype, device=device)}
+
+
+def decode_mask(S: int, posv: torch.Tensor,
+                window: Optional[int]) -> torch.Tensor:
+    """(B, S) bool: the cache indices a query at position ``posv`` (B,)
+    reads.  Under SWA index i of the rolling buffer holds the latest
+    position a <= pos with a mod S == i, read while a > pos - window
+    (JAX's algebra, ``repro/models/layers.py:210-216``)."""
+    idx = torch.arange(S, device=posv.device)[None, :]
+    pcol = posv[:, None]
+    if not window:
+        return idx <= pcol
+    n_wrap = (pcol // S) * S
+    kabs = idx + torch.where(idx <= pcol % S, n_wrap, n_wrap - S)
+    return (kabs >= 0) & (kabs <= pcol) & (kabs > pcol - window)
 
 
 def decode_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
@@ -169,12 +190,9 @@ def decode_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     x: (B,1,D); cache_k/v: (B,S,Hk,hd) (views into the layer-stacked
     cache); pos: scalar (whole batch at one position) or (B,) (per-row
     positions: the serving engine's slots advance independently).
-    Returns out (B,1,D).
+    Returns out (B,1,D).  Under SWA the cache is a rolling buffer: position
+    a is written at index a mod S (``decode_mask`` reads it).
     """
-    if cfg.window:
-        raise NotImplementedError(
-            "rolling-buffer SWA decode is not ported yet (ROADMAP.md queue A, "
-            "item 1)")
     B, S = x.shape[0], cache_k.shape[1]
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     posv = pos.expand(B) if pos.dim() == 0 else pos
@@ -185,10 +203,10 @@ def decode_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     # stepping past the cache end; it writes the last slot (as JAX's clamped
     # dynamic_update_slice does) and is never read before it is refilled.
     rows = torch.arange(B, device=x.device)
-    slot = posv.clamp(max=S - 1)
+    slot = posv % S if cfg.window else posv.clamp(max=S - 1)
     cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
-    valid = torch.arange(S, device=x.device)[None, :] <= posv[:, None]
+    valid = decode_mask(S, posv, cfg.window)
     G = H // Hk
     qg = q.view(B, Hk, G, hd).float()
     # scores in fp32 like JAX's preferred_element_type (upcasts a bf16 cache)
@@ -203,14 +221,19 @@ def decode_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
 
 
 # ------------------------------------------------------------------ mlp ----
+GATED = ("swiglu", "geglu")          # three matrices: w_gate, w_up, w_down
+ACTS = GATED + ("sq_relu", "gelu")    # the others: w_up, w_down
+
+
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
-    if cfg.act != "swiglu":
-        raise NotImplementedError(
-            f"activation {cfg.act!r} is not ported yet (ROADMAP.md queue A, "
-            "item 1)")
+    if cfg.act not in ACTS:
+        raise ValueError(f"unknown activation {cfg.act!r}; known: {ACTS}")
     D, F = cfg.d_model, cfg.d_ff
-    return {"w_gate": _he_stacked(gen, n, (D, F), cfg.pdtype),
-            "w_up": _he_stacked(gen, n, (D, F), cfg.pdtype),
+    if cfg.act in GATED:
+        return {"w_gate": _he_stacked(gen, n, (D, F), cfg.pdtype),
+                "w_up": _he_stacked(gen, n, (D, F), cfg.pdtype),
+                "w_down": _he_stacked(gen, n, (F, D), cfg.pdtype)}
+    return {"w_up": _he_stacked(gen, n, (D, F), cfg.pdtype),
             "w_down": _he_stacked(gen, n, (F, D), cfg.pdtype)}
 
 
@@ -218,17 +241,29 @@ def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
         model: Optional[Communicator] = None) -> torch.Tensor:
     """With a ``model`` communicator and d_ff split over it, this rank's
     columns of ``w_gate``/``w_up`` and rows of ``w_down``, between
-    ``copy_to_model`` and ``reduce_from_model``."""
-    if cfg.act != "swiglu":
+    ``copy_to_model`` and ``reduce_from_model`` (swiglu only).
+
+    g/u leave the matmul in x.dtype: in bf16 they are rounded once, where
+    JAX keeps them fp32 (preferred_element_type).  The swiglu kernel
+    upcasts, computes silu(g)*u in fp32 and writes x.dtype directly; the
+    other activations run in fp32 on the upcast g/u as JAX's do (``gelu``
+    is ``jax.nn.gelu``'s tanh form) and round once to x.dtype."""
+    split = model if p["w_up"].shape[-1] != cfg.d_ff else None
+    if split is not None and cfg.act != "swiglu":
         raise NotImplementedError(
-            f"activation {cfg.act!r} is not ported yet (ROADMAP.md queue A, "
-            "item 1)")
-    split = model if p["w_gate"].shape[-1] != cfg.d_ff else None
+            f"{cfg.name}: tensor parallelism over the {cfg.act!r} MLP is not "
+            "ported yet (ROADMAP.md queue A, item 4)")
     x = copy_to_model(x, split)
-    # g/u leave the matmul in x.dtype: in bf16 they are rounded once, where
-    # JAX keeps them fp32 (preferred_element_type).  The swiglu kernel
-    # upcasts, computes silu(g)*u in fp32 and writes x.dtype directly.
-    g = x @ p["w_gate"]
     u = x @ p["w_up"]
-    h = ops.swiglu(g, u, out_dtype=x.dtype)
+    if cfg.act == "swiglu":
+        h = ops.swiglu(x @ p["w_gate"], u, out_dtype=x.dtype)
+    elif cfg.act == "geglu":
+        g = (x @ p["w_gate"]).float()
+        h = (F.gelu(g, approximate="tanh") * u.float()).to(x.dtype)
+    elif cfg.act == "sq_relu":
+        h = torch.relu(u.float()).square().to(x.dtype)
+    elif cfg.act == "gelu":
+        h = F.gelu(u.float(), approximate="tanh").to(x.dtype)
+    else:
+        raise ValueError(f"unknown activation {cfg.act!r}; known: {ACTS}")
     return reduce_from_model(h @ p["w_down"], split)

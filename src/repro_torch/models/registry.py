@@ -1,7 +1,9 @@
 """Architecture registry (port of ``repro/models/registry.py``).
 
-``llama3-8b`` and ``falcon-mamba-7b`` are ported; every other arch id of
-the JAX registry raises ``NotImplementedError`` naming its ROADMAP item.
+The dense family (``llama3-8b``, ``qwen3-14b``, ``nemotron-4-15b``,
+``h2o-danube-3-4b``) and ``falcon-mamba-7b`` are ported; every other arch
+id of the JAX registry raises ``NotImplementedError`` naming its ROADMAP
+item.
 
 Unified batch dict keys: ``tokens`` (B, S) int.
 """
@@ -20,9 +22,8 @@ ARCH_IDS = (
     "falcon-mamba-7b", "phi-3-vision-4.2b", "mixtral-8x7b",
     "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b", "whisper-tiny",
 )
-PORTED = ("llama3-8b", "falcon-mamba-7b")
-# ROADMAP.md queue A item of each arch not ported yet
-_TODO = {"qwen3-14b": 1, "nemotron-4-15b": 1, "h2o-danube-3-4b": 1}
+PORTED = ("llama3-8b", "qwen3-14b", "nemotron-4-15b", "h2o-danube-3-4b",
+          "falcon-mamba-7b")
 
 
 def check_last_logits(logits, batch: int, vocab: int,
@@ -54,6 +55,14 @@ class ArchBundle:
                    device: DeviceLike = None):
         return transformer.init_cache(self.cfg, batch, max_len, device)
 
+    @property
+    def subquadratic(self) -> bool:
+        """True if long_500k is runnable (SWA window / SSM / hybrid)."""
+        c = self.cfg
+        if c.family in ("ssm", "hybrid"):
+            return True
+        return c.window is not None
+
 
 def _lm_forward(params, batch, cfg):
     return transformer.lm_forward(params, batch["tokens"], cfg)
@@ -73,9 +82,9 @@ def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     if arch not in PORTED:
+        # the MoE, VLM, Griffin and enc-dec archs
         raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP.md queue A, item "
-            f"{_TODO.get(arch, 9)})")
+            f"{arch} is not ported yet (ROADMAP.md queue A, item 9)")
     mod = importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
     cfg = mod.SMOKE if smoke else mod.CONFIG

@@ -28,14 +28,16 @@ from repro_torch.models import mamba
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_he, attention, decode_attention,
                                        init_attention, init_kv_cache,
-                                       init_mlp, init_rmsnorm, mlp, rmsnorm)
+                                       init_mlp, init_rmsnorm, kv_len, mlp,
+                                       rmsnorm)
 from repro_torch.parallel import tensor
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the uniform dense attention stack and the uniform
-    Mamba-1 stack."""
+    """The port serves the uniform dense attention stack (qk_norm, SWA,
+    every MLP activation of the registry) and the uniform Mamba-1
+    stack."""
     if cfg.family not in ("dense", "ssm") or cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
@@ -177,8 +179,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def lm_prefill(params: dict, tokens, cfg: ModelConfig, max_len: int):
     """Forward + cache construction.  Returns (last-token logits (B,V)
     fp32, cache).  A KV cache holds the last ``min(S, max_len)`` positions
-    at its front, as in the JAX package; an ssm cache holds each layer's
-    scan state and conv tail after position S."""
+    at its front, as in the JAX package.  An SWA cache of length Sw holds
+    the last ``min(S, Sw)`` with position a at index a mod Sw, where
+    ``decode_attention`` reads it: JAX's layout where S <= Sw or S is a
+    multiple of Sw; otherwise JAX writes them at the front, which its own
+    decode misreads (ROADMAP.md, reference behaviours).  An ssm cache
+    holds each layer's scan state and conv tail after position S."""
     dev = params["embed"].device
     x = _embed(params, tokens, cfg)
     B, S = x.shape[0], x.shape[1]
@@ -192,13 +198,20 @@ def lm_prefill(params: dict, tokens, cfg: ModelConfig, max_len: int):
                 return_state=True)
             x = x + y
     else:
-        keep = min(S, max_len)
+        Sw = kv_len(cfg, max_len)
+        keep = min(S, Sw)
+        # the rolling buffer's kept positions S-Sw..S-1 sit at a mod Sw
+        shift = S % Sw if cfg.window and keep == Sw else 0
         ck, cv = cache["kv"]["k"], cache["kv"]["v"]
         for i in range(cfg.num_layers):
             x, k, v = _block(layer(params["blocks"], i), x, cfg,
                              return_kv=True)
-            ck[i, :, :keep] = k[:, S - keep:]
-            cv[i, :, :keep] = v[:, S - keep:]
+            if shift:
+                ck[i] = torch.roll(k[:, S - keep:], shift, dims=1)
+                cv[i] = torch.roll(v[:, S - keep:], shift, dims=1)
+            else:
+                ck[i, :, :keep] = k[:, S - keep:]
+                cv[i, :, :keep] = v[:, S - keep:]
     # the final norm is per row: normalize only the row the logits need
     x = rmsnorm(params["final_norm"], x[:, -1:].contiguous(), cfg.norm_eps)
     cache["pos"].fill_(S)

@@ -24,8 +24,12 @@ divides each request's summed decode-step time by its DECODED token count
 apart in ``ServeReport.sample_time_s``.  Device work is synchronized at the
 end of every timed section.
 
-``metrics`` is an optional sink with ``gauge``/``count``/``observe``/
-``flush`` methods (the JAX package's ``obs.metrics.MetricsLog`` has them).
+``metrics`` (``repro_torch.obs.metrics.MetricsLog``, or any sink with its
+``gauge``/``count``/``observe``/``flush``) receives queue-depth and
+occupancy gauges and TTFT/TPOT observations, flushed once per engine
+step.  ``replanner`` (``DriftReplanner``) is consulted after every
+``replan_check_every``-th completion with the observed traffic profile,
+as in the JAX engine.
 """
 from __future__ import annotations
 
@@ -33,11 +37,12 @@ import dataclasses
 import hashlib
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.plan import TrafficProfile
 from repro_torch.models import registry
 from repro_torch.utils.device import DeviceLike, resolve_device, synchronize
 
@@ -90,6 +95,7 @@ class ServeReport:
     sample_time_s: float
     tokens_prefill: int          # first tokens (one per request)
     tokens_decoded: int
+    replans: int = 0
 
     @property
     def decode_tok_per_s(self) -> float:
@@ -123,6 +129,7 @@ class ServeReport:
             "prefill_time_s": self.prefill_time_s,
             "decode_time_s": self.decode_time_s,
             "sample_time_s": self.sample_time_s,
+            "replans": self.replans,
         }
 
 
@@ -195,7 +202,8 @@ class ServeEngine:
     def __init__(self, bundle: registry.ArchBundle, params: dict, *,
                  max_batch: int, max_len: int, temperature: float = 0.0,
                  seed: int = 0, eos_id: Optional[int] = None,
-                 metrics=None, device: DeviceLike = None):
+                 metrics=None, replanner: Optional["DriftReplanner"] = None,
+                 replan_check_every: int = 4, device: DeviceLike = None):
         self.device = resolve_device(device)
         if max_batch < 1:
             raise ValueError(f"max_batch >= 1 required, got {max_batch}")
@@ -209,6 +217,9 @@ class ServeEngine:
         self.seed = seed
         self.eos_id = eos_id
         self.metrics = metrics
+        self.replanner = replanner
+        self.replan_check_every = replan_check_every
+        self.replan_events: List[Dict[str, Any]] = []
 
         cache = bundle.init_cache(max_batch, max_len, self.device)
         # per-slot positions: every row of the decode batch advances alone
@@ -229,6 +240,9 @@ class ServeEngine:
         self._decode_time = 0.0
         self._sample_time = 0.0
         self._tokens_decoded = 0
+        self._prompt_tokens = 0
+        self._gen_tokens = 0
+        self._t_start = time.perf_counter()
 
     # ------------------------------------------------------------ public --
     def submit(self, request: Request) -> None:
@@ -251,6 +265,16 @@ class ServeEngine:
     def done(self) -> bool:
         return not self._queue and self.active == 0
 
+    def observed_traffic(self) -> TrafficProfile:
+        """The traffic mix actually served so far: what the drift
+        detector compares against the planned profile."""
+        n = max(len(self.completions), 1)
+        elapsed = max(time.perf_counter() - self._t_start, 1e-9)
+        return TrafficProfile(
+            prompt_len=max(1, round(self._prompt_tokens / n)),
+            gen_len=max(1, round(self._gen_tokens / n)),
+            request_rate=len(self.completions) / elapsed)
+
     def step(self) -> List[Completion]:
         """One scheduler iteration: admit, batched decode, evict.
         Returns the requests that finished this step."""
@@ -267,6 +291,13 @@ class ServeEngine:
             self.metrics.gauge("serve_occupancy",
                                self.active / self.max_batch)
             self.metrics.flush(self.steps)
+        if finished and self.replanner is not None and \
+                len(self.completions) % self.replan_check_every == 0:
+            ev = self.replanner.check(self.observed_traffic())
+            if ev is not None:
+                self.replan_events.append(ev)
+                if self.metrics is not None:
+                    self.metrics.count("serve_replans")
         return finished
 
     def run(self, requests: Sequence[Request] = (),
@@ -295,7 +326,8 @@ class ServeEngine:
             prefill_time_s=self._prefill_time,
             sample_time_s=self._sample_time,
             tokens_prefill=len(self.completions),
-            tokens_decoded=self._tokens_decoded)
+            tokens_decoded=self._tokens_decoded,
+            replans=len(self.replan_events))
 
     # --------------------------------------------------------- internals --
     def _insert_row(self, part: dict, slot: int) -> None:
@@ -352,6 +384,7 @@ class ServeEngine:
             remaining=req.max_new_tokens - 1, tokens=[first], gen=gen,
             next_token=first, decode_time_s=0.0, ttft_s=ttft,
             admitted_step=self.steps)
+        self._prompt_tokens += len(req.prompt)
         if self.metrics is not None:
             self.metrics.observe("serve_ttft_s", ttft)
             self.metrics.count("serve_requests_admitted")
@@ -405,6 +438,7 @@ class ServeEngine:
             ttft_s=s.ttft_s, decode_time_s=s.decode_time_s,
             admitted_step=s.admitted_step, finished_step=self.steps)
         self.completions.append(comp)
+        self._gen_tokens += len(s.tokens)
         if self.metrics is not None:
             if comp.n_decoded:
                 self.metrics.observe("serve_tpot_s", comp.tpot_s)
@@ -439,3 +473,46 @@ def decode_sequential(bundle: registry.ArchBundle, params: dict,
             tokens.append(sample(logits[0], gen, temperature))
         out[req.rid] = tokens
     return out
+
+
+class DriftReplanner:
+    """Traffic-mix drift -> serving replan (a copy of the JAX package's).
+
+    Thresholds the observed prefill/decode ratio against the planned
+    profile's: when the served mix is ``threshold``x more prefill-heavy
+    (or decode-heavy) than planned, call ``replan_fn(observed)``
+    (typically a ``core.planner.plan_serving`` closure) and surface the
+    event.  Re-arms only after the plan is refreshed, so a sustained
+    drift fires once, not every check."""
+
+    def __init__(self, planned: TrafficProfile,
+                 replan_fn: Callable[[TrafficProfile], Any],
+                 threshold: float = 1.5):
+        if threshold <= 1.0:
+            raise ValueError(f"threshold > 1 required, got {threshold}")
+        self.planned = planned
+        self.replan_fn = replan_fn
+        self.threshold = threshold
+        self.fired: List[Dict[str, Any]] = []
+
+    def check(self, observed: TrafficProfile) -> Optional[Dict[str, Any]]:
+        ratio = (observed.prefill_decode_ratio
+                 / max(self.planned.prefill_decode_ratio, 1e-9))
+        if 1.0 / self.threshold < ratio < self.threshold:
+            return None
+        result = self.replan_fn(observed)
+        event = {
+            "kind": "serve_replan",
+            "drift_ratio": ratio,
+            "direction": ("prefill-heavy" if ratio >= self.threshold
+                          else "decode-heavy"),
+            "planned": self.planned.to_dict(),
+            "observed": observed.to_dict(),
+            "plan": (result.plan.to_dict()
+                     if hasattr(result, "plan") else None),
+        }
+        # re-arm against the new baseline: the observed mix becomes the
+        # planned one the next drift is measured from
+        self.planned = observed
+        self.fired.append(event)
+        return event

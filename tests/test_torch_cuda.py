@@ -174,6 +174,45 @@ def test_flash_attention_reads_strided_inputs(dev):
     _close_attention(got, want, torch.bfloat16)
 
 
+@pytest.mark.parametrize("hd", [24, 40, 120, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk,kw", [
+    (1, 257, 257, 4, 2, {}),                    # GQA, ragged S
+    (2, 100, 300, 8, 1, {"window": 64}),        # MQA, Sq < Sk, window
+    (1, 300, 200, 4, 2, {}),                    # Sq > Sk: masked rows
+    (1, 333, 333, 4, 2, {"window": 100, "softcap": 30.0}),
+    (1, 77, 77, 4, 4, {"causal": False}),
+])
+def test_flash_attention_any_head_dim(dev, hd, dtype, B, Sq, Sk, H, Hk, kw):
+    """Head dims that are multiples of 8 but not tile widths (24, 40,
+    h2o-danube-3-4b's 120) run in the next tile, their extra columns
+    zero-filled; 128 is the tile itself.  Forward and lse against the
+    plain version, and q/k/v read as strided slices of one projection."""
+    qkv = _randn(dev, B, max(Sq, Sk), H + 2 * Hk, hd, dtype=dtype)
+    q = qkv[:, :Sq, :H]
+    k, v = qkv[:, :Sk, H:H + Hk], qkv[:, :Sk, H + Hk:]
+    kw = {"causal": True, **kw}
+    n = tfa.launches
+    got, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches == n + 1
+    assert got.shape == (B, Sq, H, hd) and got.is_contiguous()
+    want, want_lse = ref.flash_attention(q.contiguous(), k.contiguous(),
+                                         v.contiguous(), return_lse=True,
+                                         **kw)
+    _close_attention(got, want, dtype)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    if Sq > Sk and kw["causal"]:
+        assert got[:, :Sq - Sk].abs().max().item() == 0.0
+
+
+def test_flash_attention_refuses_other_head_dims(dev):
+    x = _randn(dev, 1, 8, 2, 136, dtype=torch.bfloat16)
+    for t in (x[..., :20], x):        # not a multiple of 8; past 128
+        with pytest.raises(ValueError, match="multiples of 8"):
+            tfa.flash_attention(t, t, t)
+
+
 def _scan_inputs(dev, B, S, di, ds, u_dtype, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -269,7 +308,9 @@ def _to(node, dev):
         if isinstance(node, dict) else node.to(dev)
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "falcon-mamba-7b",
+                                  "qwen3-14b", "nemotron-4-15b",
+                                  "h2o-danube-3-4b"])
 def test_smoke_model_on_card_matches_cpu(dev, arch):
     b = registry.get_bundle(arch, smoke=True)
     cpu = b.init(b.cfg, seed=0, device="cpu")
@@ -316,6 +357,67 @@ def test_engine_on_card_matches_sequential(dev):
     assert tsg.launches - counts[1] == 2 * steps
     assert tfa.launches - counts[2] == 2 * len(reqs)
     want = decode_sequential(b, params, reqs, max_len=40, device=dev)
+    assert {c.rid: c.tokens for c in rep.completions} == want
+
+
+# launches a prefill or decode step makes: (rmsnorm, swiglu, flash) a layer
+# and the final norm's one rmsnorm; flash in prefills only
+DENSE_LAUNCHES = {"qwen3-14b": (4, 1, 1), "nemotron-4-15b": (2, 0, 1),
+                  "h2o-danube-3-4b": (2, 1, 1)}
+
+
+@pytest.mark.parametrize("arch", sorted(DENSE_LAUNCHES))
+def test_smoke_dense_prefill_and_decode_on_card_match_cpu(dev, arch):
+    """The new dense archs' prefill, cache and 4 decode steps (per-row
+    positions) on the card against the CPU at 1e-4, with each kernel's
+    launches: qk_norm's two rmsnorms a layer, nemotron's MLP in plain
+    torch, danube's prompt of 37 past its window of 32 in a rolling
+    buffer of 32 at max_len 48."""
+    b = registry.get_bundle(arch, smoke=True)
+    cpu = b.init(b.cfg, seed=0, device="cpu")
+    gpu = _to(cpu, dev)
+    L = b.cfg.num_layers
+    rn, sg, fl = DENSE_LAUNCHES[arch]
+    tokens = torch.randint(0, 256, (2, 37),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for tag, p, d in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+        n = (trn.launches, tsg.launches, tfa.launches)
+        last, cache = b.prefill(p, {"tokens": tokens.to(d)}, b.cfg, 48)
+        cache["pos"] = torch.tensor([37, 35], device=d)
+        res = [last]
+        tok = torch.argmax(last, -1, keepdim=True)
+        for _ in range(4):
+            lg, cache = b.decode_step(p, tok, cache, b.cfg)
+            res.append(lg)
+            tok = torch.argmax(lg, -1, keepdim=True)
+        got_n = (trn.launches - n[0], tsg.launches - n[1],
+                 tfa.launches - n[2])
+        want_n = ((rn * L + 1) * 5, sg * L * 5, fl * L) if tag == "gpu" \
+            else (0, 0, 0)
+        assert got_n == want_n, (tag, got_n, want_n)
+        out[tag] = res + [cache["kv"]["k"], cache["kv"]["v"]]
+    assert out["gpu"][-1].shape[2] == min(48, b.cfg.window or 48)
+    for want, got in zip(out["cpu"], out["gpu"]):
+        torch.testing.assert_close(got.cpu(), want, **MODEL_TOL)
+
+
+def test_swa_engine_on_card_matches_sequential(dev):
+    """danube SMOKE at max_len 48: prompts and streams past the window of
+    32, so every row's buffer wraps; the engine equals each request alone
+    on the card, with its launch counts."""
+    b = registry.get_bundle("h2o-danube-3-4b", smoke=True)
+    params = b.init(b.cfg, seed=0, device=dev)
+    reqs = scripted_trace(8, vocab_size=256, seed=5,
+                          prompt_lens=(20, 30, 36), gen_lens=(6, 12))
+    counts = (trn.launches, tsg.launches, tfa.launches)
+    rep = ServeEngine(b, params, max_batch=3, max_len=48,
+                      device=dev).run(reqs)
+    steps = len(reqs) + rep.decode_steps
+    assert trn.launches - counts[0] == 5 * steps
+    assert tsg.launches - counts[1] == 2 * steps
+    assert tfa.launches - counts[2] == 2 * len(reqs)
+    want = decode_sequential(b, params, reqs, max_len=48, device=dev)
     assert {c.rid: c.tokens for c in rep.completions} == want
 
 

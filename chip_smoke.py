@@ -27,7 +27,13 @@ Phases, each raising on failure so the script exits non-zero:
               training kernels (ring_step, ring_step_bwd, rmsnorm_bwd,
               swiglu_bwd, the flash backward and its lse) at
               the training shapes: the cp ring's, and B1 S4096 for the
-              flash backward.  bf16 attention (the tensor cores take P and
+              flash backward; the flash backward also with
+              h2o-danube-3-4b's window and head dim (B1 S8192 window 4096
+              hd 120, on 8 heads against the plain version, beside SDPA
+              with the band mask and a control with an in-band key tile
+              left out, then timed at its 32 heads beside SDPA's
+              backward with the band mask), at hd 24 windowed, with a
+              softcap, and both in fp32.  bf16 attention (the tensor cores take P and
               dS as bf16 operands, P of the ring hop as a hi + lo pair; the
               plain versions keep them in fp32) is also held by each
               output's norm-relative error (REL_TOL), read beside SDPA's
@@ -66,8 +72,19 @@ Phases, each raising on failure so the script exits non-zero:
               chunks 1383/1057/884/772), 3 of the reference route (batch 1),
               and 3 of the pipeline route (batch 4) through the planner's
               non-uniform pp 2 plan on the train CLI's two-kind cluster,
-              each with finite losses, exact launch counts, its step times,
-              tokens/s and peak memory; the cp and reference step-0 losses
+              each with finite losses, exact launch counts (every route
+              under remat: each block's forward twice), its step times,
+              tokens/s and peak memory; the reference cell again with
+              every block's activations kept (remat off: its step-0
+              loss equal bit for bit, steps 1-2 within 5e-3, the step
+              time and peak memory before and after remat); 3
+              reference-route steps of
+              qwen3-14b (S 4096) and of h2o-danube-3-4b (S 8192, its
+              window of 4096 binding in every layer's flash backward),
+              each at full width and 4 layers, batch 1, with finite
+              losses, exact launch counts (qwen3's qk_norm two more norms
+              a block), step times, tokens/s and peak memory, each freed
+              before the next; the cp and reference step-0 losses
               agree within 2e-2, and the pipeline's step-0 loss lies within
               2e-2 of the reference loss on its 4 sequences; the ICCL tap
               takes one stage hop a tick.  The pp route closes HETHUB's
@@ -109,8 +126,10 @@ Phases, each raising on failure so the script exits non-zero:
               loss within 2e-2 of the reference route's, each rank's
               launch counts equal to the reference route's, kernel by
               kernel (every norm on each rank, flash and swiglu on its
-              own heads and columns), 4 L + 4 iallreduce notes a step
-              (4 L + 2 of an activation's 33.55 MB) and one iallgather;
+              own heads and columns), 5 L + 4 iallreduce notes a step
+              (5 L + 2 of an activation's 33.55 MB: a block recomputed
+              under remat reduces its attention output again) and one
+              iallgather;
               each rank's peak memory, the step time, tokens/s, and one
               host-staged all-reduce of an activation's time.  Then pp
               vpp: the planner's interleaved plan (vpp 2, pinned by
@@ -168,13 +187,15 @@ Phases, each raising on failure so the script exits non-zero:
               the profiler never slows the launches of this one.
               rmsnorm_bwd must run as one kernel a call
 Then one JSON line with every kernel (launches summed over the serve and
-train runs (cp, reference, pp, pp_ranks, tp_ranks, pp vpp, pp_ranks vpp,
-reference b2, dp_ranks: every rank, and phase 6c's CLI runs) and phase
-6b;
+train runs (cp, reference, qwen3-14b, h2o-danube-3-4b, pp, pp_ranks,
+tp_ranks, pp vpp, pp_ranks vpp, reference b2, dp_ranks: every rank, and
+phase 6c's CLI runs) and phase 6b;
 rmsnorm and swiglu have a second row at their decode shape,
 which takes the launches made inside decode steps, the first row the rest;
 the flash forward has a second row at h2o-danube-3-4b's prefill shape,
-which takes that serve cell's launches; the scan's row is its S1000
+which takes that serve cell's launches and those of danube's train run,
+and ring_step_bwd one at danube's training shape, which takes that
+run's launches; the scan's row is its S1000
 timing; each row with its library call's device time and the floor), the
 card line, and the last line
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
@@ -274,6 +295,13 @@ TRAIN_CP, CP_SPLIT = 4, dict(attn=1 / TRAIN_SEQ, lin=0.5)
 CP_CHUNKS: tuple = ()
 SMOKE_CP_CHUNKS = (40, 31, 25)
 TRAIN_LOSS_TOL = 2e-2   # cp, pp vs reference step-0 loss, bf16
+# the rest of the dense family on the reference route at full width and
+# TRAIN_LAYERS layers, batch 1: qwen3-14b at TRAIN_SEQ (2.88 B parameters,
+# ~46 GB of state and gradients), h2o-danube-3-4b at SWA_TRAIN_SEQ so that
+# its window (SWA_WINDOW) binds in every layer's flash backward; the
+# windowed backward kernel is also checked and timed there
+SWA_TRAIN_SEQ, SWA_WINDOW = 8192, 4096
+NEW_TRAIN = (("qwen3-14b", TRAIN_SEQ), ("h2o-danube-3-4b", SWA_TRAIN_SEQ))
 # the pipeline route: the planner's pp 2 plan on the train CLI's two-kind
 # cluster for 4 sequences of TRAIN_SEQ; the SMOKE parity phase also runs
 # an interleaved plan (vpp 2, a zero-layer chunk) at 4 SMOKE layers
@@ -378,14 +406,15 @@ def _hop_without_key_tile(ref, q, k, v, carry, hops, lo: int, hi: int):
 
 
 def _bwd_without_key_tile(torch, ref, q, k, v, do, lse, delta, lo: int,
-                          hi: int):
+                          hi: int, window=None):
     """The plain backward of one rank with key tile [lo, hi) left out:
     (dq, dk, dv), fp32, 0 in dk and dv on that tile."""
     S = q.shape[2]
     dq, dk, dv = (torch.zeros(t.shape, device=q.device) for t in (q, k, k))
     for a, b in ((0, lo), (hi, S)):
         ref.ring_step_bwd(q, k[:, :, a:b], v[:, :, a:b], do, lse, delta, dq,
-                          dk[:, :, a:b], dv[:, :, a:b], [(0, 0, a, b - a, S)])
+                          dk[:, :, a:b], dv[:, :, a:b], [(0, 0, a, b - a, S)],
+                          window=window)
     return dq, dk, dv
 
 
@@ -431,6 +460,10 @@ def phase_build():
             log(f"[build]   {line.strip()}")
     variants = [(kernel, fn, (hd,), f"hd{hd}", "(bf16, as launched)")
                 for kernel, fn in TC_KERNELS.items() for hd in HEAD_DIMS]
+    # the backward's general variant (a window, a head dim narrower than
+    # its tile) at h2o-danube-3-4b's hd 120
+    variants.append(("ring_bwd_mma_kernel", "ring_step_bwd_attrs", (120,),
+                     "hd120", "(bf16, the windowed general variant)"))
     variants += [(*SCAN_KERNEL, (code,), f"u {dt}",
                   "(as the prefill launches it)")
                  for dt, code in (("bf16", 1), ("fp32", 0))]
@@ -987,6 +1020,64 @@ def phase_train_kernels(torch, dev, name, device_only=False):
             sg.swiglu_bwd(gt_, ut_, dht_), ref.swiglu_bwd(gt_, ut_, dht_),
             BF16_TOL)
 
+    # the flash backward with a window, a softcap and head dims between
+    # the tile widths: the one-rank ring_step_bwd kernel against the plain
+    # hop backward on the same o, lse (the flash kernel's) and delta
+    def hop_bwd_inputs(B_, S_, H_, Hk_, hd_, dt, window=None, softcap=None):
+        q_, do_ = (randn(1, B_, S_, H_, hd_, dtype=dt) for _ in range(2))
+        k_, v_ = (randn(1, B_, S_, Hk_, hd_, dtype=dt) for _ in range(2))
+        with torch.no_grad():
+            o_, lse_ = fa.flash_attention(q_[0], k_[0], v_[0], window=window,
+                                          softcap=softcap, return_lse=True)
+        dl_ = (do_.float() * o_[None].float()).sum(-1)
+        return q_, k_, v_, do_, lse_[None], dl_
+
+    def hop_bwd(fn, ins, S_, **kw):
+        q_, k_ = ins[0], ins[1]
+        acc_ = (torch.zeros(q_.shape, device=dev),
+                torch.zeros(k_.shape, device=dev),
+                torch.zeros(k_.shape, device=dev))
+        return fn(*ins, *acc_, [(0, 0, 0, S_, S_)], **kw)
+
+    # h2o-danube-3-4b's band and head dim at its training length (S
+    # SWA_TRAIN_SEQ, window SWA_WINDOW: the band binds in every row past
+    # the window), on 8 of its 32 heads (the plain version's four
+    # score-sized fp32 tensors take ~8.6 GB there, ~34 GB at 32), beside
+    # SDPA with the boolean band mask and a control with key tile
+    # SWA_WINDOW .. SWA_WINDOW + 63 (inside the band of every later row)
+    # left out; then head dim 24, a softcap, and both with fp32
+    Sw, W = SWA_TRAIN_SEQ, SWA_WINDOW
+    sw_in = hop_bwd_inputs(1, Sw, 8, 2, 120, bf, window=W)
+    case = f"flash backward B1 S{Sw} H8 Hk2 hd120 window{W} bf16"
+    want = hop_bwd(ref.ring_step_bwd, sw_in, Sw, window=W)
+    err_w = compare("ring_step_bwd", case,
+                    hop_bwd(ra.ring_step_bwd, sw_in, Sw, window=W), want,
+                    BF16_TOL, rel=True)
+    band = ref.attention_mask(Sw, Sw, causal=True, window=W, device=dev)
+    ts = [t[0].transpose(1, 2).detach().requires_grad_() for t in sw_in[:3]]
+    sd = torch.autograd.grad(F.scaled_dot_product_attention(
+        *ts, attn_mask=band, enable_gqa=True), ts, sw_in[3][0].transpose(1, 2))
+    _reading(readings, "ring_step_bwd", case, "SDPA, band mask",
+             tuple(t.transpose(1, 2)[None] for t in sd), want)
+    del ts, sd
+    _reading(readings, "ring_step_bwd", case,
+             f"control: key tile {W} out",
+             _bwd_without_key_tile(torch, ref, *sw_in, W, W + 64, window=W),
+             want)
+    del want, sw_in
+    for label, shape_, dt, kw in (
+            ("B1 S1000 H8 Hk2 hd24 window300", (1, 1000, 8, 2, 24), bf,
+             dict(window=300)),
+            ("B1 S1000 H8 Hk2 hd128 softcap30", (1, 1000, 8, 2, 128), bf,
+             dict(softcap=30.0)),
+            ("B2 S300 H8 Hk2 hd120 window100 softcap20",
+             (2, 300, 8, 2, 120), f32, dict(window=100, softcap=20.0))):
+        ins = hop_bwd_inputs(*shape_, dt, **kw)
+        compare("ring_step_bwd", f"flash backward {label} {dt}",
+                hop_bwd(ra.ring_step_bwd, ins, shape_[1], **kw),
+                hop_bwd(ref.ring_step_bwd, ins, shape_[1], **kw), tol[dt],
+                rel=dt == bf)
+
     # rmsnorm_bwd and swiglu_bwd at the training shapes (4096 tokens)
     x, sc, dy = (randn(TRAIN_SEQ, 4096, dtype=bf), randn(4096, dtype=bf),
                  randn(TRAIN_SEQ, 4096, dtype=bf))
@@ -1044,6 +1135,29 @@ def phase_train_kernels(torch, dev, name, device_only=False):
     xr = x.detach().requires_grad_()
     sr = sc.detach().requires_grad_()
     rms_out = F.rms_norm(xr, (4096,), sr, 1e-5)
+    # h2o-danube-3-4b's flash backward at its training shape (all 32
+    # heads), beside SDPA's backward with the boolean band mask; the plain
+    # version runs in 4 groups of 8 heads (its score-sized temporaries)
+    sw_in = hop_bwd_inputs(1, Sw, 32, 8, 120, bf, window=W)
+    sw_acc = tuple(torch.zeros(sw_in[i].shape, device=dev)
+                   for i in (0, 1, 1))
+    sw_hop = [(0, 0, 0, Sw, Sw)]
+    sw_t = [t[0].transpose(1, 2).detach().requires_grad_()
+            for t in sw_in[:3]]
+    sw_out = F.scaled_dot_product_attention(*sw_t, attn_mask=band,
+                                            enable_gqa=True)
+    sw_do = sw_in[3][0].transpose(1, 2)
+    band_pairs = sum(min(i + 1, W) for i in range(Sw))
+
+    def sw_plain():
+        q_, k_, v_, do_, lse_, dl_ = sw_in
+        for g_ in range(4):
+            h_, hk_ = slice(8 * g_, 8 * g_ + 8), slice(2 * g_, 2 * g_ + 2)
+            ref.ring_step_bwd(
+                q_[:, :, :, h_], k_[:, :, :, hk_], v_[:, :, :, hk_],
+                do_[:, :, :, h_], lse_[..., h_], dl_[..., h_],
+                sw_acc[0][:, :, :, h_], sw_acc[1][:, :, :, hk_],
+                sw_acc[2][:, :, :, hk_], sw_hop, window=W)
 
     def ring_all(step_fn):
         return lambda: [step_fn(q, k, v, *carry0, t) for t in tables]
@@ -1076,6 +1190,25 @@ def phase_train_kernels(torch, dev, name, device_only=False):
             + 2 * (S * H * hd + 2 * S * Hk * hd) * f4,
             ops=[(10 * pairs * H * hd, bf16_peak)],
             err=flash_in["err"]),
+        # the same kernel at h2o-danube-3-4b's training shape: hd 120 in
+        # the 128 tile, the window's band (its bound counts the band's
+        # pairs at the real hd)
+        "ring_step_bwd hd120": dict(
+            name="ring_step_bwd",
+            source="src/repro_torch/kernels/csrc/ring_attention.cu",
+            replaces="src/repro/kernels/ring_attention.py:169 (its VJP; "
+                     "no TPU backward kernel)",
+            shape=f"one rank B1 S{Sw} H32 Hk8 hd120 window{W} causal bf16 "
+                  "(h2o-danube-3-4b's flash backward), fp32 dq/dk/dv; "
+                  "plain in 4 groups of 8 heads",
+            fn=lambda: ra.ring_step_bwd(*sw_in, *sw_acc, sw_hop, window=W),
+            plain=sw_plain, per_call=1, kernels=("ring_bwd",),
+            library=lambda: torch.autograd.grad(
+                sw_out, sw_t, sw_do, retain_graph=True),
+            bytes=(2 * Sw * 32 * 120 + 2 * Sw * 8 * 120) * el
+            + 2 * Sw * 32 * f4 + 2 * (Sw * 32 * 120 + 2 * Sw * 8 * 120) * f4,
+            ops=[(10 * band_pairs * 32 * 120, bf16_peak)],
+            err=err_w),
         "rmsnorm_bwd": dict(
             source="src/repro_torch/kernels/csrc/rmsnorm.cu",
             replaces="src/repro/kernels/rmsnorm.py:19 (its VJP; no TPU "
@@ -1116,7 +1249,7 @@ def phase_train_kernels(torch, dev, name, device_only=False):
         bytes_ms = r["bytes"] / bw * 1e3
         ops_ms = max(n / peak for n, peak in r["ops"]) * 1e3
         timed[kname] = {
-            "name": kname, "line": True, "route": "cuda",
+            "name": r.get("name", kname), "line": True, "route": "cuda",
             "source": r["source"],
             "replaces": r["replaces"], "shape": r["shape"],
             "max_abs_err": r["err"],
@@ -1552,12 +1685,15 @@ def phase_train_parity(torch, dev):
 
 
 def phase_train(torch, dev, route: str, global_batch: int = 1,
-                moves: bool = False):
-    """llama3-8b at full width, TRAIN_LAYERS layers, bf16: TRAIN_STEPS
-    steps of one route at ``global_batch`` sequences with exact launch
-    counts (a batched kernel launches once whatever the batch); its own
-    peak memory; with ``moves``, each leaf's squared master move after
-    every step (``rank_programs.run_steps``)."""
+                moves: bool = False, arch: str = "llama3-8b",
+                seq: int = TRAIN_SEQ, remat: bool = True):
+    """``arch`` at full width, TRAIN_LAYERS layers, bf16: TRAIN_STEPS
+    steps of one route at ``global_batch`` sequences of ``seq`` with exact
+    launch counts (a batched kernel launches once whatever the batch;
+    under remat each block's forward twice); its own peak memory; with
+    ``moves``, each leaf's squared master move after every step
+    (``rank_programs.run_steps``); ``remat`` False: the blocks' activations
+    kept (each kernel once a pass), the route's cost before remat."""
     from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.optim.adamw import tree_leaves
@@ -1567,18 +1703,22 @@ def phase_train(torch, dev, route: str, global_batch: int = 1,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    b = registry.get_bundle("llama3-8b", num_layers=TRAIN_LAYERS)
+    b = registry.get_bundle(arch, num_layers=TRAIN_LAYERS, remat=remat)
     plan = _cp_plan(CP_CHUNKS, 1, TRAIN_LAYERS) if route == "cp" else None
     t0 = time.perf_counter()
     t = Trainer(b, TrainerConfig(global_batch=global_batch,
-                                 seq_len=TRAIN_SEQ), plan=plan, device=dev)
+                                 seq_len=seq), plan=plan, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     assert t._cp_active() == (route == "cp")
     route = route if global_batch == 1 else f"{route} b{global_batch}"
+    if arch != "llama3-8b":
+        route = f"{arch} {route}"
+    if not remat:
+        route = f"{route} no-remat"
     n_params = sum(x.numel() for x in tree_leaves(t.state["params"]))
     state_gb = torch.cuda.memory_allocated(dev) / 1e9
-    log(f"[train] {route} route: llama3-8b {TRAIN_LAYERS} layers, "
+    log(f"[train] {route} route: {arch} {TRAIN_LAYERS} layers, seq {seq}, "
         f"{n_params / 1e9:.3f} B params, train state {state_gb:.2f} GB, "
         f"init {init_s:.1f} s")
     ops.reset_launch_counts()
@@ -1586,12 +1726,11 @@ def phase_train(torch, dev, route: str, global_batch: int = 1,
     launches = ops.launch_counts()
     L, cp, n = TRAIN_LAYERS, len(CP_CHUNKS), TRAIN_STEPS
     expect = dict.fromkeys(launches, 0)
-    expect.update(rmsnorm=(2 * L + 1) * n, rmsnorm_bwd=(2 * L + 1) * n,
-                  swiglu=L * n, swiglu_bwd=L * n)
+    expect.update(_reference_launches(L, n, b.cfg.qk_norm, remat))
     if route.startswith("cp"):
-        expect.update(ring_step=L * cp * n, ring_step_bwd=L * cp * n)
-    else:
-        expect.update(flash_attention=L * n, ring_step_bwd=L * n)
+        # the ring in each block's forward, again in its recompute
+        expect.update(flash_attention=0, ring_step=2 * L * cp * n,
+                      ring_step_bwd=L * cp * n)
     losses = out["losses"]
     log(f"[train] {route} route losses {losses} step_s {out['step_s']}")
     log(f"[train] {route} launches {launches} expected {expect}")
@@ -1599,11 +1738,11 @@ def phase_train(torch, dev, route: str, global_batch: int = 1,
     assert launches == expect, (launches, expect)
     steady = out["step_s"][1:]
     summary = {
-        "route": route, "layers": L, "seq": TRAIN_SEQ,
+        "route": route, "arch": arch, "layers": L, "seq": seq,
         "global_batch": global_batch, "params": n_params, "losses": losses,
         "grad_norms": out["grad_norms"], "master_moves": moved,
         "step_s": out["step_s"],
-        "tok_s_steady": global_batch * TRAIN_SEQ * len(steady) / sum(steady),
+        "tok_s_steady": global_batch * seq * len(steady) / sum(steady),
         "init_s": init_s, "state_gb": state_gb,
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         "launches": launches, "expected_launches": expect,
@@ -2046,10 +2185,12 @@ def _tp_allreduces(n_layers: int) -> int:
     """``iallreduce`` notes a step of a pp 1, dp 1 tensor-parallel rank
     whose vocab and kv heads are split: forward, the embedding (1), each
     block's attention and MLP outputs (2 L) and the CE's sum of exp and
-    gold logit (1); backward, each block's two column-parallel inputs
-    (2 L) and the unembedding's (1); then the clipping norm's squares of
-    the split leaves (1)."""
-    return 4 * n_layers + 4
+    gold logit (1); backward, each block's recomputed forward (remat) up
+    to its last saved tensor: its attention output again (L), not its
+    MLP's, which follows that tensor (checkpoint's early stop); each
+    block's two column-parallel inputs (2 L) and the unembedding's (1);
+    then the clipping norm's squares of the split leaves (1)."""
+    return 5 * n_layers + 4
 
 
 def phase_train_tp_ranks(torch, dev, smi: str, ref: dict):
@@ -2114,7 +2255,7 @@ def phase_train_tp_ranks(torch, dev, smi: str, ref: dict):
         assert r["launches"] == ref["launches"], (r["launches"],
                                                    ref["launches"])
     assert [len(a) for a in ar] == [want_ar] * TP_RANKS, ar[0][:8]
-    assert big == [(4 * L + 2) * n] * TP_RANKS, big
+    assert big == [(5 * L + 2) * n] * TP_RANKS, big
     assert [sum(1 for x in ns if x[0] == "iallgather") for ns in notes] == \
         [n] * TP_RANKS
     assert not others, others
@@ -2323,12 +2464,18 @@ def _dir_bytes(d: Path) -> int:
     return sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
 
 
-def _reference_launches(n_layers: int, steps: int) -> dict:
-    """The reference route's launches over ``steps`` steps (phase_train)."""
-    return {"rmsnorm": (2 * n_layers + 1) * steps,
-            "rmsnorm_bwd": (2 * n_layers + 1) * steps,
-            "swiglu": n_layers * steps, "swiglu_bwd": n_layers * steps,
-            "flash_attention": n_layers * steps,
+def _reference_launches(n_layers: int, steps: int, qk_norm: bool = False,
+                        remat: bool = True) -> dict:
+    """The reference route's launches over ``steps`` steps (phase_train):
+    under remat each block's forward kernels twice (its two norms, and
+    qk_norm's two where the arch has them, flash and swiglu; without it
+    once), its backward kernels once, the final norm once each way."""
+    qk = 2 * n_layers if qk_norm else 0
+    f = 2 if remat else 1
+    return {"rmsnorm": (f * (2 * n_layers + qk) + 1) * steps,
+            "rmsnorm_bwd": (2 * n_layers + qk + 1) * steps,
+            "swiglu": f * n_layers * steps, "swiglu_bwd": n_layers * steps,
+            "flash_attention": f * n_layers * steps,
             "ring_step_bwd": n_layers * steps}
 
 
@@ -2747,12 +2894,14 @@ KERNEL_SEQS, KERNEL_MBS = (128,), (1, 2)   # the runner's --quick shapes
 def _probe_launches(depths, calls: int) -> dict:
     """Launches of ``calls`` forward calls and ``calls`` step calls of the
     reference loss at each depth: a forward launches rmsnorm 2L+1, swiglu
-    L and flash L times; a step does that and the backward kernels."""
+    L and flash L times; a step runs each block's forward twice (remat),
+    rmsnorm 4L+1, swiglu and flash 2L times, and the backward kernels."""
     out = {}
     for L in depths:
-        for k, n in (("rmsnorm", 2 * (2 * L + 1)), ("swiglu", 2 * L),
-                     ("flash_attention", 2 * L), ("rmsnorm_bwd", 2 * L + 1),
-                     ("swiglu_bwd", L), ("ring_step_bwd", L)):
+        for k, n in (("rmsnorm", (2 * L + 1) + (4 * L + 1)),
+                     ("swiglu", 3 * L), ("flash_attention", 3 * L),
+                     ("rmsnorm_bwd", 2 * L + 1), ("swiglu_bwd", L),
+                     ("ring_step_bwd", L)):
             out[k] = out.get(k, 0) + n * calls
     return out
 
@@ -2918,6 +3067,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    t_start = time.perf_counter()
     global CP_CHUNKS
     from repro_torch.core.segmentation import cp_split
     CP_CHUNKS = tuple(cp_split(TRAIN_SEQ, TRAIN_CP, **CP_SPLIT))
@@ -2964,6 +3114,30 @@ def main(argv=None) -> int:
         train[route], counts = phase_train(torch, dev, route)
         for kname, n in counts.items():
             launches[kname] += n
+    # the reference cell with every block's activations kept (the route
+    # before remat): the same forward, so step 0's loss bit for bit; later
+    # steps part by the dq atomics' order (CTL_REPEAT_TOL)
+    kept, counts = phase_train(torch, dev, "reference", remat=False)
+    for kname, n in counts.items():
+        launches[kname] += n
+    train["reference no-remat"] = kept
+    rem = train["reference"]
+    log(f"[train] reference cell, remat off / on: step s {kept['step_s']} / "
+        f"{rem['step_s']}, tok/s {kept['tok_s_steady']:.1f} / "
+        f"{rem['tok_s_steady']:.1f}, peak GB {kept['peak_mem_gb']:.2f} / "
+        f"{rem['peak_mem_gb']:.2f}, losses {kept['losses']} / "
+        f"{rem['losses']}")
+    assert kept["losses"][0] == rem["losses"][0], (kept["losses"],
+                                                   rem["losses"])
+    assert max(abs(a - b) for a, b in zip(kept["losses"], rem["losses"])) \
+        < CTL_REPEAT_TOL, (kept["losses"], rem["losses"])
+    for arch, seq in NEW_TRAIN:
+        train[arch], counts = phase_train(torch, dev, "reference",
+                                          arch=arch, seq=seq)
+        for kname, n in counts.items():
+            launches[kname] += n
+    # danube's flash forward and backward run at hd 120: their rows
+    swa_train = train["h2o-danube-3-4b"]["launches"]
     train["pp"], counts = phase_train_pp(torch, dev, smi)
     for kname, n in counts.items():
         launches[kname] += n
@@ -3038,8 +3212,13 @@ def main(argv=None) -> int:
             and all("rmsnorm_bwd_ring_kernel" in k for k in runs)), runs
     extra["ring_step_bwd_cp4_per_launch_device_ms"] = device[
         "ring_step_bwd_cp4_per_launch_device_ms"]
-    row_launches = {"flash_attention": launches["flash_attention"]
-                    - swa_flash, "flash_attention hd120": swa_flash}
+    hd120_flash = swa_flash + swa_train["flash_attention"]
+    row_launches = {
+        "flash_attention": launches["flash_attention"] - hd120_flash,
+        "flash_attention hd120": hd120_flash,
+        "ring_step_bwd": (launches["ring_step_bwd"]
+                          - swa_train["ring_step_bwd"]),
+        "ring_step_bwd hd120": swa_train["ring_step_bwd"]}
     for k, n in decode.items():
         row_launches[k], row_launches[f"{k} decode"] = launches[k] - n, n
 
@@ -3068,6 +3247,8 @@ def main(argv=None) -> int:
               "serve_cli": serve_cli,
               "train_parity": train_parity, "train": train, "plan": plan,
               "launches": launches}
+    report["wall_s"] = time.perf_counter() - t_start
+    log(f"[done] chip_smoke.py in {report['wall_s']:.1f} s")
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))

@@ -57,8 +57,8 @@ _SIGNATURES = {
                       + [_c.POINTER(_c.c_int), _c.c_int, _c.c_float,
                          _c.c_int, _P]),
     "ring_step_bwd": (_c.c_int, [_P] * 9 + [_c.c_int] * 8
-                      + [_c.POINTER(_c.c_int), _c.c_int, _c.c_float,
-                         _c.c_int, _P]),
+                      + [_c.POINTER(_c.c_int), _c.c_int, _c.c_int,
+                         _c.c_float, _c.c_float, _c.c_int, _P]),
     "flash_attention_fwd_attrs": (_c.c_int, [_c.c_int,
                                              _c.POINTER(_c.c_int)]),
     "ring_step_fwd_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),

@@ -42,3 +42,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 static inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
+
+// The tile width a head dim runs in: the narrowest of 16, 32, 64 and 128
+// that holds it (hd a multiple of 8), else 0.  A kernel built at the tile
+// width zero-fills the columns past hd on load and never stores them.
+static inline int tile_width(int hd) {
+  if (hd < 8 || hd > 128 || hd % 8 != 0) return 0;
+  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128;
+}

@@ -506,13 +506,6 @@ cudaError_t attrs(int* out) {
 
 }  // namespace mma_fwd
 
-// The tile width a head dim runs in: the narrowest of 16, 32, 64 and 128
-// that holds it (hd a multiple of 8), else 0.
-int tile_width(int hd) {
-  if (hd < 8 || hd > 128 || hd % 8 != 0) return 0;
-  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128;
-}
-
 cudaError_t dispatch_hd(const FlashParams& p, int dtype,
                         cudaStream_t stream) {
   const bool bf = dtype == REPRO_BF16;

@@ -42,12 +42,21 @@
 // tensor cores would round fp32 to TF32.
 //
 // Backward: one block a (rank, b, kv head, key tile) keeps the tile's dK
-// and dV on chip over the G query heads and the q tiles that see it (up to
-// the rank's q_valid), so dK/dV need no atomics (the hop sources are
-// distinct within a launch, launches are ordered on the stream); dQ rows
-// are summed across key tiles with fp32 atomics.  P = exp(s - lse) from
-// the final logsumexp, dS = P * (dO V^T - delta).  Bound: five products
-// per visible (q, k) pair at the bf16 tensor-core rate.
+// and dV on chip over the G query heads and the q tiles that see it (from
+// the causal diagonal to the window's far edge, up to the rank's
+// q_valid), so dK/dV need no atomics (the hop sources are distinct within
+// a launch, launches are ordered on the stream); dQ rows are summed
+// across key tiles with fp32 atomics.  P = exp(s - lse) from the final
+// logsumexp, dS = P * (dO V^T - delta); with a logit softcap s is the
+// capped score cap * tanh(x / cap) and dS takes its derivative,
+// 1 - (s / cap)^2.  The backward alone also takes a sliding window (key
+// visible iff kpos > qpos - window, the flash forward's band) and any
+// head dim that is a multiple of 8 up to 128: it runs in the next tile
+// width (16, 32, 64, 128) with the columns past hd zero-filled on load
+// and never stored.  Only the flash backward (one rank) passes a window, a
+// softcap or such a head dim; the ring forward keeps the tile widths (the
+// cp route refuses a window and a softcap, as JAX's does).  Bound: five
+// products per visible (q, k) pair at the bf16 tensor-core rate.
 //   bf16: FA2's backward on mma.sync m16n8k16 (fp32 accumulate).  Each
 // warp owns 16 keys and their dK/dV C fragments; K and V load once a
 // block, Q, dO, lse and delta of each q tile through a 2-stage cp.async
@@ -111,12 +120,43 @@ struct BwdParams {
   float* dk;
   float* dv;
   RingShape s;
+  int hd;         // the real head dim: columns of q/k/v/dout (<= the tile's)
+  int window;     // <= 0: no window; else key visible iff kpos > qpos - window
+  float softcap;  // <= 0: no softcap; else scores cap * tanh(s / cap)
 };
 
 __device__ __forceinline__ bool visible(const RingShape& s, const Hop& hop,
                                         int qi, int kj, int k_valid) {
   return qi < hop.q_valid && kj < k_valid &&
          (!s.causal || hop.k_start + kj <= hop.q_start + qi);
+}
+
+// The backward's mask: the hop's, and inside the window (> 0) when there
+// is one
+__device__ __forceinline__ bool bwd_visible(const RingShape& s,
+                                            const Hop& hop, int qi, int kj,
+                                            int k_valid, int window) {
+  return visible(s, hop, qi, kj, k_valid) &&
+         (window <= 0 || hop.k_start + kj > hop.q_start + qi - window);
+}
+
+// The q rows [*q_begin, *q_end) of a hop that can see a key of the tile
+// [k0, k0 + keys): from the causal diagonal to the window's far edge, cut
+// to q_valid; *q_begin rounded down to a whole q tile.  Empty when
+// *q_begin >= *q_end.
+__device__ __forceinline__ void bwd_q_band(const RingShape& s,
+                                           const Hop& hop, int k0, int keys,
+                                           int k_valid, int q_valid,
+                                           int window, int* q_begin,
+                                           int* q_end) {
+  int lo = 0, hi = q_valid;
+  if (s.causal) lo = max(0, hop.k_start + k0 - hop.q_start);
+  if (window > 0) {
+    const int k_last = min(k0 + keys, k_valid) - 1;
+    hi = min(hi, hop.k_start + k_last + window - hop.q_start);
+  }
+  *q_begin = (lo / kBQ) * kBQ;
+  *q_end = lo < hi ? hi : 0;
 }
 
 // ------------------------------------------------------------- forward ---
@@ -602,23 +642,24 @@ ring_bwd_kernel(const __grid_constant__ BwdParams p) {
   const int G = s.H / s.Hk;
   const int k_valid = min(hop.k_valid, s.Ck);
   if (k0 >= k_valid) return;
-  int q_begin = 0;
-  if (s.causal) q_begin = max(0, hop.k_start + k0 - hop.q_start);
-  if (q_begin >= hop.q_valid) return;
-  q_begin = (q_begin / kBQ) * kBQ;
+  int q_begin, q_end;
+  bwd_q_band(s, hop, k0, kBK, k_valid, hop.q_valid, p.window, &q_begin,
+             &q_end);
+  if (q_begin >= q_end) return;
 
+  const int hd = p.hd;
   const long long q_row0 = ((long long)r * s.B + b) * s.Cq;
   const long long kv_row0 = ((long long)hop.src * s.B + b) * s.Ck;
-  const long long q_rs = (long long)s.H * HD, kv_rs = (long long)s.Hk * HD;
+  const long long q_rs = (long long)s.H * hd, kv_rs = (long long)s.Hk * hd;
   const float* kg =
-      static_cast<const float*>(p.k) + (kv_row0 * s.Hk + kvh) * HD;
+      static_cast<const float*>(p.k) + (kv_row0 * s.Hk + kvh) * hd;
   const float* vg =
-      static_cast<const float*>(p.v) + (kv_row0 * s.Hk + kvh) * HD;
+      static_cast<const float*>(p.v) + (kv_row0 * s.Hk + kvh) * hd;
 
   for (int idx = tid; idx < kBK * HD; idx += kBwdThreads) {
     const int rr = idx / HD, d = idx % HD;
     const int kj = k0 + rr;
-    const bool in = kj < s.Ck;
+    const bool in = kj < s.Ck && d < hd;
     Ks[d * kLd + rr] = in ? kg[kj * kv_rs + d] : 0.f;
     Vs[d * kLd + rr] = in ? vg[kj * kv_rs + d] : 0.f;
   }
@@ -631,18 +672,18 @@ ring_bwd_kernel(const __grid_constant__ BwdParams p) {
 
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
-    const float* qg = static_cast<const float*>(p.q) + (q_row0 * s.H + h) * HD;
+    const float* qg = static_cast<const float*>(p.q) + (q_row0 * s.H + h) * hd;
     const float* og =
-        static_cast<const float*>(p.dout) + (q_row0 * s.H + h) * HD;
+        static_cast<const float*>(p.dout) + (q_row0 * s.H + h) * hd;
     const float* lg = p.lse + q_row0 * s.H + h;
     const float* dg = p.delta + q_row0 * s.H + h;
-    float* dqg = p.dq + (q_row0 * s.H + h) * HD;
-    for (int q0 = q_begin; q0 < hop.q_valid; q0 += kBQ) {
+    float* dqg = p.dq + (q_row0 * s.H + h) * hd;
+    for (int q0 = q_begin; q0 < q_end; q0 += kBQ) {
       __syncthreads();  // the previous tile's reads of every buffer are done
       for (int idx = tid; idx < kBQ * HD; idx += kBwdThreads) {
         const int rr = idx / HD, d = idx % HD;
         const int qi = q0 + rr;
-        const bool in = qi < s.Cq;
+        const bool in = qi < s.Cq && d < hd;
         Qs[d * kLd + rr] = in ? qg[qi * q_rs + d] : 0.f;
         dOs[d * kLd + rr] = in ? og[qi * q_rs + d] : 0.f;
       }
@@ -686,11 +727,19 @@ ring_bwd_kernel(const __grid_constant__ BwdParams p) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int j = tx + 16 * c;
-          const float pv = visible(s, hop, q0 + i, k0 + j, k_valid)
-                               ? expf(sc[a][c] * s.sm_scale - lse_s[i])
+          // the capped score s_c = cap tanh(x / cap) and ds_c / dx
+          float x = sc[a][c] * s.sm_scale, dcap = 1.f;
+          if (p.softcap > 0.f) {
+            const float t = tanhf(x / p.softcap);
+            x = p.softcap * t;
+            dcap = 1.f - t * t;
+          }
+          const float pv = bwd_visible(s, hop, q0 + i, k0 + j, k_valid,
+                                       p.window)
+                               ? expf(x - lse_s[i])
                                : 0.f;
           Ps[i * kLd + j] = pv;
-          dSs[i * kLd + j] = pv * (dp[a][c] - dl_s[i]);
+          dSs[i * kLd + j] = pv * (dp[a][c] - dl_s[i]) * dcap;
         }
       }
       __syncthreads();
@@ -743,20 +792,22 @@ ring_bwd_kernel(const __grid_constant__ BwdParams p) {
         if (qi >= s.Cq) continue;
 #pragma unroll
         for (int c = 0; c < kDC; ++c)
-          atomicAdd(dqg + qi * q_rs + tx + 16 * c, dqa[a][c] * s.sm_scale);
+          if (tx + 16 * c < hd)
+            atomicAdd(dqg + qi * q_rs + tx + 16 * c, dqa[a][c] * s.sm_scale);
       }
     }
   }
 
   // this block alone owns these dK/dV rows within the launch
-  float* dkg = p.dk + (kv_row0 * s.Hk + kvh) * HD;
-  float* dvg = p.dv + (kv_row0 * s.Hk + kvh) * HD;
+  float* dkg = p.dk + (kv_row0 * s.Hk + kvh) * hd;
+  float* dvg = p.dv + (kv_row0 * s.Hk + kvh) * hd;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int kj = k0 + ty + 16 * a;
     if (kj >= s.Ck) continue;
 #pragma unroll
     for (int c = 0; c < kDC; ++c) {
+      if (tx + 16 * c >= hd) continue;
       const long long o = kj * kv_rs + tx + 16 * c;
       dkg[o] += dk[a][c] * s.sm_scale;
       dvg[o] += dv[a][c];
@@ -783,8 +834,11 @@ constexpr size_t smem_bytes() {
          sizeof(float) * 2 * kStages * kBQ;
 }
 
-// W warps own the block's 16 W keys
-template <int HD, int W>
+// W warps own the block's 16 W keys; kCap: the softcap is on (its tanh
+// stays out of the other variants' loop); kGen: a window or a head dim
+// narrower than the tile (the tile-width, windowless variant keeps hd and
+// the band as constants, so the causal llama path pays for neither)
+template <int HD, int W, bool kCap, bool kGen>
 __global__ void __launch_bounds__(32 * W)
 ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
   using tc::bf16;
@@ -822,29 +876,32 @@ ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
   const int k_valid = min(hop.k_valid, s.Ck);
   const int q_valid = min(hop.q_valid, s.Cq);
   if (k0 >= k_valid) return;
-  int q_begin = 0;
-  if (s.causal) q_begin = max(0, hop.k_start + k0 - hop.q_start);
-  if (q_begin >= q_valid) return;
-  q_begin = (q_begin / kBQ) * kBQ;
-  const int n_qt = (q_valid - q_begin + kBQ - 1) / kBQ;
+  const int window = kGen ? p.window : 0;
+  // only the q tiles inside the tile's causal and window band
+  int q_begin, q_end;
+  bwd_q_band(s, hop, k0, kKeys, k_valid, q_valid, window, &q_begin, &q_end);
+  if (q_begin >= q_end) return;
+  const int n_qt = (q_end - q_begin + kBQ - 1) / kBQ;
   const int n_it = G * n_qt;  // (query head, q tile) pairs, head-major
 
+  // the tiles' columns past hd are zero-filled
+  const int hd = kGen ? p.hd : HD;
   const long long q_row0 = ((long long)r * s.B + b) * s.Cq;
   const long long kv_row0 = ((long long)hop.src * s.B + b) * s.Ck;
-  const long long q_rs = (long long)s.H * HD, kv_rs = (long long)s.Hk * HD;
-  const bf16* kg = static_cast<const bf16*>(p.k) + (kv_row0 * s.Hk + kvh) * HD;
-  const bf16* vg = static_cast<const bf16*>(p.v) + (kv_row0 * s.Hk + kvh) * HD;
+  const long long q_rs = (long long)s.H * hd, kv_rs = (long long)s.Hk * hd;
+  const bf16* kg = static_cast<const bf16*>(p.k) + (kv_row0 * s.Hk + kvh) * hd;
+  const bf16* vg = static_cast<const bf16*>(p.v) + (kv_row0 * s.Hk + kvh) * hd;
 
   auto load_q = [&](int it) {
     const int st = it % kStages;
     const int h = kvh * G + it / n_qt, q0 = q_begin + (it % n_qt) * kBQ;
     const long long head = q_row0 * s.H + h;
     tc::load_tile<HD, kBQ, kThreads>(
-        Qs + st * kBQ * HD, static_cast<const bf16*>(p.q) + head * HD, q_rs,
-        q0, q_valid);
+        Qs + st * kBQ * HD, static_cast<const bf16*>(p.q) + head * hd, q_rs,
+        q0, q_valid, hd);
     tc::load_tile<HD, kBQ, kThreads>(
-        dOs + st * kBQ * HD, static_cast<const bf16*>(p.dout) + head * HD,
-        q_rs, q0, q_valid);
+        dOs + st * kBQ * HD, static_cast<const bf16*>(p.dout) + head * hd,
+        q_rs, q0, q_valid, hd);
     // lse and delta are strided by H: one 4-byte copy a row
     if (threadIdx.x < 2 * kBQ) {
       const int i = threadIdx.x & (kBQ - 1);
@@ -855,8 +912,8 @@ ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
                     src + head + (in ? (long long)(q0 + i) * s.H : 0), in);
     }
   };
-  tc::load_tile<HD, kKeys, kThreads>(Ks, kg, kv_rs, k0, k_valid);
-  tc::load_tile<HD, kKeys, kThreads>(Vs, vg, kv_rs, k0, k_valid);
+  tc::load_tile<HD, kKeys, kThreads>(Ks, kg, kv_rs, k0, k_valid, hd);
+  tc::load_tile<HD, kKeys, kThreads>(Vs, vg, kv_rs, k0, k_valid, hd);
   load_q(0);
   tc::cp_async_commit();
 
@@ -912,10 +969,15 @@ ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
 
     // P^T = exp2(S^T scale log2e - lse log2e) under the hop's mask, and
     // dS^T = P^T (dP^T - delta); the mask only where the tile crosses
-    // the diagonal or a chunk's real rows
+    // the diagonal, the window's far edge or a chunk's real rows.  With
+    // the softcap, P^T = exp(s_c - lse) of s_c = cap tanh(S^T scale / cap)
+    // and dS^T takes its derivative, 1 - (s_c / cap)^2
     const bool edge = q0 + kBQ > q_valid || k0 + kKeys > k_valid ||
                       (s.causal && hop.k_start + k0 + kKeys - 1 >
-                                       hop.q_start + q0);
+                                       hop.q_start + q0) ||
+                      (window > 0 && hop.k_start + k0 <=
+                                         hop.q_start + q0 + kBQ - 1 -
+                                             window);
 #pragma unroll
     for (int j = 0; j < kQTiles; ++j) {
       const int qc = 8 * j + 2 * tig;  // this lane's q columns qc, qc + 1
@@ -924,13 +986,21 @@ ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
       const float nl0 = -ls.x * kLog2e, nl1 = -ls.y * kLog2e;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float pv =
-            tc::exp2_fast(fmaf(sT[j][e], scale_log2, (e & 1) ? nl1 : nl0));
-        if (edge && !visible(s, hop, q0 + qc + (e & 1), kw + 8 * (e >> 1),
-                             k_valid))
+        float pv, dcap = 1.f;
+        if constexpr (kCap) {
+          const float t = tanhf(sT[j][e] * s.sm_scale / p.softcap);
+          dcap = 1.f - t * t;
+          pv = tc::exp2_fast(
+              fmaf(p.softcap * t, kLog2e, (e & 1) ? nl1 : nl0));
+        } else {
+          pv = tc::exp2_fast(
+              fmaf(sT[j][e], scale_log2, (e & 1) ? nl1 : nl0));
+        }
+        if (edge && !bwd_visible(s, hop, q0 + qc + (e & 1),
+                                 kw + 8 * (e >> 1), k_valid, window))
           pv = 0.f;
         sT[j][e] = pv;
-        dpT[j][e] = pv * (dpT[j][e] - ((e & 1) ? dl.y : dl.x));
+        dpT[j][e] = pv * (dpT[j][e] - ((e & 1) ? dl.y : dl.x)) * dcap;
       }
     }
 
@@ -968,7 +1038,7 @@ ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
     // dQ (this warp's 16 q rows and column part) = dS K * scale, added
     // into dq
     const int qr = q0 + dq_strip * 16 + gid;
-    float* dqg = p.dq + (q_row0 * s.H + h) * HD;
+    float* dqg = p.dq + (q_row0 * s.H + h) * hd;
 #pragma unroll
     for (int d0 = dq_part * kPartTiles; d0 < (dq_part + 1) * kPartTiles;
          d0 += kDQTiles) {
@@ -999,22 +1069,24 @@ ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
         float* row = dqg + qi * q_rs + 8 * d0 + 2 * tig;
 #pragma unroll
         for (int n = 0; n < kDQTiles; ++n)
-          atomicAdd(reinterpret_cast<float2*>(row + 8 * n),
-                    make_float2(dq[n][2 * rr] * s.sm_scale,
-                                dq[n][2 * rr + 1] * s.sm_scale));
+          if (8 * (d0 + n) < hd)
+            atomicAdd(reinterpret_cast<float2*>(row + 8 * n),
+                      make_float2(dq[n][2 * rr] * s.sm_scale,
+                                  dq[n][2 * rr + 1] * s.sm_scale));
       }
     }
   }
 
   // this block alone owns these dK/dV rows within the launch
-  float* dkg = p.dk + (kv_row0 * s.Hk + kvh) * HD;
-  float* dvg = p.dv + (kv_row0 * s.Hk + kvh) * HD;
+  float* dkg = p.dk + (kv_row0 * s.Hk + kvh) * hd;
+  float* dvg = p.dv + (kv_row0 * s.Hk + kvh) * hd;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int kj = kw + 8 * rr;
     if (kj >= s.Ck) continue;
 #pragma unroll
     for (int n = 0; n < kDTiles; ++n) {
+      if (8 * n >= hd) continue;
       const long long o = kj * kv_rs + 8 * n + 2 * tig;
       float2* pk = reinterpret_cast<float2*>(dkg + o);
       float2* pv = reinterpret_cast<float2*>(dvg + o);
@@ -1033,11 +1105,11 @@ constexpr int warps() {
   return HD >= 32 ? 8 : 4;
 }
 
-template <int HD>
-cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
+template <int HD, bool kCap, bool kGen>
+cudaError_t launch_variant(const BwdParams& p, cudaStream_t stream) {
   constexpr int W = warps<HD>();
   constexpr size_t smem = smem_bytes<HD, W>();
-  auto* kernel = ring_bwd_mma_kernel<HD, W>;
+  auto* kernel = ring_bwd_mma_kernel<HD, W, kCap, kGen>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -1047,14 +1119,25 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// registers, local (spill) bytes, dynamic shared bytes, resident blocks
-// per SM
 template <int HD>
+cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
+  const bool gen = p.hd != HD || p.window > 0;
+  if (p.softcap > 0.f)
+    return gen ? launch_variant<HD, true, true>(p, stream)
+               : launch_variant<HD, true, false>(p, stream);
+  return gen ? launch_variant<HD, false, true>(p, stream)
+             : launch_variant<HD, false, false>(p, stream);
+}
+
+// registers, local (spill) bytes, dynamic shared bytes, resident blocks
+// per SM of the variant without softcap (kGen: with a window or a narrower
+// head dim)
+template <int HD, bool kGen>
 cudaError_t attrs(int* out) {
   constexpr int W = warps<HD>();
   constexpr size_t smem = smem_bytes<HD, W>();
   cudaFuncAttributes a;
-  auto* kernel = ring_bwd_mma_kernel<HD, W>;
+  auto* kernel = ring_bwd_mma_kernel<HD, W, false, kGen>;
   cudaError_t e = cudaFuncGetAttributes(&a, kernel);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(
@@ -1114,8 +1197,8 @@ cudaError_t dispatch_fwd(const FwdParams& p, int hd, bool bf,
   }
 }
 
-cudaError_t dispatch_bwd_f32(const BwdParams& p, int hd, cudaStream_t stream) {
-  switch (hd) {
+cudaError_t dispatch_bwd_f32(const BwdParams& p, cudaStream_t stream) {
+  switch (tile_width(p.hd)) {
     case 16: return launch_bwd_f32<16>(p, stream);
     case 32: return launch_bwd_f32<32>(p, stream);
     case 64: return launch_bwd_f32<64>(p, stream);
@@ -1124,8 +1207,8 @@ cudaError_t dispatch_bwd_f32(const BwdParams& p, int hd, cudaStream_t stream) {
   }
 }
 
-cudaError_t dispatch_bwd_mma(const BwdParams& p, int hd, cudaStream_t stream) {
-  switch (hd) {
+cudaError_t dispatch_bwd_mma(const BwdParams& p, cudaStream_t stream) {
+  switch (tile_width(p.hd)) {
     case 16: return mma_bwd::launch<16>(p, stream);
     case 32: return mma_bwd::launch<32>(p, stream);
     case 64: return mma_bwd::launch<64>(p, stream);
@@ -1192,7 +1275,8 @@ extern "C" int ring_step_bwd(const void* q, const void* k, const void* v,
                              const void* delta, void* dq, void* dk, void* dv,
                              int R, int Rk, int B, int Cq, int Ck, int H,
                              int Hk, int hd, const int* hops, int causal,
-                             float sm_scale, int dtype, void* stream) {
+                             int window, float softcap, float sm_scale,
+                             int dtype, void* stream) {
   BwdParams p{q,
               k,
               v,
@@ -1202,25 +1286,35 @@ extern "C" int ring_step_bwd(const void* q, const void* k, const void* v,
               static_cast<float*>(dq),
               static_cast<float*>(dk),
               static_cast<float*>(dv),
-              {}};
+              {},
+              hd,
+              window,
+              softcap};
   if (!make_shape(&p.s, R, Rk, B, Cq, Ck, H, Hk, hops, causal, sm_scale))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case REPRO_F32: return dispatch_bwd_f32(p, hd, st);
-    case REPRO_BF16: return dispatch_bwd_mma(p, hd, st);
+    case REPRO_F32: return dispatch_bwd_f32(p, st);
+    case REPRO_BF16: return dispatch_bwd_mma(p, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // The bf16 backward's registers, spill bytes, dynamic shared memory and
-// resident blocks per SM at head dim hd, into out[0..3].
+// resident blocks per SM at head dim hd, into out[0..3]: the variant a
+// windowless call without softcap launches (at a head dim narrower than
+// its tile width, the general one).
 extern "C" int ring_step_bwd_attrs(int hd, int* out) {
-  switch (hd) {
-    case 16: return mma_bwd::attrs<16>(out);
-    case 32: return mma_bwd::attrs<32>(out);
-    case 64: return mma_bwd::attrs<64>(out);
-    case 128: return mma_bwd::attrs<128>(out);
+  const bool gen = hd != tile_width(hd);
+  switch (tile_width(hd)) {
+    case 16: return gen ? mma_bwd::attrs<16, true>(out)
+                        : mma_bwd::attrs<16, false>(out);
+    case 32: return gen ? mma_bwd::attrs<32, true>(out)
+                        : mma_bwd::attrs<32, false>(out);
+    case 64: return gen ? mma_bwd::attrs<64, true>(out)
+                        : mma_bwd::attrs<64, false>(out);
+    case 128: return gen ? mma_bwd::attrs<128, true>(out)
+                         : mma_bwd::attrs<128, false>(out);
     default: return cudaErrorInvalidValue;
   }
 }

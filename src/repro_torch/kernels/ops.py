@@ -10,10 +10,12 @@ Each kernel on the training path sits inside a ``torch.autograd.Function``
 whose backward dispatches the same way: the plain ``ref.*_bwd`` on the
 CPU, the backward kernel on the card, so the CPU tests run the backward
 math the card runs.  A call in which nothing needs a gradient (serving)
-goes to the forward directly, without the function's bookkeeping.  The flash backward is the one-rank ring hop backward
-(``ring_step_bwd``): a hop of one rank over the whole sequence is causal
-flash attention.  The JAX package differentiates its jnp code instead; no
-Pallas kernel there has a backward.
+goes to the forward directly, without the function's bookkeeping.  The
+flash backward is the one-rank ring hop backward (``ring_step_bwd``): a
+hop of one rank over the whole sequence is causal flash attention, and
+the hop backward takes the flash forward's window, softcap and head dims.
+The JAX package differentiates its jnp code instead; no Pallas kernel
+there has a backward.
 """
 from __future__ import annotations
 
@@ -125,15 +127,16 @@ def ring_step(q, k, v, m, l, acc, hops: Sequence[_ra.Hop], *,
 
 
 def ring_step_bwd(q, k, v, dout, lse, delta, dq, dk, dv,
-                  hops: Sequence[_ra.Hop], *, causal: bool = True):
-    if _on_cpu(q):
-        return ref.ring_step_bwd(q, k, v, dout, lse, delta, dq, dk, dv, hops,
-                                 causal=causal)
-    return _ra.ring_step_bwd(q, k, v, dout, lse, delta, dq, dk, dv, hops,
-                             causal=causal)
+                  hops: Sequence[_ra.Hop], *, causal: bool = True,
+                  window: Optional[int] = None,
+                  softcap: Optional[float] = None):
+    bwd = ref.ring_step_bwd if _on_cpu(q) else _ra.ring_step_bwd
+    return bwd(q, k, v, dout, lse, delta, dq, dk, dv, hops, causal=causal,
+               window=window, softcap=softcap)
 
 
-def _hop_backward(q, k, v, o, lse, dout, hop_tables, causal):
+def _hop_backward(q, k, v, o, lse, dout, hop_tables, causal, window=None,
+                  softcap=None):
     """The gradient of an attention output o (R,B,Cq,H,hd) whose rows'
     logsumexp is lse (R,B,Cq,H): one ``ring_step_bwd`` per hop table,
     accumulated in the accumulation dtype and cast once at the end."""
@@ -145,7 +148,7 @@ def _hop_backward(q, k, v, o, lse, dout, hop_tables, causal):
     dv = torch.zeros(v.shape, dtype=acc, device=v.device)
     for hops in hop_tables:
         ring_step_bwd(q, k, v, dout, lse, delta, dq, dk, dv, hops,
-                      causal=causal)
+                      causal=causal, window=window, softcap=softcap)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -210,22 +213,14 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        if ctx.window is not None or ctx.softcap:
-            raise NotImplementedError(
-                "the flash backward takes neither a window nor a softcap "
-                "yet (ROADMAP.md queue A, item 4)")
         q, k, v, o, lse = ctx.saved_tensors
-        if not _on_cpu(q) and q.shape[-1] not in _ra.HEAD_DIMS:
-            raise NotImplementedError(
-                f"the flash backward on the card takes head dims "
-                f"{_ra.HEAD_DIMS}, not {q.shape[-1]} (ROADMAP.md queue A, "
-                "item 4)")
         Sq, Sk = q.shape[1], k.shape[1]
         # one rank whose queries sit at the end of the keys
         hops = [(Sk - Sq, 0, 0, Sk, Sq)]
         dq, dk, dv = _hop_backward(
             q.contiguous()[None], k.contiguous()[None], v.contiguous()[None],
-            o[None], lse[None], dout[None], [hops], ctx.causal)
+            o[None], lse[None], dout[None], [hops], ctx.causal, ctx.window,
+            ctx.softcap)
         return dq[0], dk[0], dv[0], None, None, None
 
 

@@ -133,19 +133,22 @@ def swiglu_bwd(g, u, dh):
 # k_valid, q_valid)`` gives the global positions of the two chunks and
 # their numbers of real (non-pad) rows.  The rank axis leads every tensor.
 
-def hop_mask(hops, cq: int, ck: int, *, causal: bool,
-             device) -> torch.Tensor:
+def hop_mask(hops, cq: int, ck: int, *, causal: bool, device,
+             window: Optional[int] = None) -> torch.Tensor:
     """(R, Cq, Ck) bool, True = the key is visible to the query: a real
-    key of a real query row, and (causal) not after the query."""
+    key of a real query row, (causal) not after the query, and (window)
+    ``kpos > qpos - window`` (JAX's ``_scores_mask``)."""
     t = torch.tensor(hops, dtype=torch.int64, device=device).reshape(-1, 5)
     qi = torch.arange(cq, device=device)
     kj = torch.arange(ck, device=device)
     mask = ((kj[None, None, :] < t[:, 3, None, None])
             & (qi[None, :, None] < t[:, 4, None, None]))
+    qpos = t[:, 0, None] + qi[None]                              # (R, Cq)
+    kpos = t[:, 2, None] + kj[None]                              # (R, Ck)
     if causal:
-        qpos = t[:, 0, None] + qi[None]                          # (R, Cq)
-        kpos = t[:, 2, None] + kj[None]                          # (R, Ck)
         mask = mask & (kpos[:, None, :] <= qpos[:, :, None])
+    if window is not None:
+        mask = mask & (kpos[:, None, :] > qpos[:, :, None] - window)
     return mask
 
 
@@ -179,13 +182,16 @@ def ring_step(q, k, v, m, l, acc, hops, *, causal: bool = True):
 
 
 def ring_step_bwd(q, k, v, dout, lse, delta, dq, dk, dv, hops, *,
-                  causal: bool = True):
+                  causal: bool = True, window: Optional[int] = None,
+                  softcap: Optional[float] = None):
     """One hop's VJP in the FA2 form, added IN PLACE into the accumulators
     dq (R,B,Cq,H,hd) and dk/dv (Rk,B,Ck,Hk,hd) (dk/dv at the source rank
     of each hop); returns them.  lse (R,B,Cq,H) is m + log(l) of the final
     carry and delta (R,B,Cq,H) = rowsum(dout * out).  With P = exp(s - lse)
-    under the hop's mask: dV += P^T dO, dS = P * (dO V^T - delta),
-    dQ += dS K * scale, dK += dS^T Q * scale."""
+    under the hop's mask (``window`` as in ``hop_mask``): dV += P^T dO,
+    dS = P * (dO V^T - delta), dQ += dS K * scale, dK += dS^T Q * scale.
+    With a ``softcap`` the forward's scores were s_c = cap * tanh(s / cap):
+    P = exp(s_c - lse) and dS = P * (dO V^T - delta) * (1 - (s_c / cap)^2)."""
     R, B, Cq, H, hd = q.shape
     Ck, Hk = k.shape[2], k.shape[3]
     G = H // Hk
@@ -196,12 +202,17 @@ def ring_step_bwd(q, k, v, dout, lse, delta, dq, dk, dv, hops, *,
     do = dout.reshape(R, B, Cq, Hk, G, hd).to(dt)
     kk, vv = k[src].to(dt), v[src].to(dt)
     s = torch.einsum("rbqhgd,rbkhd->rbqhgk", qg, kk) * scale
-    mask = hop_mask(hops, Cq, Ck, causal=causal, device=q.device)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    mask = hop_mask(hops, Cq, Ck, causal=causal, device=q.device,
+                    window=window)
     mask = mask[:, None, :, None, None, :]
     p = torch.where(mask, torch.exp(s - lse.reshape(R, B, Cq, Hk, G, 1)),
                     0.0)
     dp = torch.einsum("rbqhgd,rbkhd->rbqhgk", do, vv)
     ds = p * (dp - delta.reshape(R, B, Cq, Hk, G, 1).to(dt))
+    if softcap:
+        ds = ds * (1 - (s / softcap).square())
     dq += (torch.einsum("rbqhgk,rbkhd->rbqhgd", ds, kk)
            * scale).reshape(R, B, Cq, H, hd)
     dk.index_add_(0, src, torch.einsum("rbqhgk,rbqhgd->rbkhd", ds, qg)

@@ -24,6 +24,14 @@ normalised), fp32 inputs on the fp32 FMA kernel.
 VJP in the FA2 form (P recomputed from the final logsumexp), for all
 ranks at once, added into fp32 dq (per rank) and dk/dv (per SOURCE rank).
 The JAX package has no backward kernel: it differentiates the jnp fold.
+With one rank it is the flash backward, so it also takes what the flash
+forward takes: a sliding window, a logit softcap, and any head dim that
+is a multiple of 8 up to 128 (run in the next tile width, its extra
+columns zero-filled on load and never stored).  The ring forward
+``ring_step`` keeps the tile widths and neither window nor softcap: the
+cp loss refuses both (as JAX's ``repro/parallel/context.py`` does), and
+h2o-danube-3-4b, the one registry arch at a head dim between the tile
+widths (120), is windowed, so no cp path needs them.
 Bound: by operations (five products per visible (q, k) pair) at long
 chunks, by the fp32 accumulators' bytes at short ones.  bf16 inputs run
 on the tensor cores (``mma.sync``, P and dS rounded to bf16 as SDPA does);
@@ -40,13 +48,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)   # the ring forward's head dims, the tiles
 MAX_RANKS = 64      # hop table entries the kernels' parameter block holds
 launches = 0        # ring_step launches since the last reset
 bwd_launches = 0    # ring_step_bwd launches since the last reset
@@ -124,7 +132,9 @@ def _hop_array(hops: Sequence[Hop]):
     return (ctypes.c_int * len(flat))(*flat)
 
 
-def _check_qkv(q, k, v):
+def _check_qkv(q, k, v, *, any_hd: bool = False):
+    """The shapes of q, k, v; ``any_hd``: any head dim that is a multiple
+    of 8 up to 128 (the backward), else one of ``HEAD_DIMS``."""
     if q.dim() != 5 or k.dim() != 5 or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: want (R,B,C,H,hd), k == v")
@@ -135,7 +145,11 @@ def _check_qkv(q, k, v):
                          "in batch or head dim")
     if Hk == 0 or H % Hk:
         raise ValueError(f"n_heads {H} not a multiple of n_kv_heads {Hk}")
-    if hd not in HEAD_DIMS:
+    if any_hd:
+        if hd % 8 or not 8 <= hd <= HEAD_DIMS[-1]:
+            raise ValueError(f"head dim {hd}: the backward takes multiples "
+                             f"of 8 up to {HEAD_DIMS[-1]}")
+    elif hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
@@ -192,12 +206,17 @@ def ring_step(q, k, v, m, l, acc, hops: Sequence[Hop], *,
 
 
 def ring_step_bwd(q, k, v, dout, lse, delta, dq, dk, dv,
-                  hops: Sequence[Hop], *, causal: bool = True):
+                  hops: Sequence[Hop], *, causal: bool = True,
+                  window: Optional[int] = None,
+                  softcap: Optional[float] = None):
     """Add one hop's gradient into dq (R,B,Cq,H,hd) and dk/dv
     (Rk,B,Ck,Hk,hd), fp32 and contiguous, in place; return them.
 
-    q, dout: (R,B,Cq,H,hd) and k/v: (Rk,B,Ck,Hk,hd) of one dtype; lse and
-    delta (R,B,Cq,H) fp32.  The sources of the hops must differ (one ring
+    q, dout: (R,B,Cq,H,hd) and k/v: (Rk,B,Ck,Hk,hd) of one dtype, hd a
+    multiple of 8 up to 128; lse and delta (R,B,Cq,H) fp32.  ``window``:
+    a key is seen only while its global position is past the query's
+    minus the window; ``softcap``: the forward's scores were
+    cap * tanh(s / cap), and lse is theirs.  The sources of the hops must differ (one ring
     step is a permutation), so each dk/dv row has one writer per launch;
     dq rows are summed over key tiles with fp32 atomics (their order, and
     so the last bits, vary from run to run); rows at or past a hop's
@@ -207,7 +226,11 @@ def ring_step_bwd(q, k, v, dout, lse, delta, dq, dk, dv,
     build.forbid_grad("ring_step_bwd", "call kernels.ops.ring_attention",
                       q, k, v, dout, lse, delta)
     dev = build.require_cuda(q, k, v, dout, lse, delta, dq, dk, dv)
-    R, Rk, B, Cq, Ck, H, Hk, hd = _check_qkv(q, k, v)
+    R, Rk, B, Cq, Ck, H, Hk, hd = _check_qkv(q, k, v, any_hd=True)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if softcap is not None and softcap < 0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
     f32 = torch.float32
     _need("dout", dout, q.shape, q.dtype)
     _need("lse", lse, (R, B, Cq, H), f32)
@@ -230,7 +253,8 @@ def ring_step_bwd(q, k, v, dout, lse, delta, dq, dk, dv,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), R, Rk, B, Cq, Ck, H, Hk, hd, _hop_array(hops),
-        int(causal), 1.0 / math.sqrt(hd), code, build.stream_handle(dev))
+        int(causal), window or 0, float(softcap or 0.0), 1.0 / math.sqrt(hd),
+        code, build.stream_handle(dev))
     build.check(err, "ring_step_bwd")
     bwd_launches += 1
     return dq, dk, dv

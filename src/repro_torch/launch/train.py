@@ -32,7 +32,8 @@ transport.  The search's cluster has one accelerator of each kind, so its
 plan places dp 1 a stage; with dp > 1 each stage is widened to dp
 replicas of the same microbatch size.  The cp ring is reached, as in the
 JAX package, through ``Trainer(plan=...)``.  Rank 0 prints ``[train]
-step=.. loss=.. tok/s=..`` every ``LOG_EVERY`` steps and, last, a JSON
+step=.. loss=.. tok/s=..`` every ``--log-every`` steps (default 10, as
+the JAX CLI's; a chunk also ends at an injection step) and, last, a JSON
 summary (with its start step and step times, and every rank's losses and
 peak memory under torchrun).
 
@@ -99,9 +100,6 @@ from repro_torch.profile.store import ProfileStore
 from repro_torch.train.trainer import (PLAIN_TRANSPORT, Trainer,
                                        TrainerConfig, widen_plan)
 from repro_torch.utils.device import resolve_device
-
-LOG_EVERY = 10
-
 
 def search_plan(cfg, pp: int, global_batch: int, seq_len: int):
     """The planner's best ``pp``-stage plan for this workload on the JAX
@@ -170,6 +168,7 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=0,
                     help="override the arch's layer count (0 = default)")
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -231,6 +230,8 @@ def main(argv=None):
                          "output is enabled)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.log_every < 1:
+        ap.error(f"--log-every {args.log_every} must be at least 1")
     if args.degrade is not None and not args.pp:
         ap.error("--degrade needs --pp (a plan and a cluster to replan)")
     if (args.lose or args.join) and not args.pp:
@@ -385,7 +386,7 @@ def _steps(args, t, bundle, dev, world: int, t0: float, log) -> None:
     done, losses, step_s, printed, moves, mem = 0, [], [], 0, [], []
     while done < args.steps:
         last = t.last_migration
-        chunk = min(LOG_EVERY, args.steps - done)
+        chunk = min(args.log_every, args.steps - done)
         # land each chunk boundary on the next injection step
         stops = [degrade_step] if degrade_kind is not None else []
         stops += [s for s, _, _ in membership]

@@ -241,7 +241,9 @@ def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
         model: Optional[Communicator] = None) -> torch.Tensor:
     """With a ``model`` communicator and d_ff split over it, this rank's
     columns of ``w_gate``/``w_up`` and rows of ``w_down``, between
-    ``copy_to_model`` and ``reduce_from_model`` (swiglu only).
+    ``copy_to_model`` and ``reduce_from_model``: every activation is
+    elementwise over d_ff, so a split needs no exchange before ``w_down``,
+    whose partial sums the reduction adds.
 
     g/u leave the matmul in x.dtype: in bf16 they are rounded once, where
     JAX keeps them fp32 (preferred_element_type).  The swiglu kernel
@@ -249,10 +251,6 @@ def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
     other activations run in fp32 on the upcast g/u as JAX's do (``gelu``
     is ``jax.nn.gelu``'s tanh form) and round once to x.dtype."""
     split = model if p["w_up"].shape[-1] != cfg.d_ff else None
-    if split is not None and cfg.act != "swiglu":
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over the {cfg.act!r} MLP is not "
-            "ported yet (ROADMAP.md queue A, item 4)")
     x = copy_to_model(x, split)
     u = x @ p["w_up"]
     if cfg.act == "swiglu":

@@ -19,9 +19,11 @@ where JAX accumulates straight into fp32.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.iccl.communicator import Communicator
 from repro_torch.models import mamba
@@ -130,27 +132,47 @@ def _ssm_block(p: dict, x: torch.Tensor, cfg: ModelConfig):
                                  cfg)
 
 
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    return tree.requires_grad
+
+
+def remat_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor) -> bool:
+    """Whether a loss runs each block under ``torch.utils.checkpoint``:
+    ``cfg.remat``, and a gradient to take (autograd on, and the blocks'
+    weights or their input need one); a forward for serving or a probe
+    under ``no_grad`` runs the blocks plainly."""
+    return (cfg.remat and torch.is_grad_enabled()
+            and (x.requires_grad or _requires_grad(blocks)))
+
+
 def lm_features(params: dict, tokens, cfg: ModelConfig,
                 model: Optional[Communicator] = None):
     """The forward WITHOUT the unembed: (features (B,S,D) after the final
     norm, unembed weight (D,V), aux_loss), so a loss can run the head over
     sequence chunks (``train.steps.make_loss_fn`` with ``cfg.loss_chunk``).
-    ``cfg.remat`` is not honoured over the blocks here (ROADMAP.md queue A,
-    item A4): the reference loss keeps every block's activations (each
-    kernel then launches once per pass).  The pipeline loss
-    (``parallel/pipeline.py``) honours it.  On a tensor-parallel rank
-    (``model``) the features are whole and the weight is this rank's
-    vocab slice, (D, V / tp), when the rules split the vocab."""
+    With ``cfg.remat`` and a gradient to take, each block runs under
+    ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of every block):
+    only the blocks' inputs are kept, and the backward runs each block's
+    forward again, so its kernels launch twice a step; the loss and the
+    gradients are those of the kept forward, bit for bit.  On a
+    tensor-parallel rank (``model``) the features are whole and the
+    weight is this rank's vocab slice, (D, V / tp), when the rules split
+    the vocab; a recomputed block all-reduces again."""
     check_supported(cfg)
     if model is not None and cfg.family == "ssm":
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over the ssm stack waits for "
             "its training kernels (ROADMAP.md queue A, item 9)")
     x = _embed(params, tokens, cfg, model)
+    block = (functools.partial(_ssm_block, cfg=cfg) if cfg.family == "ssm"
+             else functools.partial(_block, cfg=cfg, model=model))
+    remat = remat_blocks(cfg, params["blocks"], x)
     for i in range(cfg.num_layers):
         p = layer(params["blocks"], i)
-        x = (_ssm_block(p, x, cfg) if cfg.family == "ssm"
-             else _block(p, x, cfg, model=model))
+        x = (checkpoint(block, p, x, use_reentrant=False) if remat
+             else block(p, x))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, _unembed_weight(params, cfg), aux

@@ -16,7 +16,11 @@ ranks, as in the SPMD program.  A step whose keys all lie in a rank's
 future leaves its carry unchanged; the kernel skips its tiles.  Each
 layer notes the ring's cp - 1 hops of K and of V to the ICCL tap
 (``iccl/communicator.py``): the notes the JAX ring makes while its block,
-a ``lax.scan`` body, is traced once.  A ring across cards is not ported
+a ``lax.scan`` body, is traced once.  With ``cfg.remat`` (and a gradient
+to take) each block runs under ``torch.utils.checkpoint``, as JAX's cp loss
+wraps its block in ``jax.checkpoint``: the backward runs the block's
+forward again, ring included, and the notes stay one forward's (they are
+made outside the checkpointed block).  A ring across cards is not ported
 (ROADMAP.md queue A, item A8).
 
 Numerics: the loss is ``steps.make_loss_fn``'s (CE with z-loss plus
@@ -28,6 +32,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.iccl.communicator import _note
 from repro_torch.kernels import ops
@@ -35,7 +40,8 @@ from repro_torch.kernels.ring_attention import (chunk_starts, pad_chunks,
                                                 unpad_chunks)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _qkv, mlp, rmsnorm
-from repro_torch.models.transformer import _embed, _unembed, layer
+from repro_torch.models.transformer import (_embed, _unembed, layer,
+                                            remat_blocks)
 from repro_torch.train.steps import LossFn, cross_entropy, with_aux
 
 
@@ -74,9 +80,6 @@ def make_cp_loss_fn(cfg: ModelConfig, cp_chunks: Sequence[int]) -> LossFn:
         """One attention block on the (cp, B, Cmax, D) rank layout."""
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         q, k, v = _qkv(p["attn"], h, cfg, pos)
-        for _ in range(cp - 1):   # the KV blocks' hops around the ring
-            _note("cp_ring", "pod", k)
-            _note("cp_ring", "pod", v)
         o = ops.ring_attention(q, k, v, chunks, causal=True)
         x = x + o.reshape(*x.shape[:-1], H * hd) @ p["attn"]["wo"]
         h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
@@ -90,8 +93,17 @@ def make_cp_loss_fn(cfg: ModelConfig, cp_chunks: Sequence[int]) -> LossFn:
         pos = (torch.tensor(starts, device=x.device)[:, None, None]
                + torch.arange(cmax, device=x.device))      # (cp, 1, Cmax)
         xs = pad_chunks(x, chunks)                          # (cp, B, Cmax, D)
+        remat = remat_blocks(cfg, params["blocks"], xs)
         for i in range(cfg.num_layers):
-            xs = block_fwd(layer(params["blocks"], i), xs, pos)
+            p = layer(params["blocks"], i)
+            # the KV blocks' hops around the ring, K's and V's
+            kv = torch.empty(xs.shape[:-1] + (p["attn"]["wk"].shape[-1] // hd,
+                                              hd), dtype=xs.dtype,
+                             device="meta")
+            for _ in range(2 * (cp - 1)):
+                _note("cp_ring", "pod", kv)
+            xs = (checkpoint(block_fwd, p, xs, pos, use_reentrant=False)
+                  if remat else block_fwd(p, xs, pos))
         x = unpad_chunks(xs, chunks)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         ce = cross_entropy(_unembed(params, x, cfg), batch["labels"])

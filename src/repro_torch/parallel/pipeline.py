@@ -728,9 +728,11 @@ class PPRankStep:
     that send to each other at once cannot deadlock, and waits for all of
     it; under ``1f1b-eager`` an activation's send completes in the
     background and is waited on at the end of the step.  The order never
-    depends on timing, so the gradients are the same from run to run.  With pp = 1 it is the reference loss (``steps.make_loss_fn``)
-    over this replica's rows ``(B / dp, S)``, its blocks kept whole as the
-    reference route keeps them (no remat); a plan of m > 1 microbatches
+    depends on timing, so the gradients are the same from run to run.
+    With pp = 1 it is the reference loss (``steps.make_loss_fn``) over
+    this replica's rows ``(B / dp, S)``, each block under ``torch.utils.
+    checkpoint`` when ``cfg.remat``, as on the reference route (a
+    recomputed tp block all-reduces again); a plan of m > 1 microbatches
     of those rows takes them one at a time, adding up the gradients.
 
     At tp > 1 every layer, the embedding and the loss run on this model

@@ -122,10 +122,15 @@ class ShardingRules:
     def partial_grad(self, path: Tuple[str, ...]) -> bool:
         """A replicated leaf whose gradient each model rank holds only in
         part: k/v replicated under split q heads, where each rank's
-        gradient covers the kv heads its q heads read.  The ranks' sum
-        over ``model`` is the gradient."""
-        return (path[-1] in ("wk", "wv") and self.shard_q
-                and not self.shard_kv and self.tp > 1)
+        gradient covers the kv heads its q heads read; and qk_norm's
+        scales under split heads, each rank's covering its own q heads
+        and the kv heads they read.  The ranks' sum over ``model`` is the
+        gradient (GSPMD's all-reduce in the JAX package)."""
+        if not (self.shard_q and self.tp > 1):
+            return False
+        if path[-1] in ("wk", "wv"):
+            return not self.shard_kv
+        return len(path) > 1 and path[-2] in ("q_norm", "k_norm")
 
 
 def map_with_path(fn, tree: Any, prefix: Tuple[str, ...] = ()) -> Any:

@@ -58,6 +58,7 @@ from repro_torch.obs.runmeta import RunMeta  # noqa: E402
 from repro_torch.parallel import rank_programs  # noqa: E402
 from repro_torch.parallel.launch import run_ranks  # noqa: E402
 from repro_torch.profile.store import ProfileStore  # noqa: E402
+from repro_torch.telemetry import recorder as trecorder  # noqa: E402
 from repro_torch.train import trainer as ttrainer  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
@@ -536,10 +537,28 @@ def test_min_gain_gate_blocks_migration(tmp_path):
     assert t.plan.layers == (3, 3)
 
 
-def test_link_degrade_triggers_replan_schedule(tmp_path):
+class _ScriptedTime:
+    """A stand-in for the ``time`` module whose ``perf_counter`` advances
+    by ``tick`` seconds a call, whatever the machine's load."""
+
+    def __init__(self, tick: float):
+        self.tick, self.t = tick, 0.0
+
+    def perf_counter(self) -> float:
+        self.t += self.tick
+        return self.t
+
+
+def test_link_degrade_triggers_replan_schedule(tmp_path, monkeypatch):
     """JAX's ``test_e2e_link_degrade_triggers_replan_schedule``: a slowed
     boundary link moves the bubble ratio alone, the decision is
-    ``replan-schedule`` on the unchanged cluster."""
+    ``replan-schedule`` on the unchanged cluster.  The recorder's tick
+    marks and the trainer's step times read a scripted clock (one fixed
+    tick a reading), so every healthy stage tick is the same and only the
+    injected link moves what the policy sees: with ``ewma`` 1.0 one slow
+    step on a loaded host would otherwise name a stage."""
+    monkeypatch.setattr(trecorder, "time", _ScriptedTime(1e-3))
+    monkeypatch.setattr(ttrainer, "time", _ScriptedTime(1e-3))
     policy = pol.ReplanPolicy(_cfg(patience=2, cooldown=4, baseline_steps=2,
                                    ewma=1.0, min_gain=0.0))
     t = _mk_trainer(tmp_path, policy=policy)

@@ -221,15 +221,33 @@ def test_greedy_streams_equal_jax_engine(arch):
         {c.rid: c.tokens for c in want.completions}
 
 
-# ---------------------------------------------------------- refusals ---
-def test_tp_over_a_two_matrix_mlp_names_its_roadmap_item():
-    """A tp split of nemotron's MLP raises NotImplementedError naming its
-    item, not a KeyError on the missing w_gate."""
-    _, _, tb, tp = _models("nemotron-4-15b")
+# ------------------------------------------------- tp over the MLPs ---
+class _SumOfParts:
+    """A model communicator whose all-reduce hands each rank's part back
+    unreduced (the test adds the parts)."""
+
+    def iallreduce(self, x):
+        return x
+
+
+@pytest.mark.parametrize("arch,kw", [("nemotron-4-15b", {}),
+                                     ("llama3-8b", {"act": "gelu"}),
+                                     ("llama3-8b", {"act": "geglu"})],
+                         ids=["sq_relu", "gelu", "geglu"])
+def test_tp_mlp_forward_on_a_fake_split(arch, kw):
+    """The two-matrix and geglu MLPs split over 2 model ranks, each rank
+    its columns of ``w_up`` (and ``w_gate``) and rows of ``w_down``: the
+    ranks' partial outputs add up to the whole MLP's."""
+    _, _, tb, tp = _models(arch, **kw)
     blk = {k: v[0] for k, v in tp["blocks"]["mlp"].items()}
-    half = {"w_up": blk["w_up"][:, :blk["w_up"].shape[1] // 2],
-            "w_down": blk["w_down"][:blk["w_down"].shape[0] // 2]}
-    x = torch.zeros(1, 2, tb.cfg.d_model)
-    with pytest.raises(NotImplementedError, match="queue A, item 4"):
-        layers.mlp(half, x, tb.cfg, model=object())
-    assert layers.mlp(blk, x, tb.cfg).shape == x.shape
+    F = tb.cfg.d_ff
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (2, 5, tb.cfg.d_model)).astype(np.float32))
+    parts = []
+    for r in range(2):
+        cols = slice(r * F // 2, (r + 1) * F // 2)
+        half = {k: (w[cols] if k == "w_down" else w[:, cols])
+                for k, w in blk.items()}
+        parts.append(layers.mlp(half, x, tb.cfg, model=_SumOfParts()))
+    torch.testing.assert_close(parts[0] + parts[1],
+                               layers.mlp(blk, x, tb.cfg), **TOL)

@@ -777,6 +777,78 @@ def test_flash_backward_tensor_cores(dev, B, Sq, Sk, H, Hk, hd):
         _close_attention(g, w, bf)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk,hd,window,softcap", [
+    (1, 300, 300, 4, 2, 24, 100, None),
+    (1, 1000, 1000, 8, 2, 120, 300, None),      # danube's head dim
+    (2, 257, 257, 4, 1, 120, None, 30.0),
+    (1, 300, 300, 8, 2, 64, 70, 20.0),          # window and softcap
+    (1, 100, 300, 4, 2, 120, 150, None),        # Sq < Sk, the band
+    (2, 200, 200, 4, 4, 40, 64, 5.0),
+])
+def test_flash_backward_window_softcap_any_head_dim_on_card(
+        dev, dtype, B, Sq, Sk, H, Hk, hd, window, softcap):
+    """The flash backward (one-rank ``ring_step_bwd``) with a window, a
+    softcap, both, at head dims between the tile widths (24, 40, 120), GQA
+    and MQA, ragged and with the queries at the end of the keys, against
+    autograd through the plain flash."""
+    q = _randn(dev, B, Sq, H, hd, dtype=dtype).requires_grad_()
+    k = _randn(dev, B, Sk, Hk, hd, dtype=dtype, seed=1).requires_grad_()
+    v = _randn(dev, B, Sk, Hk, hd, dtype=dtype, seed=2).requires_grad_()
+    do = _randn(dev, B, Sq, H, hd, dtype=dtype, seed=3)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    n = tra.bwd_launches
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, **kw), (q, k, v),
+                              do)
+    assert tra.bwd_launches == n + 1
+    want = torch.autograd.grad(ref.flash_attention(q, k, v, **kw),
+                               (q, k, v), do)
+    for g, w in zip(got, want):
+        _close_attention(g, w, dtype)
+
+
+def test_flash_backward_refuses_head_dims_off_the_multiples_of_8(dev):
+    q = _randn(dev, 1, 16, 2, 20, dtype=torch.float32)
+    z = torch.zeros(1, 1, 16, 2, 20, device=dev)
+    lse = torch.zeros(1, 1, 16, 2, device=dev)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tra.ring_step_bwd(q[None], q[None], q[None], q[None], lse, lse, z,
+                          z.clone(), z.clone(), [(0, 0, 0, 16, 16)])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "nemotron-4-15b",
+                                  "h2o-danube-3-4b"])
+def test_smoke_train_steps_of_the_dense_family_on_card_match_cpu(dev, arch):
+    """Three SMOKE reference-route Trainer steps (fp32; danube at S 64,
+    past its window of 32) on the card against the CPU from one state,
+    with each block's forward twice under remat."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    b = registry.get_bundle(arch, smoke=True)
+    seq = 64 if b.cfg.window else 32
+    state = init_train_state(b, seed=0, device="cpu")
+    losses = []
+    for d in ("cpu", dev):
+        t = Trainer(b, TrainerConfig(global_batch=2, seq_len=seq),
+                    opt_cfg=AdamWConfig(lr=1e-2, warmup_steps=2),
+                    state=state, device=d)
+        ops.reset_launch_counts()
+        losses.append(t.run(3)["losses"])
+    counts, L = ops.launch_counts(), b.cfg.num_layers
+    qk = 2 * L if b.cfg.qk_norm else 0
+    assert counts["rmsnorm"] == 3 * (4 * L + 2 * qk + 1)
+    assert counts["rmsnorm_bwd"] == 3 * (2 * L + qk + 1)
+    assert counts["flash_attention"] == 3 * 2 * L
+    assert counts["ring_step_bwd"] == 3 * L
+    gated = b.cfg.act == "swiglu"
+    assert counts["swiglu"] == 3 * 2 * L * gated
+    assert counts["swiglu_bwd"] == 3 * L * gated
+    torch.testing.assert_close(torch.tensor(losses[1]),
+                               torch.tensor(losses[0]), **MODEL_TOL)
+
+
 def test_wrappers_refuse_inputs_that_need_grad_on_card(dev):
     x = _randn(dev, 4, 64, dtype=torch.float32).requires_grad_()
     with pytest.raises(RuntimeError, match="kernels.ops.rmsnorm"):
@@ -853,32 +925,39 @@ def test_smoke_pp_loss_and_grads_on_card_match_cpu(dev, vpp, layers):
 
 
 def test_profile_runner_layers_on_card(dev):
-    """The profile runner's layer probes at the SMOKE width on the card:
-    CUDA-event times, positive per-layer fwd/bwd, and exactly the kernel
-    launches of ``warmup + reps`` forward and step calls at depths 1, 2."""
+    """The profile runner's layer probes on the card: CUDA-event times,
+    positive per-layer fwd/bwd, and exactly the kernel launches of
+    ``warmup + reps`` forward and step calls at depths 1, 2 (a step runs
+    each block's forward twice under remat).  The probes take llama3-8b's
+    full width: at the SMOKE width they are launch-bound, and the
+    runner's backward (the depth-2 minus depth-1 step, floored at the
+    forward's difference, as the JAX runner computes it) read exactly 0
+    once when timing noise put the step difference at or below the
+    forward's."""
     from repro_torch.profile import ProfiledCostModel, ProfileStore, runner
 
     kind = runner.device_kind(dev)
     assert kind == torch.cuda.get_device_name(dev).lower().replace(" ", "-")
     store = ProfileStore()
     ops.reset_launch_counts()
-    runner.bench_layers(store, kind, "llama3-8b", seqs=(256,),
-                        micro_bss=(2,), warmup=2, reps=5, verbose=False,
-                        device=dev)
+    seq, mbs = 512, 1
+    runner.bench_layers(store, kind, "llama3-8b", seqs=(seq,),
+                        micro_bss=(mbs,), warmup=2, reps=5, verbose=False,
+                        smoke=False, device=dev)
     counts, n = ops.launch_counts(), 7
     want = dict.fromkeys(counts, 0)
     for L in (1, 2):
-        for k, per in (("rmsnorm", 2 * (2 * L + 1)), ("swiglu", 2 * L),
-                       ("flash_attention", 2 * L),
+        for k, per in (("rmsnorm", (2 * L + 1) + (4 * L + 1)),
+                       ("swiglu", 3 * L), ("flash_attention", 3 * L),
                        ("rmsnorm_bwd", 2 * L + 1), ("swiglu_bwd", L),
                        ("ring_step_bwd", L)):
             want[k] += per * n
     assert counts == want
-    shape = {"arch": "llama3-8b", "seq_len": 256, "micro_bs": 2, "tp": 1}
+    shape = {"arch": "llama3-8b", "seq_len": seq, "micro_bs": mbs, "tp": 1}
     step = store.get(kind, "layer_step", shape).value
     assert step["fwd_s"] > 0 and step["bwd_s"] > 0
     cfg = registry.get_config("llama3-8b")
-    assert ProfiledCostModel(store).layer_time(kind, cfg, 256, 2, 1) == \
+    assert ProfiledCostModel(store).layer_time(kind, cfg, seq, mbs, 1) == \
         (step["fwd_s"], step["bwd_s"])
 
 
@@ -1833,3 +1912,61 @@ def test_cli_adapt_on_four_cards(dev):
     losses = s["rank_losses"]
     assert all(x == losses[0] for x in losses)
     assert len(losses[0]) == 8 and all(map(math.isfinite, losses[0]))
+
+
+def test_nemotron_tp4_full_width_on_four_cards(dev):
+    """nemotron-4-15b at full width (d 6144, 48 / 8 heads, d_ff 24576,
+    vocab 256000), 4 layers, one sequence of 4096, as pp 1 x tp 4 over
+    NCCL, a rank a card (skipped below four cards; its state does not fit
+    one card at any depth: the untied tables alone hold 3.15 B
+    parameters): 3 steps with finite losses, the same on every rank, each
+    rank's peak under 80 GB.  The witness: the same route at 1 layer, its
+    step-0 loss within 2e-2 of the bf16 forward loss one card computes
+    for the same weights (seed 0) and batch, with no optimizer state."""
+    import gc
+    import json
+    import math
+
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import build
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+    from repro_torch.train import steps
+
+    _four_cards("nemotron-4-15b's tp 4 runs a card a rank")
+    build.build()       # the ranks then only load the library
+    arch, seq = "nemotron-4-15b", 4096
+
+    def run(layers, n):
+        plan = ParallelPlan(stages=(StagePlacement(0, layers, 1, 4, True),),
+                            micro_bs=1, global_batch=1, seq_len=seq,
+                            transport="gpu")
+        return run_ranks(rank_programs.pp_train, 4, timeout_s=600,
+                         backend="cpu:gloo,cuda:nccl", device="cuda",
+                         args=(dict(arch=arch, num_layers=layers),
+                               plan.to_dict(), n))
+
+    res = run(4, 3)
+    print(json.dumps([{k: r[k] for k in ("rank", "losses", "step_s",
+                                         "peak_gb", "n_params")}
+                      for r in res]))
+    losses = res[0]["losses"]
+    assert len(losses) == 3 and all(map(math.isfinite, losses)), losses
+    assert all(r["losses"] == losses for r in res)
+    assert all(r["peak_gb"] < 80 for r in res)
+    one = run(1, 1)[0]["losses"][0]
+    # the ranks' state is the shards of the seed-0 state, their batch the
+    # trainer's first synthetic batch
+    b = registry.get_bundle(arch, num_layers=1)
+    params = b.init(b.cfg, seed=0, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticTokens(
+        vocab_size=b.cfg.vocab_size, seq_len=seq,
+        global_batch=1).batch_at(0).items()}
+    with torch.no_grad():
+        want = float(steps.make_loss_fn(b)(params, batch)[0])
+    print(json.dumps({"tp4_step0_loss_1_layer": one, "one_card": want}))
+    assert abs(one - want) < 2e-2, (one, want)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()

@@ -307,12 +307,27 @@ def test_ops_use_the_autograd_function_only_when_a_grad_is_needed(case):
     torch.testing.assert_close(traced.detach(), plain, rtol=0, atol=0)
 
 
-def test_flash_backward_refuses_window_and_softcap():
-    q = torch.randn(1, 8, 2, 16, requires_grad=True)
-    for kw in ({"window": 4}, {"softcap": 20.0}):
-        out = ops.flash_attention(q, q, q, causal=True, **kw)
-        with pytest.raises(NotImplementedError, match="queue A, item 4"):
-            out.sum().backward()
+@pytest.mark.parametrize("window,softcap,hd,Sq", [
+    (4, None, 16, 12), (None, 20.0, 16, 12), (4, 2.0, 16, 12),
+    (5, 3.0, 120, 12), (3, None, 24, 7)])
+def test_flash_backward_takes_window_softcap_and_any_head_dim(window, softcap,
+                                                              hd, Sq):
+    """The flash backward (the one-rank hop backward, P from the forward's
+    logsumexp) with a window, a softcap, both, at head dims 120 and 24
+    and with the queries at the end of the keys, against autograd through
+    the plain forward: the same gradients in exact arithmetic."""
+    rng = np.random.default_rng(8)
+    B, Sk, H, Hk = 2, 12, 4, 2
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   for s in ((B, Sq, H, hd), (B, Sk, Hk, hd),
+                             (B, Sk, Hk, hd), (B, Sq, H, hd)))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    ins = tuple(t.clone().requires_grad_() for t in (q, k, v))
+    got = torch.autograd.grad(ops.flash_attention(*ins, **kw), ins, do)
+    ins = tuple(t.clone().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(ref.flash_attention(*ins, **kw), ins, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
 
 
 def test_flash_attention_returns_its_logsumexp():

@@ -275,18 +275,21 @@ def test_tp_loss_and_grads_match_jax(tp_results, case):
             ("blocks", "attn", "wk"))
     if pp == 1:
         # forward: the embedding and each block's two row-parallel
-        # products; backward: each block's two column-parallel inputs and
-        # the unembedding's; a CE call's sum of exp and gold logit (and an
-        # iallgather of its maxima): once, or with loss_chunk once a chunk
-        # and again in its recompute (cfg.remat); at tp 4 the partial wk
-        # and wv gradients
+        # products; backward: each block's recomputed forward (cfg.remat)
+        # up to its last saved tensor, so its attention output's
+        # reduction again but not the MLP's, which follows the block's
+        # last saved tensor (checkpoint's early stop), each block's two
+        # column-parallel inputs and the unembedding's; a CE call's sum
+        # of exp and gold logit (and an iallgather of its maxima): once,
+        # or with loss_chunk once a chunk and again in its recompute; at
+        # tp 4 the partial wk and wv gradients
         ce_calls = 2 * (SEQ // CHUNKED["loss_chunk"]) if "chunk" in cid \
             else 1
         for r in res:
             ops = [n[0] for n in r["notes"]]
             assert ops.count("iallgather") == ce_calls
             assert ops.count("iallreduce") == \
-                4 * L + 2 + ce_calls + 2 * (cid == "tp4"), ops
+                5 * L + 2 + ce_calls + 2 * (cid == "tp4"), ops
     else:
         hops = M * 2 * (pp - 1)
         assert sum(1 for r in res for n in r["notes"]

@@ -131,7 +131,19 @@ Phases, each raising on failure so the script exits non-zero:
               under remat reduces its attention output again) and one
               iallgather;
               each rank's peak memory, the step time, tokens/s, and one
-              host-staged all-reduce of an activation's time.  Then pp
+              host-staged all-reduce of an activation's time.  Then
+              cp_ranks: llama3-8b at full width and 2 layers, batch 1,
+              seq 4096, as a pp 1 plan of a cp 2 ring (chunks
+              cp_split(4096, 2) = 2380/1716), each ring rank in its own
+              process on this card (run_ranks, gloo, transport "cpu"),
+              its K and V hopping over the pod axis, against the
+              one-process cp route at the same depth, chunks and seed
+              (the witness, run first and freed): step-0 loss within
+              1e-5, steps 1-2 within 2e-2, each rank's launches the
+              witness's kernel by kernel, L (4 (cp - 1) + 1)
+              isend_irecv notes a step on each rank, an iallreduce a
+              gradient leaf and the loss's; each rank's peak memory,
+              the step time and tokens/s.  Then pp
               vpp: the planner's interleaved plan (vpp 2, pinned by
               planner.search(schedule="interleaved-1f1b", vpp_options=[2])
               on the same cluster) at 8 layers, batch 4, checked as the pp
@@ -188,8 +200,8 @@ Phases, each raising on failure so the script exits non-zero:
               rmsnorm_bwd must run as one kernel a call
 Then one JSON line with every kernel (launches summed over the serve and
 train runs (cp, reference, qwen3-14b, h2o-danube-3-4b, pp, pp_ranks,
-tp_ranks, pp vpp, pp_ranks vpp, reference b2, dp_ranks: every rank, and
-phase 6c's CLI runs) and phase 6b;
+tp_ranks, cp_ranks and its witness, pp vpp, pp_ranks vpp, reference b2,
+dp_ranks: every rank, and phase 6c's CLI runs) and phase 6b;
 rmsnorm and swiglu have a second row at their decode shape,
 which takes the launches made inside decode steps, the first row the rest;
 the flash forward has a second row at h2o-danube-3-4b's prefill shape,
@@ -320,6 +332,17 @@ RANKS_LOSS0_TOL, RANKS_TIMEOUT_S, HOP_REPS = 1e-5, 300, 20
 # products round their partial sums apart from the unsharded product's, so
 # every step is held at TRAIN_LOSS_TOL of the reference route's
 TP_RANKS = 2
+# the cp_ranks route: llama3-8b at full width and CP_RANKS_LAYERS layers
+# (1.487 B parameters, 20.8 GB of state a process; two processes with
+# their gradients ~48 GB beside the chunks' activations, where the 4-layer
+# cell's 27 GB a process would leave too little), one sequence of
+# TRAIN_SEQ over a ring of CP_RANKS ranks whose chunks cp_split gives
+# (main sets CP_RANKS_CHUNKS), each ring rank in its own process.  Its
+# forward runs the witness's kernels on the same rows and its hops copy
+# bits, so step 0's loss agrees to fp32 rounding (RANKS_LOSS0_TOL); later
+# steps differ by the ring backward's dq atomics (TRAIN_LOSS_TOL)
+CP_RANKS, CP_RANKS_LAYERS = 2, 2
+CP_RANKS_CHUNKS: tuple = ()
 # the pp vpp route: the planner's interleaved plan (vpp 2) for PP_BATCH
 # sequences at VPP_LAYERS layers (2.795 B parameters, 39.1 GB of state),
 # then (pp_ranks vpp) its two stages in two processes on the card
@@ -1686,14 +1709,16 @@ def phase_train_parity(torch, dev):
 
 def phase_train(torch, dev, route: str, global_batch: int = 1,
                 moves: bool = False, arch: str = "llama3-8b",
-                seq: int = TRAIN_SEQ, remat: bool = True):
-    """``arch`` at full width, TRAIN_LAYERS layers, bf16: TRAIN_STEPS
+                seq: int = TRAIN_SEQ, remat: bool = True,
+                layers: int = TRAIN_LAYERS, chunks=None):
+    """``arch`` at full width, ``layers`` layers, bf16: TRAIN_STEPS
     steps of one route at ``global_batch`` sequences of ``seq`` with exact
     launch counts (a batched kernel launches once whatever the batch;
     under remat each block's forward twice); its own peak memory; with
     ``moves``, each leaf's squared master move after every step
     (``rank_programs.run_steps``); ``remat`` False: the blocks' activations
-    kept (each kernel once a pass), the route's cost before remat."""
+    kept (each kernel once a pass), the route's cost before remat;
+    ``chunks``: the cp route's (default CP_CHUNKS)."""
     from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.optim.adamw import tree_leaves
@@ -1703,8 +1728,9 @@ def phase_train(torch, dev, route: str, global_batch: int = 1,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    b = registry.get_bundle(arch, num_layers=TRAIN_LAYERS, remat=remat)
-    plan = _cp_plan(CP_CHUNKS, 1, TRAIN_LAYERS) if route == "cp" else None
+    b = registry.get_bundle(arch, num_layers=layers, remat=remat)
+    chunks = chunks or CP_CHUNKS
+    plan = _cp_plan(chunks, 1, layers) if route == "cp" else None
     t0 = time.perf_counter()
     t = Trainer(b, TrainerConfig(global_batch=global_batch,
                                  seq_len=seq), plan=plan, device=dev)
@@ -1716,15 +1742,17 @@ def phase_train(torch, dev, route: str, global_batch: int = 1,
         route = f"{arch} {route}"
     if not remat:
         route = f"{route} no-remat"
+    if layers != TRAIN_LAYERS:
+        route = f"{route} {layers}-layer"
     n_params = sum(x.numel() for x in tree_leaves(t.state["params"]))
     state_gb = torch.cuda.memory_allocated(dev) / 1e9
-    log(f"[train] {route} route: {arch} {TRAIN_LAYERS} layers, seq {seq}, "
+    log(f"[train] {route} route: {arch} {layers} layers, seq {seq}, "
         f"{n_params / 1e9:.3f} B params, train state {state_gb:.2f} GB, "
         f"init {init_s:.1f} s")
     ops.reset_launch_counts()
     out, moved = run_steps(t, TRAIN_STEPS, moves)
     launches = ops.launch_counts()
-    L, cp, n = TRAIN_LAYERS, len(CP_CHUNKS), TRAIN_STEPS
+    L, cp, n = layers, len(chunks), TRAIN_STEPS
     expect = dict.fromkeys(launches, 0)
     expect.update(_reference_launches(L, n, b.cfg.qk_norm, remat))
     if route.startswith("cp"):
@@ -2290,6 +2318,100 @@ def phase_train_tp_ranks(torch, dev, smi: str, ref: dict):
     }
     log(f"[train] tp_ranks report {json.dumps(summary)}")
     return summary, launches
+
+
+def _cp_hops(n_layers: int, cp: int) -> int:
+    """``isend_irecv`` notes a step of a ring rank under remat: each
+    block's forward passes K and V (one message) cp - 1 hops, its
+    recompute the same again, and its backward K and V cp - 1 hops with
+    dK/dV (another message) cp hops, the last one home."""
+    return n_layers * (4 * (cp - 1) + 1)
+
+
+def phase_train_cp_ranks(torch, dev, smi: str):
+    """llama3-8b at full width, CP_RANKS_LAYERS layers, one sequence of
+    TRAIN_SEQ as a pp 1 plan of a CP_RANKS ring (CP_RANKS_CHUNKS), each
+    ring rank in its own process on this card (transport "cpu": NCCL
+    cannot put two ranks on one device).  The witness is the one-process
+    cp route at the same depth, chunks and seed, run first and freed.
+    Checked: step 0 within RANKS_LOSS0_TOL of the witness's loss, steps
+    1-2 within TRAIN_LOSS_TOL; each rank's launches equal to the
+    witness's (a rank runs every kernel of the witness's path on its own
+    chunk: the cp ring_step launches of a block's forward, one hop of one
+    rank each, where the witness's each fold every rank), so they sum to
+    CP_RANKS times the witness's; ``_cp_hops`` isend_irecv notes and an
+    iallreduce a gradient leaf and the loss's a step on each rank."""
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+
+    chunks, L, n = CP_RANKS_CHUNKS, CP_RANKS_LAYERS, TRAIN_STEPS
+    witness, wl = phase_train(torch, dev, "cp", layers=L, chunks=chunks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = dataclasses.replace(_cp_plan(chunks, 1, L), transport="cpu")
+    log(f"[train] cp_ranks plan: {plan.describe()}, chunks {chunks}, "
+        f"transport 'cpu' ({CP_RANKS} ranks on one card)")
+    t0 = time.perf_counter()
+    res = run_ranks(rank_programs.pp_train, CP_RANKS, device=str(dev),
+                    timeout_s=RANKS_TIMEOUT_S,
+                    args=(dict(arch="llama3-8b", num_layers=L),
+                          plan.to_dict(), n))
+    wall = time.perf_counter() - t0
+    losses = res[0]["losses"]
+    step_s = [max(r["step_s"][i] for r in res) for i in range(n)]
+    steady = step_s[1:]
+    tok_s = TRAIN_SEQ * len(steady) / sum(steady)
+    diffs = [abs(a - b) for a, b in zip(losses, witness["losses"])]
+    launches = {k: sum(r["launches"][k] for r in res) for k in wl}
+    notes = [[tuple(x) for x in r["notes"]] for r in res]
+    hops = [sum(1 for x in ns if x[0] == "isend_irecv") for ns in notes]
+    ars = [sum(1 for x in ns if x[0] == "iallreduce") for ns in notes]
+    others = sorted({x[0] for ns in notes for x in ns
+                     if x[0] not in ("isend_irecv", "iallreduce")})
+    for r in res:
+        log(f"[train] cp_ranks rank {r['rank']} (ring rank {r['ring']}, "
+            f"chunk {chunks[r['ring']]}, {r['n_params'] / 1e9:.3f} B "
+            f"params, state {r['state_gb']:.2f} GB, init "
+            f"{r['init_s']:.1f} s): step s {r['step_s']}, peak "
+            f"{r['peak_gb']:.2f} GB, launches {r['launches']}")
+    log(f"[train] cp_ranks losses {losses} vs the one-process cp route "
+        f"{witness['losses']}: diffs {diffs}; run_ranks wall {wall:.1f} s")
+    log(f"[train] cp_ranks on {smi}: step s {step_s[0]:.4f} / "
+        f"{step_s[1]:.4f} / {step_s[2]:.4f}, tok/s (steps 1-2) {tok_s:.1f} "
+        f"(witness {witness['tok_s_steady']:.1f}), peak GB "
+        f"{[round(r['peak_gb'], 2) for r in res]} (witness "
+        f"{witness['peak_mem_gb']:.2f}); isend_irecv notes a rank {hops} "
+        f"({_cp_hops(L, CP_RANKS) * n} expected), iallreduce {ars} "
+        f"({(res[0]['n_leaves'] + 1) * n} expected), others {others}")
+    assert all(r["losses"] == losses for r in res), [r["losses"] for r in res]
+    assert all(map(math.isfinite, losses)), losses
+    assert diffs[0] < RANKS_LOSS0_TOL, (losses, witness["losses"])
+    assert max(diffs) < TRAIN_LOSS_TOL, (losses, witness["losses"])
+    assert [r["ring"] for r in res] == list(range(CP_RANKS))
+    assert all(r["ring_equal"] for r in res)
+    for r in res:
+        assert r["launches"] == wl, (r["launches"], wl)
+    assert launches == {k: CP_RANKS * v for k, v in wl.items()}
+    assert hops == [_cp_hops(L, CP_RANKS) * n] * CP_RANKS, hops
+    assert ars == [(r["n_leaves"] + 1) * n for r in res], ars
+    assert not others, others
+    summary = {
+        "route": "cp_ranks", "plan": plan.describe(), "chunks": chunks,
+        "transport": "cpu", "ranks": CP_RANKS, "layers": L,
+        "losses": losses, "witness_losses": witness["losses"],
+        "loss_diffs": diffs, "step_s": step_s, "tok_s_steady": tok_s,
+        "witness_step_s": witness["step_s"],
+        "witness_tok_s_steady": witness["tok_s_steady"],
+        "witness_peak_gb": witness["peak_mem_gb"],
+        "rank_step_s": [r["step_s"] for r in res],
+        "rank_peak_gb": [r["peak_gb"] for r in res],
+        "rank_state_gb": [r["state_gb"] for r in res],
+        "rank_launches": [r["launches"] for r in res],
+        "witness_launches": wl, "isend_irecv_notes_a_step": hops[0] // n,
+        "run_ranks_wall_s": wall,
+    }
+    log(f"[train] cp_ranks report {json.dumps(summary)}")
+    return summary, {k: launches[k] + wl[k] for k in wl}
 
 
 def phase_train_dp_ranks(torch, dev, smi: str, ref: dict):
@@ -3072,6 +3194,9 @@ def main(argv=None) -> int:
     from repro_torch.core.segmentation import cp_split
     CP_CHUNKS = tuple(cp_split(TRAIN_SEQ, TRAIN_CP, **CP_SPLIT))
     assert sum(CP_CHUNKS) == TRAIN_SEQ, CP_CHUNKS
+    global CP_RANKS_CHUNKS
+    CP_RANKS_CHUNKS = tuple(cp_split(TRAIN_SEQ, CP_RANKS, **CP_SPLIT))
+    assert sum(CP_RANKS_CHUNKS) == TRAIN_SEQ, CP_RANKS_CHUNKS
     # fp32 references in full fp32 (no TF32) on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3164,6 +3289,9 @@ def main(argv=None) -> int:
         shutil.rmtree(d, ignore_errors=True)
     train["tp_ranks"], counts = phase_train_tp_ranks(torch, dev, smi,
                                                      train["reference"])
+    for kname, n in counts.items():
+        launches[kname] += n
+    train["cp_ranks"], counts = phase_train_cp_ranks(torch, dev, smi)
     for kname, n in counts.items():
         launches[kname] += n
     train["pp vpp"], counts = phase_train_pp(torch, dev, smi, vpp=2)

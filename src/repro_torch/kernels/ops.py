@@ -19,7 +19,7 @@ there has a backward.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -152,6 +152,22 @@ def _hop_backward(q, k, v, o, lse, dout, hop_tables, causal, window=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _fresh_carry(q):
+    """The online softmax's empty carry (m, l, acc) for q (R,B,C,H,hd)."""
+    R, B, C, H, hd = q.shape
+    acc_t = ref.acc_dtype(q)
+    return (torch.full((R, B, C, H, 1), ref.NEG_INF, dtype=acc_t,
+                       device=q.device),
+            torch.zeros((R, B, C, H, 1), dtype=acc_t, device=q.device),
+            torch.zeros((R, B, C, H, hd), dtype=acc_t, device=q.device))
+
+
+def _out_lse(q, m, l, acc):
+    """(o in q's dtype, the rows' logsumexp) of a final carry."""
+    o = (acc / l.clamp_min(1e-30)).to(q.dtype)
+    return o, torch.where(l > 0, m + torch.log(l), torch.inf)[..., 0]
+
+
 class RingAttentionFn(torch.autograd.Function):
     """The whole ring of one attention block: cp ``ring_step`` launches
     forward, cp ``ring_step_bwd`` launches backward.  JAX differentiates
@@ -160,17 +176,11 @@ class RingAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, cp_chunks, causal):
-        R, B, C, H, hd = q.shape
-        acc_t = ref.acc_dtype(q)
-        m = torch.full((R, B, C, H, 1), ref.NEG_INF, dtype=acc_t,
-                       device=q.device)
-        l = torch.zeros((R, B, C, H, 1), dtype=acc_t, device=q.device)
-        acc = torch.zeros((R, B, C, H, hd), dtype=acc_t, device=q.device)
-        for s in range(R):
+        m, l, acc = _fresh_carry(q)
+        for s in range(q.shape[0]):
             m, l, acc = ring_step(q, k, v, m, l, acc,
                                   _ra.ring_hops(cp_chunks, s), causal=causal)
-        o = (acc / l.clamp_min(1e-30)).to(q.dtype)
-        lse = torch.where(l > 0, m + torch.log(l), torch.inf)[..., 0]
+        o, lse = _out_lse(q, m, l, acc)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.cp_chunks, ctx.causal = tuple(cp_chunks), causal
         return o
@@ -194,6 +204,89 @@ def ring_attention(q, k, v, cp_chunks: Sequence[int], *,
                          f"chunks {tuple(cp_chunks)}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return RingAttentionFn.apply(q, k, v, tuple(cp_chunks), causal)
+
+
+class RingRanksFn(torch.autograd.Function):
+    """The ring of one attention block on one cp ring rank, its KV blocks
+    passed between the ranks by ``hop`` (the ``pod`` Communicator's
+    ``shift(x, 1, wrap=True)``: rank r sends to r + 1 and receives from
+    r - 1, so after s hops rank r holds rank (r - s) % cp's block).
+
+    Forward: cp ``ring_step`` launches of one rank against one visiting
+    block, the hop table ``(starts[r], 0, starts[src], chunks[src],
+    chunks[r])`` with ``src = (r - s) % cp``; K and V, stacked into one
+    message, hop after every step but the last.  Backward: cp
+    ``ring_step_bwd`` launches, K and V circulating again with fp32 dK,
+    dV accumulators (one message each a hop), each step adding into this
+    rank's dq and the visiting block's dK/dV; after the last step one more
+    hop of dK/dV alone brings each block's gradient home.  Every ring rank
+    makes the same hops in the same order, so the messages match in
+    posting order."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cp_chunks, ring, hop, causal):
+        cp = len(cp_chunks)
+        m, l, acc = _fresh_carry(q)
+        kv = torch.stack([k, v])
+        for s in range(cp):
+            m, l, acc = ring_step(q, kv[0], kv[1], m, l, acc,
+                                  _rank_hop(cp_chunks, ring, s),
+                                  causal=causal)
+            if s < cp - 1:
+                kv = hop(kv)
+        o, lse = _out_lse(q, m, l, acc)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cp_chunks, ctx.ring, ctx.hop = tuple(cp_chunks), ring, hop
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        cp, r, hop = len(ctx.cp_chunks), ctx.ring, ctx.hop
+        acc_t = ref.acc_dtype(q)
+        dout = dout.contiguous()
+        delta = (dout.to(acc_t) * o.to(acc_t)).sum(dim=-1)
+        dq = torch.zeros(q.shape, dtype=acc_t, device=q.device)
+        kv = torch.stack([k, v])
+        dkv = torch.zeros(kv.shape, dtype=acc_t, device=q.device)
+        for s in range(cp):
+            ring_step_bwd(q, kv[0], kv[1], dout, lse, delta, dq, dkv[0],
+                          dkv[1], _rank_hop(ctx.cp_chunks, r, s),
+                          causal=ctx.causal)
+            if s < cp - 1:
+                kv = hop(kv)
+            dkv = hop(dkv)      # after the last step: home
+        return (dq.to(q.dtype), dkv[0].to(k.dtype), dkv[1].to(v.dtype),
+                None, None, None, None)
+
+
+def _rank_hop(cp_chunks: Sequence[int], ring: int, step: int) -> List[_ra.Hop]:
+    """Ring rank ``ring``'s one-row hop table at ring step ``step``: its
+    own q chunk against rank ``(ring - step) % cp``'s KV block, held as
+    source 0."""
+    starts, cp = _ra.chunk_starts(cp_chunks), len(cp_chunks)
+    src = (ring - step) % cp
+    return [(starts[ring], 0, starts[src], cp_chunks[src], cp_chunks[ring])]
+
+
+def ring_attention_ranks(q, k, v, cp_chunks: Sequence[int], ring: int,
+                         hop: Callable[[torch.Tensor], torch.Tensor], *,
+                         causal: bool = True) -> torch.Tensor:
+    """Ring attention of ring rank ``ring`` of a ring across processes: q
+    (1,B,Cmax,H,hd) and k/v (1,B,Cmax,Hk,hd), this rank's chunk of
+    ``cp_chunks[ring]`` real rows padded to the largest chunk, so every
+    hop has one shape; ``hop(x)`` returns the ring's neighbour's ``x``
+    (the rank before on the ring).  Returns (1,B,Cmax,H,hd) in q's dtype;
+    the pad rows are 0."""
+    cmax = max(cp_chunks)
+    if q.shape[0] != 1 or q.shape[2] != cmax or k.shape[2] != cmax:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}: want one "
+                         f"rank's chunk padded to {cmax} rows")
+    if not 0 <= ring < len(cp_chunks):
+        raise ValueError(f"ring rank {ring} of {len(cp_chunks)}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return RingRanksFn.apply(q, k, v, tuple(cp_chunks), ring, hop, causal)
 
 
 # ------------------------------------------------------------ flash ----

@@ -20,8 +20,21 @@ a ``lax.scan`` body, is traced once.  With ``cfg.remat`` (and a gradient
 to take) each block runs under ``torch.utils.checkpoint``, as JAX's cp loss
 wraps its block in ``jax.checkpoint``: the backward runs the block's
 forward again, ring included, and the notes stay one forward's (they are
-made outside the checkpointed block).  A ring across cards is not ported
-(ROADMAP.md queue A, item A8).
+made outside the checkpointed block).
+
+``make_cp_rank_loss_fn`` is the same ring across processes, one ring rank
+each (the rank route of a pp 1, cp > 1 plan, ``pipeline.PPRankStep``):
+the rank embeds only its chunk of the sequence, runs each block on it
+(its RoPE positions the chunk's global ones) with
+``ops.ring_attention_ranks`` in place of the stacked ring, its K and V
+padded to the largest chunk and passed one hop a ring step over the
+``pod`` axis's ``Communicator``, forward and backward, and adds up its
+chunk's cross-entropy sums (``steps._ce_sums``) over the data group's
+whole token count: summed over the ring, the rank losses are the
+sequence mean and JAX's z-loss.  At tp > 1 each block is the Megatron
+split of the pp 1 rank route (``parallel/tensor.py``) and the ring moves
+only this model rank's KV heads.  Under ``cfg.remat`` the recompute runs
+the ring's forward hops again, on every ring rank in the same order.
 
 Numerics: the loss is ``steps.make_loss_fn``'s (CE with z-loss plus
 ``AUX_COEF`` times aux) and matches it within float tolerance (2e-5 fp32;
@@ -29,20 +42,24 @@ the online-softmax regrouping is not bit-associative).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.iccl.communicator import _note
+from repro_torch.iccl.communicator import Communicator, _note
 from repro_torch.kernels import ops
 from repro_torch.kernels.ring_attention import (chunk_starts, pad_chunks,
                                                 unpad_chunks)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _qkv, mlp, rmsnorm
-from repro_torch.models.transformer import (_embed, _unembed, layer,
-                                            remat_blocks)
-from repro_torch.train.steps import LossFn, cross_entropy, with_aux
+from repro_torch.models.layers import _local_kv, _qkv, mlp, rmsnorm
+from repro_torch.models.transformer import (_embed, _unembed,
+                                            _unembed_weight, layer,
+                                            remat_blocks, vocab_model)
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
+from repro_torch.train.steps import (Z_COEF, LossFn, _ce_sums,
+                                     cross_entropy, with_aux)
 
 
 def check_cp_supported(cfg: ModelConfig) -> None:
@@ -109,5 +126,70 @@ def make_cp_loss_fn(cfg: ModelConfig, cp_chunks: Sequence[int]) -> LossFn:
         ce = cross_entropy(_unembed(params, x, cfg), batch["labels"])
         return with_aux(ce, torch.zeros((), dtype=torch.float32,
                                         device=x.device))
+
+    return loss_fn
+
+
+def make_cp_rank_loss_fn(cfg: ModelConfig, cp_chunks: Sequence[int],
+                         ring: int, pod: Communicator,
+                         model: Optional[Communicator] = None) -> LossFn:
+    """loss_fn(params, batch) of ring rank ``ring`` of a cp ring across
+    processes (``pod``: the ring's communicator; ``model``: this rank's
+    tensor-parallel one, its params the rank's shard).  ``batch`` holds
+    the data group's rows whole, ``(B, S)``; the rank reads its chunk.
+    Its loss is its part: the ranks' losses sum to ``make_cp_loss_fn``'s,
+    and its gradients are partial sums of the replicated parameters' (the
+    caller sums them over ``pod``)."""
+    check_cp_supported(cfg)
+    chunks = tuple(int(c) for c in cp_chunks)
+    cp = len(chunks)
+    if cp < 2:
+        raise ValueError("cp = 1 plans keep the reference loss")
+    lo, n, cmax = chunk_starts(chunks)[ring], chunks[ring], max(chunks)
+    hd = cfg.hd
+
+    def hop(x):
+        return pod.shift(x, 1, wrap=True)
+
+    def pad(t):         # (B, n, h, hd) -> (1, B, Cmax, h, hd)
+        return F.pad(t, (0, 0, 0, 0, 0, cmax - n))[None]
+
+    def block_fwd(p, x, pos):
+        """One attention block on this rank's chunk (B, n, D): the pp 1
+        rank route's block with the ring in place of flash."""
+        a = p["attn"]
+        n_q = a["wq"].shape[-1] // hd
+        split = model if n_q != cfg.n_heads else None
+        h = copy_to_model(rmsnorm(p["ln1"], x, cfg.norm_eps), split)
+        q, k, v = _qkv(a, h, cfg, pos)
+        if split is not None and k.shape[-2] == cfg.n_kv_heads:
+            k, v = _local_kv(k, v, cfg, n_q, split.index())
+        o = ops.ring_attention_ranks(pad(q), pad(k), pad(v), chunks, ring,
+                                     hop, causal=True)[0, :, :n]
+        x = x + reduce_from_model(o.reshape(*x.shape[:-1], n_q * hd)
+                                  @ a["wo"], split)
+        h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return x + mlp(p["mlp"], h2, cfg, model)
+
+    def loss_fn(params, batch):
+        tokens, labels = batch["tokens"], batch["labels"]
+        if tokens.shape[1] != sum(chunks):
+            raise ValueError(f"sequence {tokens.shape[1]} != sum of the cp "
+                             f"chunks {chunks}")
+        x = _embed(params, tokens[:, lo:lo + n], cfg, model)    # (B, n, D)
+        pos = torch.arange(lo, lo + n, device=x.device)
+        remat = remat_blocks(cfg, params["blocks"], x)
+        for i in range(cfg.num_layers):
+            p = layer(params["blocks"], i)
+            x = (checkpoint(block_fwd, p, x, pos, use_reentrant=False)
+                 if remat else block_fwd(p, x, pos))
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        vocab = vocab_model(_unembed_weight(params, cfg), cfg, model)
+        s_ce, s_z, _ = _ce_sums(_unembed(params, x, cfg, model),
+                                labels[:, lo:lo + n], vocab)
+        count = tokens.numel()      # the group's tokens, every chunk's
+        return with_aux(s_ce / count + Z_COEF * (s_z / count),
+                        torch.zeros((), dtype=torch.float32,
+                                    device=x.device))
 
     return loss_fn

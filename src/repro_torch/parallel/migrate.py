@@ -14,7 +14,10 @@ it: a rank sends the boxes it writes to each peer as one message, receives
 the boxes it needs from each peer as one message, and copies those it
 keeps.  The two plans may run on different ranks of the process group
 (elastic membership): a rank that leaves sends what it writes and ends
-with nothing, a rank that comes back starts from nothing.  The stage chunks under vpp, the tp slice and the ZeRO-1 slices of
+with nothing, a rank that comes back starts from nothing.  The ring ranks
+of a cp plan's data group hold one state, which ring rank 0 writes: a move
+from a cp plan sends from there, one to a cp plan copies to every ring
+rank.  The stage chunks under vpp, the tp slice and the ZeRO-1 slices of
 ``m``, ``v`` and the master come out of the slices; ``step`` and the
 AdamW count go from rank 0 to every rank.  Nothing is gathered: a rank
 holds, beside its new leaf, only the leaf it still has to send from.
@@ -47,17 +50,27 @@ Path = Tuple[str, ...]
 
 def rank_coords(plan: ParallelPlan, rank: int) -> Tuple[int, int, int]:
     """(stage, replica, model rank) of ``rank`` in the rank order of
-    ``groups.RankGrid``: ``(stage * dp + replica) * tp + model_rank``."""
-    dp, tp = plan.dps[0], plan.tps[0]
-    return rank // (dp * tp), rank // tp % dp, rank % tp
+    ``groups.RankGrid``: ``(stage * dp + replica) * tp + model_rank``; at
+    cp > 1 ``(ring * dp / cp + group) * tp + model_rank``, whose replica
+    is the data group (``ring_of`` gives the ring rank)."""
+    groups_, tp = plan.dps[0] // plan.cp, plan.tps[0]
+    return rank // (plan.dps[0] * tp), rank // tp % groups_, rank % tp
+
+
+def ring_of(plan: ParallelPlan, rank: int) -> int:
+    """The cp ring rank of ``rank`` (0 at cp 1)."""
+    return rank // (plan.dps[0] // plan.cp * plan.tps[0]) % plan.cp
 
 
 def plan_slices(whole: Dict[str, Any], plan: ParallelPlan, rules,
                 rank: int) -> Dict[str, Any]:
-    """``rank_leaf_slices`` of ``rank`` under ``plan``."""
+    """``rank_leaf_slices`` of ``rank`` under ``plan``: at cp > 1 the ring
+    ranks of a group hold the same elements, which ring rank 0 writes, so
+    a move from a cp plan sends them from there and one to a cp plan
+    gives every ring rank a copy."""
     stage, replica, model_rank = rank_coords(plan, rank)
     return rank_leaf_slices(whole, plan, stage, rules, model_rank,
-                            replica=replica)
+                            replica=replica, ring=ring_of(plan, rank))
 
 
 def _flat(tree: Any) -> Dict[Path, Any]:

@@ -50,14 +50,20 @@ too.  Each replica takes its rows of every microbatch, and gradients are
 averaged over ``data``.  Within a stage the tp ranks split every dense
 block Megatron-style over the ``model`` axis (``parallel/tensor.py``).  A
 pp = 1 plan runs the same way with one stage and no hops: the reference
-loss, data- and tensor-parallel.
+loss, data- and tensor-parallel.  A pp = 1, cp > 1 plan runs the cp ring
+across ranks (``context.make_cp_rank_loss_fn``): the ``pod`` axis holds
+the ring, each ring rank takes its chunk of its data group's rows, and
+the ring ranks of a group are replicas of one state, whose partial
+gradients are summed over ``pod``; ZeRO-1 slices over ``data``, the
+groups, never over the ring (JAX's ``opt_state_spec``).
 
 Scope: the uniform dense (attention) stack.  Mamba training waits for the
 scan's backward kernel (ROADMAP.md queue A, item 9).  On one card, stage
 tp and activation sharding are bookkeeping; on ranks, stages of mixed tp
 widths (the ``pp_reshard`` boundary) and tied embeddings wait for
 ROADMAP.md queue A, item A5c, which also records why interleaved plans
-with m > pp and m % pp != 0 stay refused there.
+with m > pp and m % pp != 0 stay refused there.  The cp ring at pp > 1
+on ranks waits for ROADMAP.md queue A, item A8b.
 """
 from __future__ import annotations
 
@@ -79,6 +85,7 @@ from repro_torch.models.transformer import (_block, _embed, _unembed,
                                             _unembed_weight, vocab_model)
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.parallel import context
 from repro_torch.parallel.groups import RankGrid
 from repro_torch.parallel.sharding import (ShardingRules, gather_trees,
                                            map_with_path, shard_tree,
@@ -272,13 +279,15 @@ def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
 
 # ---------------------------------------------------------- the ranks ----
 A5C = "ROADMAP.md queue A, item A5c"
+A8B = "ROADMAP.md queue A, item A8b"
 
 
 def check_rank_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
     """Raise ValueError when ``plan`` falls outside the rank route's scope:
-    a plan of the dense stack, one tp width and one dp width, and under
+    a plan of the dense stack, one tp width and one dp width, under
     ``interleaved-1f1b`` with vpp > 1 a microbatch count that Megatron's
-    order matches every message of (m <= pp, or m a multiple of pp)."""
+    order matches every message of (m <= pp, or m a multiple of pp), and
+    cp > 1 only at pp 1 on a model in the cp loss's scope."""
     check_pp_supported(cfg)
     m, pp = plan.micro_batches, plan.pp
     if plan.vpp > 1 and m > pp and m % pp:
@@ -296,8 +305,11 @@ def check_rank_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
                          f"on stage 0 and the last stage; on ranks they "
                          f"wait for {A5C}")
     if plan.cp > 1:
-        raise ValueError(f"cp={plan.cp} across ranks waits for ROADMAP.md "
-                         "queue A, item A8")
+        if plan.pp > 1:
+            raise ValueError(f"cp={plan.cp} at pp={plan.pp} on ranks: the "
+                             f"ring and the stages would share the pod "
+                             f"axis; this waits for {A8B}")
+        context.check_cp_supported(cfg)
     if len(set(plan.dps)) > 1:
         raise ValueError(f"stage dp widths {plan.dps} differ; the rank grid "
                          "has one dp")
@@ -307,11 +319,13 @@ LayersLike = Union[ParallelPlan, Sequence[int]]
 
 
 def _layout(plan_or_layers: LayersLike) -> Tuple[List[int], int, int]:
-    """(virtual layers, vpp, dp): a plan's own; a list of stage layer
-    counts is vpp 1 and dp 1."""
+    """(virtual layers, vpp, dp): a plan's own, dp the width of its
+    ``data`` axis (at cp > 1 its data groups, ``dp / cp``: the ring ranks
+    of a group hold one state); a list of stage layer counts is vpp 1 and
+    dp 1."""
     if isinstance(plan_or_layers, ParallelPlan):
         p = plan_or_layers
-        return list(p.virtual_layers), p.vpp, p.dps[0]
+        return list(p.virtual_layers), p.vpp, p.dps[0] // p.cp
     return [int(n) for n in plan_or_layers], 1, 1
 
 
@@ -398,7 +412,9 @@ def split_state_for_rank(state: Dict[str, Any], plan_or_layers: LayersLike,
     parameters (its chunks' layers under vpp > 1); of their fp32 master,
     m and v the same share, and of that at dp > 1 its replica's ZeRO-1
     slice; the step and the AdamW count.  A plan gives the virtual
-    layers, vpp and dp; a list of stage layer counts means vpp 1, dp 1."""
+    layers, vpp and dp; a list of stage layer counts means vpp 1, dp 1.
+    At cp > 1 ``replica`` is the data group: every ring rank of a group
+    holds the same state."""
     layers, vpp, dp = _layout(plan_or_layers)
 
     def part(tree):
@@ -436,12 +452,15 @@ def gather_rank_states(states: Sequence[Dict[str, Any]],
                        ) -> Dict[str, Any]:
     """The inverse of ``split_state_for_rank``: the whole state from every
     rank's state, in rank order (``(stage * dp + replica) * tp +
-    model_rank``; ``rules`` None: one rank a stage and replica).  The
-    plan gives the virtual layers, needed to put interleaved chunks back
-    in order, and dp; None or a list of layer counts means dp 1."""
+    model_rank``; ``rules`` None: one rank a stage and replica; at cp > 1
+    ``groups.RankGrid``'s, whose ring ranks 0 come first and are read).
+    The plan gives the virtual layers, needed to put interleaved chunks
+    back in order, and dp; None or a list of layer counts means dp 1."""
     layers, dp = None, 1
     if plan_or_layers is not None:
         layers, _, dp = _layout(plan_or_layers)
+        cp = getattr(plan_or_layers, "cp", 1)
+        states = states[:len(states) // cp]
     tp = 1 if rules is None else rules.tp
 
     def join_replicas(parts):
@@ -498,8 +517,8 @@ def _cut(pieces: List[_Piece], shape: Tuple[int, ...], d: int, n: int,
 
 def rank_leaf_slices(whole: Dict[str, Any], plan_or_layers: LayersLike,
                      stage: int, rules: Optional[ShardingRules] = None,
-                     model_rank: int = 0, *,
-                     replica: int = 0) -> Dict[str, Any]:
+                     model_rank: int = 0, *, replica: int = 0,
+                     ring: int = 0) -> Dict[str, Any]:
     """``split_state_for_rank``'s tree for rank (``stage``, ``replica``,
     ``model_rank``) with a ``LeafSlices`` at each leaf: where the leaf's
     elements sit in the whole state ``whole`` (only its shapes are read; a
@@ -513,7 +532,9 @@ def rank_leaf_slices(whole: Dict[str, Any], plan_or_layers: LayersLike,
     optimizer leaves ZeRO-1 keeps whole, every replica its ZeRO-1 slice;
     of a leaf the ``model`` axis replicates (norms, kv heads that
     ``_local_kv`` replicates at tp > Hk), model rank 0; ``step`` and
-    ``opt/count`` rank 0."""
+    ``opt/count`` rank 0.  At cp > 1 ``replica`` is the data group and
+    the ring ranks of a group hold the same elements: ring rank 0 writes
+    them (``ring``: this rank's place on the ring)."""
     layers, vpp, dp = _layout(plan_or_layers)
     chunks = _chunks(layers, stage, vpp)
     first, last = stage == 0, stage == len(layers) // vpp - 1
@@ -554,7 +575,7 @@ def rank_leaf_slices(whole: Dict[str, Any], plan_or_layers: LayersLike,
     def params_tree(tree):
         def one(path, a):
             pieces, shape, d = part(path, a)
-            return leaf(a, pieces, shape, replica == 0 and
+            return leaf(a, pieces, shape, replica == 0 and ring == 0 and
                         (d is not None or model_rank == 0))
         return map_with_path(one, own(tree))
 
@@ -566,10 +587,10 @@ def rank_leaf_slices(whole: Dict[str, Any], plan_or_layers: LayersLike,
             if z is not None:
                 pieces, shape = _cut(pieces, shape, z, dp, replica)
             return leaf(a, pieces, shape, (z is not None or replica == 0)
-                        and (d is not None or model_rank == 0))
+                        and ring == 0 and (d is not None or model_rank == 0))
         return map_with_path(one, own(tree))
 
-    head = stage == 0 and replica == 0 and model_rank == 0
+    head = stage == 0 and replica == 0 and model_rank == 0 and ring == 0
 
     def scalar(a):
         return LeafSlices((), (), (((), ()),), head)
@@ -733,7 +754,11 @@ class PPRankStep:
     this replica's rows ``(B / dp, S)``, each block under ``torch.utils.
     checkpoint`` when ``cfg.remat``, as on the reference route (a
     recomputed tp block all-reduces again); a plan of m > 1 microbatches
-    of those rows takes them one at a time, adding up the gradients.
+    of those rows takes them one at a time, adding up the gradients.  A
+    pp = 1, cp > 1 plan's replica is a data group, whose rows ``(B / dp,
+    S)`` every ring rank of the group takes whole: its loss is the cp
+    ring across ranks (``context.make_cp_rank_loss_fn``) on its chunk,
+    its K and V hopping over ``pod``.
 
     At tp > 1 every layer, the embedding and the loss run on this model
     rank's shard over the ``model`` axis's communicator, which takes the
@@ -741,27 +766,31 @@ class PPRankStep:
     leaves that each rank holds only in part (k/v replicated under split q
     heads) are summed over ``model``.
 
-    ``__call__(state, batch)`` then averages the gradients over ``data``,
-    takes the squared global norm (split leaves summed over ``model``,
-    replicated ones once, then summed over ``pod``), applies AdamW with
-    that norm, at dp > 1 to this replica's ZeRO-1 slice of the state, the
-    parameters all-gathered over ``data`` after, and reports the last
-    stage's loss on every rank (summed over ``pod``, where only the last
-    stage holds it, then averaged over ``data``; every model rank holds
-    the same loss).  ``peak_inflight`` is the most microbatches (chunk
-    microbatches under interleaving) whose activations this rank held at
-    once.  With ``clock`` set (``telemetry.OpClock``, at pp > 1) each F
-    and B op is bracketed by its marks, and the step's span runs from
-    before the first boundary to the end of the last op's sends."""
+    ``__call__(state, batch)`` then, at cp > 1, sums the gradients over
+    ``pod`` (each ring rank's are partial sums of the same replicated
+    parameters), averages them over ``data``, takes the squared global
+    norm (split leaves summed over ``model``, replicated ones once, then
+    at pp > 1 summed over ``pod``, whose stages hold different leaves;
+    at cp > 1 taken once, every ring rank holding the whole gradient),
+    applies AdamW with that norm, at dp > 1 to this replica's ZeRO-1
+    slice of the state, the parameters all-gathered over ``data`` after,
+    and reports the loss on every rank (summed over ``pod``, where only
+    the last stage holds it or each ring rank its part, then averaged
+    over ``data``; every model rank holds the same loss).
+    ``peak_inflight`` is the most microbatches (chunk microbatches under
+    interleaving) whose activations this rank held at once.  With
+    ``clock`` set (``telemetry.OpClock``, at pp > 1) each F and B op is
+    bracketed by its marks, and the step's span runs from before the
+    first boundary to the end of the last op's sends."""
 
     def __init__(self, cfg: ModelConfig, plan: ParallelPlan, grid: RankGrid,
                  opt_cfg: Optional[adamw.AdamWConfig] = None):
         check_rank_plan(cfg, plan)
-        if (grid.pp, grid.dp, grid.tp) != (plan.pp, plan.dps[0],
-                                           plan.tps[0]):
-            raise ValueError(f"the rank grid (pp {grid.pp}, dp {grid.dp}, "
-                             f"tp {grid.tp}) does not hold plan "
-                             f"{plan.describe()}")
+        if (grid.pp, grid.cp, grid.cp * grid.dp, grid.tp) != (
+                plan.pp, plan.cp, plan.dps[0], plan.tps[0]):
+            raise ValueError(f"the rank grid (pp {grid.pp}, cp {grid.cp}, "
+                             f"dp {grid.dp}, tp {grid.tp}) does not hold "
+                             f"plan {plan.describe()}")
         self.cfg, self.plan, self.grid = cfg, plan, grid
         self.opt_cfg = opt_cfg or adamw.AdamWConfig()
         self.m = plan.micro_batches
@@ -783,7 +812,9 @@ class PPRankStep:
         self.order: Optional[List[Op]] = None
         self.boundaries = None
         if plan.pp == 1:
-            self._loss = make_loss_fn(bundle_for(cfg), self.model)
+            self._loss = (context.make_cp_rank_loss_fn(
+                cfg, plan.cp_chunk_sizes, grid.ring, self.pod, self.model)
+                if plan.cp > 1 else make_loss_fn(bundle_for(cfg), self.model))
             return
         self.order = rank_schedule(grid.stage, plan.pp, self.m,
                                    plan.schedule, plan.eager_slack, plan.vpp)
@@ -934,10 +965,14 @@ class PPRankStep:
 
     def __call__(self, state: Dict[str, Any],
                  batch: Dict[str, torch.Tensor]):
-        dp, pp = self.grid.dp, self.plan.pp
+        dp, pp, cp = self.grid.dp, self.plan.pp, self.plan.cp
         params = state["params"]
         loss, grads = self.loss_and_grads(params, batch)
-        if dp > 1:      # in place, so one leaf at a time is doubled
+        # in place, so one leaf at a time is doubled
+        if cp > 1:
+            grads = tree_map(lambda g: g.copy_(self.pod.iallreduce(g)),
+                             grads)
+        if dp > 1:
             grads = tree_map(
                 lambda g: g.copy_(self.data.iallreduce(g)).div_(dp), grads)
         split = map_with_path(
@@ -949,7 +984,7 @@ class PPRankStep:
             params, grads, state["opt"], self.opt_cfg, grad_norm=gnorm,
             data=self.data if dp > 1 else None,
             zero=_zero(params, self.rules, dp))
-        if pp > 1:
+        if pp > 1 or cp > 1:
             loss = self.pod.iallreduce(loss)
         if dp > 1:
             loss = self.data.iallreduce(loss) / dp

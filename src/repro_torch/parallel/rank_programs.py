@@ -166,6 +166,105 @@ def tp_loss_and_grads(rank: int, world: int,
     return [_loss_and_grads(world, **case) for case in cases]
 
 
+def cp_loss_and_grads(rank: int, world: int,
+                      cases: Sequence[Dict[str, Any]]
+                      ) -> List[Dict[str, Any]]:
+    """``PPRankStep.loss_and_grads`` of pp 1 cp plans on ``world`` ranks
+    of ``cp`` ring ranks and ``tp`` model ranks each (one data group),
+    for each case, a dict of ``bundle_kw``, ``params`` (the whole
+    canonical tree, numpy), ``batch`` ``(B, S)``, ``chunks`` (the ring's),
+    ``tp`` and optionally ``transport`` (default "gpu"; two ranks on one
+    card take "cpu"): this rank's part of the loss and the sum over
+    ``pod`` (the whole loss), its gradients summed over ``pod`` (its
+    model rank's share of the whole gradient), its place and the ICCL
+    notes it made."""
+    out = []
+    dev = _device()
+    for case in cases:
+        bundle = registry.get_bundle(**case["bundle_kw"])
+        chunks, tp = tuple(case["chunks"]), case["tp"]
+        cp = len(chunks)
+        batch = case["batch"]
+        rows, seq = batch["tokens"].shape
+        plan = ParallelPlan(
+            stages=(StagePlacement(0, bundle.cfg.num_layers, cp, tp, True),),
+            micro_bs=rows, global_batch=rows, seq_len=seq, cp=cp,
+            cp_chunks=chunks, transport=case.get("transport", "gpu"))
+        grid = groups.make_rank_grid(1, 1, dev, tp=tp, cp=cp)
+        step = pipeline.PPRankStep(bundle.cfg, plan, grid)
+        own = shard_tree(_torch_tree(case["params"], dev), step.rules,
+                         grid.model_rank)
+        with _Notes() as notes:
+            part, grads = step.loss_and_grads(own, _torch_tree(batch, dev))
+        grads = tree_map(step.pod.iallreduce, grads)
+        out.append({"part": float(part),
+                    "loss": float(step.pod.iallreduce(part)),
+                    "grads": _numpy_tree(grads), "ring": grid.ring,
+                    "model_rank": grid.model_rank, "notes": list(notes)})
+        groups.destroy_rank_grid(grid)
+    return out
+
+
+def ring_ranks_attention(rank: int, world: int, q: np.ndarray,
+                         k: np.ndarray, v: np.ndarray, dout: np.ndarray,
+                         chunks: Sequence[int]) -> Dict[str, np.ndarray]:
+    """``ops.ring_attention_ranks`` of ring rank ``rank`` over a ``pod``
+    axis of every rank: this rank's chunk of the whole ``(B, S, h, hd)``
+    q, k, v, padded to the largest chunk, its output and the gradients of
+    ``sum(o * dout)`` for its chunk of q, k and v (pad rows dropped)."""
+    groups.make_rank_grid(1, 1, _device(), cp=world)
+    pod = Communicator("pod")
+    lo = sum(chunks[:rank])
+    n, cmax = chunks[rank], max(chunks)
+
+    def mine(a):
+        t = torch.as_tensor(a[:, lo:lo + n]).to(_device())
+        return torch.nn.functional.pad(
+            t, (0, 0, 0, 0, 0, cmax - n))[None].requires_grad_()
+
+    qc, kc, vc = mine(q), mine(k), mine(v)
+    with _Notes() as notes:
+        o = ops.ring_attention_ranks(
+            qc, kc, vc, chunks, rank,
+            lambda x: pod.shift(x, 1, wrap=True))
+        dq, dk, dv = torch.autograd.grad(
+            o, (qc, kc, vc), grad_outputs=mine(dout).detach())
+    return {"o": o.detach()[0, :, :n].cpu().numpy(),
+            **{name: g[0, :, :n].cpu().numpy()
+               for name, g in (("dq", dq), ("dk", dk), ("dv", dv))},
+            "notes": list(notes)}
+
+
+def _opt_stats(params: Dict[str, Any], opt: Dict[str, Any],
+               dims: Any) -> Dict[str, Any]:
+    """A rank's state sizes: its parameters, its optimizer trees and
+    their bytes, and of those the leaves that ZeRO-1 keeps whole."""
+    opt_state = {k: v for k, v in opt.items() if k != "count"}
+    whole = tree_map(lambda _, d: d is None, params, dims)
+    return {"n_params": sum(x.numel() for x in tree_leaves(params)),
+            "n_leaves": len(tree_leaves(params)),
+            "n_zero_split": tree_leaves(whole).count(False),
+            "param_bytes": _nbytes(params), "opt_trees": sorted(opt_state),
+            "opt_bytes": _nbytes(opt_state),
+            "opt_whole_bytes": sum(
+                a.numel() * a.element_size() for o in opt_state.values()
+                for a, w in zip(tree_leaves(o), tree_leaves(whole)) if w)}
+
+
+def _zero_dims_of(t: Trainer) -> Any:
+    params, dp = t.state["params"], t.grid.dp
+    return (zero_dims(params, t.train_step.rules, dp) if dp > 1
+            else tree_map(lambda _: None, params))
+
+
+def _equal_over(comm: Communicator, params: Dict[str, Any]) -> bool:
+    """Whether every rank of ``comm``'s axis holds ``params`` bit for
+    bit."""
+    return all(all(torch.equal(x, part) for part in
+                   comm.iallgather(x, tiled=False).unbind(0))
+               for x in tree_leaves(params))
+
+
 def trainer_steps(rank: int, world: int, bundle_kw: Dict[str, Any],
                   plan: Dict[str, Any], state: Dict[str, Any], steps: int,
                   opt: Dict[str, Any], tp: int = 0) -> Dict[str, Any]:
@@ -185,8 +284,10 @@ def trainer_steps(rank: int, world: int, bundle_kw: Dict[str, Any],
     return {"losses": out["losses"], "grad_norms": out["grad_norms"],
             "step": out["step"], "stage": t.grid.stage,
             "replica": t.grid.replica, "model_rank": t.grid.model_rank,
-            "params": _numpy_tree(t.state["params"]),
-            "v": _numpy_tree(t.state["opt"]["v"])}
+            "ring": t.grid.ring, "params": _numpy_tree(t.state["params"]),
+            "v": _numpy_tree(t.state["opt"]["v"]),
+            **_opt_stats(t.state["params"], t.state["opt"],
+                         _zero_dims_of(t))}
 
 
 def collectives(rank: int, world: int, payloads: Sequence[int]
@@ -251,7 +352,8 @@ def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
     splits, and its state and peak memory (GB, on the card); with
     ``moves``, ``run_steps``'s moves of its fp32 master.  At dp > 1, whether
     its parameters equal every other replica's bit for bit after the run
-    (gathered over ``data``).  With ``ckpt_dir``, the trainer starts from
+    (gathered over ``data``); at cp > 1, whether they equal its ring's
+    (over ``pod``).  With ``ckpt_dir``, the trainer starts from
     the latest checkpoint there, which must be of step ``start_step`` (no
     checkpoint: 0), saves there every ``ckpt_every`` steps, and ``ckpt``
     holds the last save's timings.  ``after`` more steps follow the run,
@@ -291,36 +393,23 @@ def pp_train(rank: int, world: int, bundle_kw: Dict[str, Any],
     if states:
         kept.append(_numpy_tree(t.state))
     params = t.state["params"]
-    dp = t.grid.dp
-    dims = (zero_dims(params, t.train_step.rules, dp) if dp > 1
-            else tree_map(lambda _: None, params))
-    same = None
-    if dp > 1:
-        data = t.train_step.data
-        same = all(all(torch.equal(x, part) for part in
-                       data.iallgather(x, tiled=False).unbind(0))
-                   for x in tree_leaves(params))
+    stats = _opt_stats(params, t.state["opt"], _zero_dims_of(t))
+    same = (_equal_over(t.train_step.data, params) if t.grid.dp > 1
+            else None)
+    ring_same = (_equal_over(t.train_step.pod, params) if t.grid.cp > 1
+                 else None)
     replanned = (replan_after_run(t, **replan) if replan is not None
                  else None)
     later = t.run(after)
     if states:
         kept.append(_numpy_tree(t.state))
-    opt_state = {k: v for k, v in t.state["opt"].items() if k != "count"}
-    whole = tree_map(lambda _, d: d is None, params, dims)
     return {"rank": rank, "stage": t.grid.stage, "replica": t.grid.replica,
-            "model_rank": t.grid.model_rank, **out, "launches": launches,
-            "notes": list(notes), "peak_inflight": t.train_step.peak_inflight,
+            "model_rank": t.grid.model_rank, "ring": t.grid.ring, **out,
+            "launches": launches, "notes": list(notes),
+            "peak_inflight": t.train_step.peak_inflight,
             "order": t.train_step.order, "init_s": init_s,
             "master_moves": moved, "replicas_equal": same,
-            "n_params": sum(x.numel() for x in tree_leaves(params)),
-            "n_leaves": len(tree_leaves(params)),
-            "n_zero_split": tree_leaves(whole).count(False),
-            "param_bytes": _nbytes(params), "opt_trees": sorted(opt_state),
-            "opt_bytes": _nbytes(opt_state),
-            "opt_whole_bytes": sum(
-                a.numel() * a.element_size() for o in opt_state.values()
-                for a, w in zip(tree_leaves(o), tree_leaves(whole)) if w),
-            "state_gb": state_gb,
+            "ring_equal": ring_same, **stats, "state_gb": state_gb,
             "peak_gb": (max(torch.cuda.max_memory_allocated(dev) / 1e9,
                             (replanned or {}).get("peak_gb_before") or 0.0)
                         if cuda else None),

@@ -7,8 +7,9 @@ synthetic batches:
   * no plan, a cp = 1 plan, a plan for another workload shape, or a model
     outside the cp scope: the reference loss (full forward, flash
     attention);
-  * a pp = 1, cp > 1 plan for this workload: the cp ring loss
-    (``parallel/context.py``), same state and train step;
+  * a pp = 1, cp > 1 plan for this workload on one process: the cp ring
+    loss on the one device (``parallel/context.py``), same state and
+    train step;
   * a pp > 1 plan for this workload on one process: the pipeline loss
     (``parallel/pipeline.py``) over the plan's microbatches, virtual
     stage layers, vpp and stage tp widths, same state and train step; the
@@ -30,7 +31,14 @@ synthetic batches:
     of the AdamW moments and master (``pipeline.init_rank_state``, or
     ``pipeline.split_state_for_rank`` of a whole ``state=``), and its rows
     of the global batch (of every microbatch when pp > 1), and steps with
-    ``pipeline.PPRankStep``; every rank reports the step's loss.
+    ``pipeline.PPRankStep``; every rank reports the step's loss.  A pp 1,
+    cp > 1 plan for this workload runs the cp ring across ranks on
+    ``cp * (dp / cp) * tp`` processes: the grid's ``pod`` axis holds the
+    ring, each data group (a replica) takes its rows whole and each of
+    its ring ranks its chunk of them (``context.make_cp_rank_loss_fn``);
+    the ring ranks of a group hold one state.  A cp plan at pp > 1 on
+    ranks raises (ROADMAP.md queue A, item A8b), where one process keeps
+    its cp advisory.
 
 Checkpoints (the JAX trainer's, ``ckpt/checkpoint.py``): with
 ``TrainerConfig.ckpt_dir`` set, a trainer starts from the latest complete
@@ -45,7 +53,8 @@ writes its own elements into one checkpoint (``checkpoint.save_rank``);
 the whole state is never gathered.
 
 The closed loop (the JAX trainer's control plane): on the pipeline route,
-and on the rank route at pp > 1 with a ``profile_store``, a recorder
+and on the rank route at pp > 1 with a ``profile_store`` (a pp 1 plan on
+ranks, the cp ring's included, has no stages and takes none), a recorder
 (``telemetry/``; none when ``TrainerConfig.telemetry`` is "off") observes
 the step, tick by tick in one process (CUDA events on the card), op by op
 on ranks, where every rank gathers every stage's view once a step.  With a
@@ -176,8 +185,9 @@ def widen_plan(plan: ParallelPlan, world: int) -> ParallelPlan:
     """``plan`` over ``world`` ranks: a plan of ``pp * dp * tp`` ranks
     whose count divides ``world`` (and is smaller) gets ``dp * world /
     (pp * dp * tp)`` replicas of every stage, each of the same microbatch
-    size, as the train CLI widens its searched plan; any other plan as it
-    is."""
+    size, as the train CLI widens its searched plan (a cp plan's dp counts
+    its ring ranks, so it gets more data groups and keeps its ring); any
+    other plan as it is."""
     width = plan.pp * plan.dps[0] * plan.tps[0]
     if width >= world or world % width or len(set(plan.dps)) > 1:
         return plan
@@ -337,7 +347,7 @@ class Trainer:
             return None
         slices = pipeline.rank_leaf_slices(
             whole, self.train_step.plan, g.stage, self.train_step.rules,
-            g.model_rank, replica=g.replica)
+            g.model_rank, replica=g.replica, ring=g.ring)
         self._part = ckpt.RankPart(slices, whole, g.rank, len(g.ranks))
         return slices
 
@@ -487,8 +497,9 @@ class Trainer:
                              f"not split over dp {plan.dps[0]} x "
                              f"micro_bs {plan.micro_bs}")
         self._rplan = plan
-        self.grid = groups.make_rank_grid(plan.pp, plan.dps[0], self.device,
-                                          tp=tp, ranks=self._members)
+        self.grid = groups.make_rank_grid(
+            plan.pp, plan.dps[0] // plan.cp, self.device, tp=tp,
+            ranks=self._members, cp=plan.cp)
         if self.cluster is not None and self.plan is not None:
             per_stage = plan.dps[0] * tp
             for i, r in enumerate(self._members):
@@ -496,7 +507,9 @@ class Trainer:
                 self._rank_kind[r] = self.cluster.groups[st.group].device.name
         # each process records its own pod: its ops, gathered a step
         # into the store (no store, nothing to fold: no recorder); every
-        # process of the group enters that gather
+        # process of the group enters that gather.  Only at pp > 1: a
+        # pp 1 plan, cp ring or not, has no stages to observe and takes
+        # no recorder
         self._rank_gather = (plan.pp > 1 and mode != "off"
                              and self.profile_store is not None)
         if self.grid is None:
@@ -1403,6 +1416,9 @@ class Trainer:
             raise ValueError("migrate='checkpoint' restores the checkpoint "
                              "of this step: set TrainerConfig.ckpt_dir")
         ranks = self._ranks_active()
+        if ranks and result.plan.cp > 1:
+            # before anything moves: a cp plan the ranks cannot run (A8b)
+            pipeline.check_rank_plan(self.bundle.cfg, result.plan)
         t0 = time.perf_counter()
         if self.ckpt is not None:
             self.ckpt.wait()

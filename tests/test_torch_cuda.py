@@ -1146,6 +1146,113 @@ def test_tp_ranks_on_one_card_match_cpu(dev):
     _check_tp_grads([r[0] for r in res], 1, loss, want)
 
 
+def test_cp_ranks_on_one_card_match_cpu(dev):
+    """pp 1 cp 2, the two ring ranks on one card, their KV hops and the
+    gradients' sum over ``pod`` host-staged over gloo: the ring kernels on
+    each rank's chunk (one hop of one rank a launch) give the CPU's
+    one-process cp loss and gradients (``tests/test_torch_cp_ranks.py``
+    holds those to JAX)."""
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import context, rank_programs
+    from repro_torch.parallel.launch import run_ranks
+
+    params, batch, _, _ = _pp_rank_case()
+    kw = dict(arch="llama3-8b", smoke=True, num_layers=4)
+    chunks = (20, 12)
+    flat = {k: v.reshape(8, 32) for k, v in batch.items()}
+    b = registry.get_bundle(**kw)
+    p = adamw.tree_map(lambda t: torch.from_numpy(t).requires_grad_(),
+                       params)
+    loss, _ = context.make_cp_loss_fn(b.cfg, chunks)(
+        p, {k: torch.from_numpy(v) for k, v in flat.items()})
+    it = iter(torch.autograd.grad(loss, adamw.tree_leaves(p)))
+    want = adamw.tree_map(lambda _: next(it), p)
+    res = run_ranks(rank_programs.cp_loss_and_grads, 2, timeout_s=300,
+                    device=f"cuda:{dev.index}",
+                    args=([dict(bundle_kw=kw, params=params, batch=flat,
+                                chunks=chunks, tp=1, transport="cpu")],))
+    for r in res:
+        r = r[0]
+        assert abs(r["loss"] - float(loss.detach())) < MODEL_TOL["atol"]
+        got = adamw.tree_map(torch.from_numpy, r["grads"])
+        for g, w in zip(adamw.tree_leaves(got), adamw.tree_leaves(want)):
+            torch.testing.assert_close(g, w, **MODEL_TOL)
+        # forward, remat's recompute and backward hops of every block
+        assert sum(n[0] == "isend_irecv" for n in r["notes"]) == 4 * 5
+
+
+def test_cp4_llama3_8b_on_four_cards(dev):
+    """llama3-8b at full width, 4 layers, batch 1, as a pp 1 x cp 4 plan
+    over NCCL, a ring rank a card (skipped below four cards).  (a) S 4096
+    with the one-card cp cell's chunks: step 0 within 1e-5 of the
+    one-card cp route on card 0 (run first and freed; the forward runs
+    the same kernels on the same rows, the hops copy bits), steps 1-2
+    within 2e-2 (the ring backward's dq atomics).  (b) S 32768 with
+    ``cp_split(32768, 4)``'s chunks, a sequence whose fp32 logits alone
+    (16.8 GB) and their cross-entropy's backward do not fit one card
+    beside the 27 GB state: 3 steps, finite losses equal on every rank,
+    each rank's peak under 80 GB.  ``-s`` prints each run's losses, step
+    times, tokens/s and peaks."""
+    import gc
+    import json
+    import math
+
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    from repro_torch.core.segmentation import cp_split
+    from repro_torch.kernels import build
+    from repro_torch.parallel import rank_programs
+    from repro_torch.parallel.launch import run_ranks
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    _four_cards("the cp 4 ring runs a ring rank a card")
+    build.build()       # the ranks then only load the library
+    kw = dict(arch="llama3-8b", num_layers=4)
+
+    def plan(seq):
+        chunks = tuple(cp_split(seq, 4, attn=1 / seq, lin=0.5))
+        return ParallelPlan(stages=(StagePlacement(0, 4, 4, 1, True),),
+                            micro_bs=1, global_batch=1, seq_len=seq, cp=4,
+                            cp_chunks=chunks, transport="gpu")
+
+    def ranks(p):
+        res = run_ranks(rank_programs.pp_train, 4, timeout_s=900,
+                        backend="cpu:gloo,cuda:nccl", device="cuda",
+                        args=(kw, p.to_dict(), 3))
+        step_s = [max(r["step_s"][i] for r in res) for i in range(3)]
+        print(json.dumps({
+            "seq": p.seq_len, "chunks": p.cp_chunk_sizes,
+            "losses": res[0]["losses"], "step_s": step_s,
+            "tok_s_steps_1_2": p.seq_len * 2 / sum(step_s[1:]),
+            "ranks": [{k: r[k] for k in ("rank", "ring", "losses", "step_s",
+                                         "peak_gb", "state_gb", "init_s")}
+                      for r in res]}))
+        losses = res[0]["losses"]
+        assert len(losses) == 3 and all(map(math.isfinite, losses)), losses
+        assert all(r["losses"] == losses for r in res)
+        assert all(r["ring_equal"] for r in res)
+        assert all(r["peak_gb"] < 80 for r in res), \
+            [r["peak_gb"] for r in res]
+        return losses
+
+    short = plan(4096)
+    assert short.cp_chunk_sizes == (1383, 1057, 884, 772)
+    one = Trainer(registry.get_bundle(**kw),
+                  TrainerConfig(global_batch=1, seq_len=4096),
+                  plan=short, device=dev)
+    assert one._cp_active()
+    want = one.run(3)["losses"]
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = ranks(short)
+    print(json.dumps({"one_card_cp": want, "cp4_ranks": got}))
+    assert abs(got[0] - want[0]) < 1e-5, (got, want)
+    assert max(abs(a - b) for a, b in zip(got, want)) < 2e-2, (got, want)
+    long = plan(32768)
+    assert long.cp_chunk_sizes == (11064, 8458, 7067, 6179)
+    ranks(long)
+
+
 def test_pp2_tp2_ranks_on_cards_match_cpu(dev):
     """pp 2 x tp 2 over NCCL, a card a rank (skipped below four cards),
     under 1f1b and gpipe."""

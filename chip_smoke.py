@@ -33,17 +33,26 @@ Phases, each raising on failure so the script exits non-zero:
               with the band mask and a control with an in-band key tile
               left out, then timed at its 32 heads beside SDPA's
               backward with the band mask), at hd 24 windowed, with a
-              softcap, and both in fp32.  bf16 attention (the tensor cores take P and
+              softcap, and both in fp32; the selective scan's VJP
+              (ssm_scan_bwd) at falcon-mamba-7b's training shape (B1
+              S4096 di8192 ds16, bf16 u), at a ragged S, d_state 1, 4
+              and 16, a partial block of channels and decays from 1 to
+              underflow, each gradient by its norm, run twice (bit for
+              bit), the forward with its chunk states giving y and the
+              last state bit for bit.  bf16 attention (the tensor cores take P and
               dS as bf16 operands, P of the ring hop as a hi + lo pair; the
               plain versions keep them in fp32) is also held by each
               output's norm-relative error (REL_TOL), read beside SDPA's
               and the controls'
-  4. model    llama3-8b, falcon-mamba-7b, qwen3-14b, nemotron-4-15b and
-              h2o-danube-3-4b SMOKE in fp32: the kernels on the card
+  4. model    llama3-8b, falcon-mamba-7b, qwen3-14b, nemotron-4-15b,
+              h2o-danube-3-4b, mixtral-8x7b and phi3.5-moe-42b-a6.6b
+              SMOKE in fp32: the kernels on the card
               against the plain versions on the CPU through forward/
               prefill/the cache/decode (danube's prompt past its window)
-  5. serve    llama3-8b, falcon-mamba-7b, qwen3-14b, nemotron-4-15b and
-              h2o-danube-3-4b, one after another, each at full width and
+  5. serve    llama3-8b, falcon-mamba-7b, qwen3-14b, nemotron-4-15b,
+              h2o-danube-3-4b, then mixtral-8x7b and phi3.5-moe at 4
+              layers (their TTFT and TPOT printed with the card), one
+              after another, each at full width and
               depth (bf16, seeded random weights) through
               ServeEngine(max_batch=8) on a 16-request trace: prompts
               {128, 500, 1000} at max_len 2048, danube's {1000, 4500,
@@ -81,7 +90,11 @@ Phases, each raising on failure so the script exits non-zero:
               reference-route steps of
               qwen3-14b (S 4096) and of h2o-danube-3-4b (S 8192, its
               window of 4096 binding in every layer's flash backward),
-              each at full width and 4 layers, batch 1, with finite
+              each at full width and 4 layers, batch 1 (then
+              falcon-mamba-7b at 8 layers, S 4096, on the reference route
+              and through a pp 2 plan in one process at batch 2, and
+              mixtral-8x7b at 2 layers, each step 0 held to the forward
+              loss of its weights, mixtral's aux printed), with finite
               losses, exact launch counts (qwen3's qk_norm two more norms
               a block), step times, tokens/s and peak memory, each freed
               before the next; the cp and reference step-0 losses
@@ -266,6 +279,42 @@ REL_TOL = 1e-2
 # the selective scan: an fp32 sum over up to S decayed terms, added in
 # another order than the plain loop's (tests/test_kernels.py:102-103)
 SCAN_TOL = dict(rtol=2e-4, atol=2e-4)
+# the scan's VJP, each fp32 gradient by its norm against the plain reverse
+# loop (a sum over up to S decayed terms in another order: the card reads
+# ~5e-7 at falcon's training shape, ~4e-5 over 4096 steps of decays ~1
+# on the H100)
+SCAN_BWD_REL = 1e-4
+# Where every decay is below e^-50, dA is made of those decays' terms
+# alone (g dt a h), and the kernel's ex2.approx decay parts from torch's
+# exp by a relative error that grows with |dt A| (the forward's notes in
+# csrc/ssm_scan.cu): dA there reads 2.0e-4 on the H100, the other
+# gradients ~1e-7.  Such terms are ~1e-22 of a step's and never reach h
+SCAN_BWD_UNDERFLOW_DA_REL = 1e-3
+# du where u is bf16: both sides round an fp32 sum to bf16, and the two
+# sums (in other orders) round apart where they straddle a rounding
+# boundary, one bf16 step (2^-8 relative) on those elements: 1.5e-5 and
+# 2.1e-5 read on the H100.  An fp32 du held to a bf16 one reads ~1.7e-3
+# (the control below), so the limit tells one rounding from a wrong sum
+SCAN_BWD_BF16_DU_REL = 2e-4
+# its cases: (label, B, S, d_inner, d_state, u dtype name, (dt scale, dt
+# offset), dA's limit); the first is falcon-mamba-7b's training shape,
+# timed
+SCAN_BWD_CASES = (
+    ("falcon train B1 S4096 di8192 ds16 u bf16", 1, 4096, 8192, 16, "bf",
+     (1.0, 0.0), SCAN_BWD_REL),
+    ("B2 S1000 ragged di8192 ds16 u fp32", 2, 1000, 8192, 16, "f32",
+     (1.0, 0.0), SCAN_BWD_REL),
+    ("B1 S333 di200 ds4 u bf16", 1, 333, 200, 4, "bf", (1.0, 0.0),
+     SCAN_BWD_REL),
+    ("B1 S257 di96 ds16 u bf16", 1, 257, 96, 16, "bf", (1.0, 0.0),
+     SCAN_BWD_REL),
+    ("B1 S130 di40 ds1 u fp32", 1, 130, 40, 1, "f32", (1.0, 0.0),
+     SCAN_BWD_REL),
+    ("B1 S4096 di96 ds16 decays ~1", 1, 4096, 96, 16, "f32", (1e-3, 0.0),
+     SCAN_BWD_REL),
+    ("B1 S300 di96 ds16 |dt A| >= 50", 1, 300, 96, 16, "f32", (60.0, 200.0),
+     SCAN_BWD_UNDERFLOW_DA_REL),
+)
 # the serve cells: arch -> (prompt lengths, max_len, the tokens a request
 # of the decode_sequential pass decodes (None: its whole stream)).  The
 # dense family after llama takes llama's trace; h2o-danube-3-4b's longer
@@ -279,7 +328,15 @@ SERVE_CELLS = {
     "qwen3-14b": ((128, 500, 1000), 2048, 4),
     "nemotron-4-15b": ((128, 500, 1000), 2048, 4),
     "h2o-danube-3-4b": ((1000, 4500, 6000), 8192, 4),
+    "mixtral-8x7b": ((128, 500, 1000), 2048, 4),
+    "phi3.5-moe-42b-a6.6b": ((128, 500, 1000), 2048, 4),
 }
+# the serve cells cut in depth (their weights at full width and depth
+# would not fit one card): mixtral-8x7b ~12.1 GB and phi3.5-moe ~10.9 GB
+# of bf16 weights at 4 layers
+SERVE_LAYERS = {"mixtral-8x7b": 4, "phi3.5-moe-42b-a6.6b": 4}
+# the serve cell whose SWA check runs (phase_swa)
+SWA_ARCH = "h2o-danube-3-4b"
 SERVE_ARCHS = tuple(SERVE_CELLS)
 # the SWA check (phase_swa): one danube request's prefill of SWA_PROMPT
 # tokens and SWA_STEPS decode steps across the wrapped buffer against
@@ -314,6 +371,15 @@ TRAIN_LOSS_TOL = 2e-2   # cp, pp vs reference step-0 loss, bf16
 # windowed backward kernel is also checked and timed there
 SWA_TRAIN_SEQ, SWA_WINDOW = 8192, 4096
 NEW_TRAIN = (("qwen3-14b", TRAIN_SEQ), ("h2o-danube-3-4b", SWA_TRAIN_SEQ))
+# falcon-mamba-7b trains at full width and SSM_TRAIN_LAYERS layers (1.38 B
+# parameters, ~22 GB of state), S TRAIN_SEQ, batch 1 on the reference
+# route, then SSM_PP_BATCH sequences through a pp 2 plan in one process;
+# mixtral-8x7b at MOE_TRAIN_LAYERS layers (3.17 B parameters, ~51 GB of
+# state and gradients beside AdamW's fp32 square of the 0.94 B-element
+# w_gate leaf; 4 layers would not fit), S TRAIN_SEQ, batch 1.  Step 0 of
+# each is held to the forward loss of its weights and batch
+SSM_ARCH, SSM_TRAIN_LAYERS, SSM_PP_BATCH = "falcon-mamba-7b", 8, 2
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "mixtral-8x7b", 2
 # the pipeline route: the planner's pp 2 plan on the train CLI's two-kind
 # cluster for 4 sequences of TRAIN_SEQ; the SMOKE parity phase also runs
 # an interleaved plan (vpp 2, a zero-layer chunk) at 4 SMOKE layers
@@ -461,6 +527,7 @@ TC_KERNELS = {"flash_fwd_mma_kernel": "flash_attention_fwd_attrs",
               "ring_fwd_mma_kernel": "ring_step_fwd_attrs",
               "ring_bwd_mma_kernel": "ring_step_bwd_attrs"}
 SCAN_KERNEL = ("ssm_scan_kernel", "ssm_scan_attrs")
+SCAN_BWD_KERNEL = ("ssm_scan_bwd_kernel", "ssm_scan_bwd_attrs")
 
 
 def phase_build():
@@ -477,7 +544,8 @@ def phase_build():
     show = False
     for line in build.ptxas_log.splitlines():
         if "Compiling entry function" in line:
-            show = any(k in line for k in (*TC_KERNELS, SCAN_KERNEL[0]))
+            show = any(k in line for k in (*TC_KERNELS, SCAN_KERNEL[0],
+                                           SCAN_BWD_KERNEL[0]))
         if show and ("entry function" in line or "Used" in line
                      or "spill" in line):
             log(f"[build]   {line.strip()}")
@@ -489,6 +557,8 @@ def phase_build():
                      "hd120", "(bf16, the windowed general variant)"))
     variants += [(*SCAN_KERNEL, (code,), f"u {dt}",
                   "(as the prefill launches it)")
+                 for dt, code in (("bf16", 1), ("fp32", 0))]
+    variants += [(*SCAN_BWD_KERNEL, (code,), f"u {dt}", "(as launched)")
                  for dt, code in (("bf16", 1), ("fp32", 0))]
     for key, args in RMSNORM_ATTRS.items():
         kernel, case = key.split(" ", 1)
@@ -1125,6 +1195,69 @@ def phase_train_kernels(torch, dev, name, device_only=False):
             sg.swiglu_bwd(gs_, us_, dhs), ref.swiglu_bwd(gs_, us_, dhs),
             FP32_TOL)
 
+    # ssm_scan_bwd, the scan's VJP, against the plain reverse loop: at
+    # falcon-mamba-7b's training shape (the timed inputs), then a ragged S
+    # (not a multiple of the 64-step chunk), d_state 1, 4 and 16, a partial
+    # block of channels, and decays from 1 (|dt A| ~ 1e-3 over 4096 steps)
+    # to underflow (|dt A| >= 50).  Each gradient by its norm
+    # (SCAN_BWD_REL; du, rounded to bf16 where u is bf16, at
+    # SCAN_BWD_BF16_DU_REL, beside a control on the small bf16 cases: that
+    # du against the plain loop's fp32 du, which must read above the
+    # limit), the kernel run twice (equal bit for bit: no float atomics),
+    # and the forward with its chunk states giving y and the last state of
+    # the forward without them, bit for bit
+    from repro_torch.kernels import ssm_scan as ss
+
+    def scan_in(B_, S_, di_, ds_, u_dtype, dt_scale, dt_add):
+        dt_ = F.softplus(randn(B_, S_, di_, dtype=f32) - 1.0) * dt_scale
+        return (randn(B_, S_, di_, dtype=u_dtype), dt_ + dt_add,
+                randn(B_, S_, ds_, dtype=f32), randn(B_, S_, ds_, dtype=f32),
+                -torch.exp(randn(di_, ds_, dtype=f32) * 0.3))
+
+    scan_train = None
+    for label, B_, S_, di_, ds_, ud, dts, da_rel in SCAN_BWD_CASES:
+        ud = {"bf": bf, "f32": f32}[ud]
+        sargs = scan_in(B_, S_, di_, ds_, ud, *dts)
+        sdy = randn(B_, S_, di_, dtype=f32)
+        y0, h0 = ss.ssm_scan(*sargs)
+        y1, h1, shc = ss.ssm_scan(*sargs, keep_chunks=True)
+        if scan_train is None:
+            scan_train = (sargs, shc, sdy)
+        if device_only:
+            continue
+        assert torch.equal(y0, y1) and torch.equal(h0, h1), label
+        got = ss.ssm_scan_bwd(*sargs, shc, sdy)
+        again = ss.ssm_scan_bwd(*sargs, shc, sdy)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), label
+        want = ref.ssm_scan_bwd(*sargs, sdy)
+        rels = [_rel_err(g, w) for g, w in zip(got, want)]
+        limits = [SCAN_BWD_BF16_DU_REL if ud == bf else SCAN_BWD_REL] + \
+            [SCAN_BWD_REL] * 3 + [da_rel]
+        checks.append({"kernel": "ssm_scan_bwd", "case": label,
+                       "max_abs_err": _max_err(got, want),
+                       "rel_err": max(rels)})
+        control = ""
+        if ud == bf and B_ * S_ * di_ < 10 ** 6:
+            du32 = ref.ssm_scan_bwd(sargs[0].float(), *sargs[1:], sdy)[0]
+            ctl = _rel_err(got[0], du32)
+            control = f", control du vs an fp32 du {ctl:.2e}"
+            assert ctl > SCAN_BWD_BF16_DU_REL, (label, ctl)
+        log(f"[kernels] ssm_scan_bwd    {label:42s} rel_err du/ddt/dB/dC/dA "
+            + "/".join(f"{r:.2e}" for r in rels) + " (limits "
+            + "/".join(f"{lim:g}" for lim in limits) + ")" + control
+            + ", fwd with chunk states and a second run bit for bit ok")
+        assert all(r <= lim for r, lim in zip(rels, limits)), (label, rels)
+        del got, again, want
+    scan_fwd_ms = None
+    if not device_only:
+        fwd_chunks = event_ms(lambda: ss.ssm_scan(*scan_train[0],
+                                                  keep_chunks=True))
+        fwd_plain = event_ms(lambda: ss.ssm_scan(*scan_train[0]))
+        scan_fwd_ms = {"without_chunk_states": fwd_plain,
+                       "with_chunk_states": fwd_chunks}
+        log(f"[kernels] time ssm_scan S{TRAIN_SEQ} di8192 ds16 bf16: "
+            f"{fwd_plain:.4f} ms, with its chunk states {fwd_chunks:.4f} ms")
+
     # ---- timings, bf16, at the training shapes
     el, f4 = 2, 4
     carry0 = empty_carry(cp, B, C, H, hd)
@@ -1260,6 +1393,31 @@ def phase_train_kernels(torch, dev, name, device_only=False):
             err=max(c["max_abs_err"] for c in checks
                     if c["kernel"] == "swiglu_bwd")),
     }
+    # the scan's VJP at falcon-mamba-7b's training shape: u, dt, dy, B, C,
+    # A and the chunk states read once, du, ddt, dB, dC and dA written
+    # once; per state and step ~20 FLOP (the recomputed update and the
+    # reverse step) and one exponential: the recurrence and the gradients
+    # share a_t = exp(dt_t A), which the kernel, by its design, computes
+    # again in its reverse walk
+    sa, shc, sdy = scan_train
+    Sb, dib = sa[0].shape[1:]
+    dsb = sa[2].shape[-1]
+    states = Sb * dib * dsb
+    rows["ssm_scan_bwd"] = dict(
+        source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan.py:58 (its VJP; no TPU "
+                 "backward kernel)",
+        shape=f"B1 S{Sb} di{dib} ds{dsb}, u bf16, dy fp32 -> du bf16, "
+              "ddt/dB/dC/dA fp32 (falcon-mamba-7b's training shape)",
+        fn=lambda: ss.ssm_scan_bwd(*sa, shc, sdy),
+        plain=lambda: ref.ssm_scan_bwd(*sa, sdy), per_call=1,
+        library=None, kernels=("ssm_scan_bwd_kernel", "sum_partials_kernel"),
+        bytes=(Sb * dib * (el + 4 + 4 + el + 4) + 4 * Sb * dsb * f4
+               + 2 * dib * dsb * f4 + shc.numel() * f4),
+        ops=[(20 * states, fp32_peak),
+             (states, fp32_peak * SFU_PER_FP32_FLOP)],
+        err=max((c["max_abs_err"] for c in checks
+                 if c["kernel"] == "ssm_scan_bwd"), default=0.0))
     timed = {}
     for kname, r in rows.items():
         n = r["per_call"]
@@ -1311,6 +1469,7 @@ def phase_train_kernels(torch, dev, name, device_only=False):
     cp_bwd_bound = max(bwd_bytes / cp / bw, bwd_ops / cp / bf16_peak) * 1e3
     extra = {"ring_step_bwd_cp4_per_launch_ms": cp_bwd_ms,
              "ring_step_bwd_cp4_bound_ms": cp_bwd_bound,
+             f"ssm_scan_S{TRAIN_SEQ}_ms": scan_fwd_ms,
              "rel_readings": readings}
     log(f"[kernels] time ring_step_bwd    cp4 {CP_CHUNKS} bf16 per launch: "
         f"kernel {cp_bwd_ms:.4f} ms, bound {cp_bwd_bound:.4f} ms")
@@ -1431,7 +1590,8 @@ def phase_serve(torch, dev, arch):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    cfg = registry.get_config(arch)
+    cfg = registry.get_config(arch, **(
+        {"num_layers": SERVE_LAYERS[arch]} if arch in SERVE_LAYERS else {}))
     base = registry.bundle_for(cfg)
     t0 = time.perf_counter()
     params = base.init(cfg, seed=0, device=dev)
@@ -1520,11 +1680,11 @@ def phase_serve(torch, dev, arch):
         f"decode tokens agreeing at their position: {agree}/{n_dec}; "
         f"streams fully equal: {full_equal}/{len(reqs)}")
     assert first_equal, "first tokens differ from decode_sequential"
-    swa = phase_swa(torch, dev, base, params) if cfg.window else None
+    swa = phase_swa(torch, dev, base, params) if arch == SWA_ARCH else None
 
     # the same statistics (mean, median, max over requests) as the CLI's
     summary = {
-        "arch": arch, "params": n_params,
+        "arch": arch, "layers": L, "params": n_params,
         **report.to_dict(), "prefills": len(reqs), "wall_s": wall,
         "init_s": init_s, "launches": launches, "expected_launches": expect,
         "decode_launches": decode_launches,
@@ -1710,7 +1870,8 @@ def phase_train_parity(torch, dev):
 def phase_train(torch, dev, route: str, global_batch: int = 1,
                 moves: bool = False, arch: str = "llama3-8b",
                 seq: int = TRAIN_SEQ, remat: bool = True,
-                layers: int = TRAIN_LAYERS, chunks=None):
+                layers: int = TRAIN_LAYERS, chunks=None,
+                hold_loss0: bool = False):
     """``arch`` at full width, ``layers`` layers, bf16: TRAIN_STEPS
     steps of one route at ``global_batch`` sequences of ``seq`` with exact
     launch counts (a batched kernel launches once whatever the batch;
@@ -1718,11 +1879,14 @@ def phase_train(torch, dev, route: str, global_batch: int = 1,
     ``moves``, each leaf's squared master move after every step
     (``rank_programs.run_steps``); ``remat`` False: the blocks' activations
     kept (each kernel once a pass), the route's cost before remat;
-    ``chunks``: the cp route's (default CP_CHUNKS)."""
+    ``chunks``: the cp route's (default CP_CHUNKS); ``hold_loss0``: step
+    0's loss held to the loss of a forward of the same weights on the same
+    batch (the CE plus AUX_COEF times the MoE aux, which is printed)."""
     from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.parallel.rank_programs import run_steps
+    from repro_torch.train import steps
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     gc.collect()
@@ -1749,12 +1913,23 @@ def phase_train(torch, dev, route: str, global_batch: int = 1,
     log(f"[train] {route} route: {arch} {layers} layers, seq {seq}, "
         f"{n_params / 1e9:.3f} B params, train state {state_gb:.2f} GB, "
         f"init {init_s:.1f} s")
+    fwd0 = None
+    if hold_loss0:      # the forward of step 0's weights and batch
+        batch = t._device_batch(t.data.batch_at(t.step))
+        with torch.no_grad():
+            loss0, met0 = steps.make_loss_fn(b)(t.state["params"], batch)
+        fwd0 = {k: float(v) for k, v in dict(met0, loss=loss0).items()}
+        del batch, loss0, met0
+        log(f"[train] {route} forward of step 0's weights and batch: "
+            f"loss {fwd0['loss']} = CE {fwd0['ce']} + {steps.AUX_COEF} x "
+            f"aux {fwd0['aux']}")
     ops.reset_launch_counts()
     out, moved = run_steps(t, TRAIN_STEPS, moves)
     launches = ops.launch_counts()
     L, cp, n = layers, len(chunks), TRAIN_STEPS
     expect = dict.fromkeys(launches, 0)
-    expect.update(_reference_launches(L, n, b.cfg.qk_norm, remat))
+    expect.update(_ssm_launches(L, n) if b.cfg.family == "ssm" else
+                  _reference_launches(L, n, b.cfg.qk_norm, remat))
     if route.startswith("cp"):
         # the ring in each block's forward, again in its recompute
         expect.update(flash_attention=0, ring_step=2 * L * cp * n,
@@ -1764,8 +1939,15 @@ def phase_train(torch, dev, route: str, global_batch: int = 1,
     log(f"[train] {route} launches {launches} expected {expect}")
     assert all(map(math.isfinite, losses)), losses
     assert launches == expect, (launches, expect)
+    if fwd0 is not None:
+        log(f"[train] {route} step-0 loss {losses[0]} vs the forward's "
+            f"{fwd0['loss']}: diff {abs(losses[0] - fwd0['loss']):.3e} "
+            f"(tol {TRAIN_LOSS_TOL})")
+        assert abs(losses[0] - fwd0["loss"]) < TRAIN_LOSS_TOL, (losses,
+                                                                 fwd0)
     steady = out["step_s"][1:]
     summary = {
+        "forward_step0": fwd0,
         "route": route, "arch": arch, "layers": L, "seq": seq,
         "global_batch": global_batch, "params": n_params, "losses": losses,
         "grad_norms": out["grad_norms"], "master_moves": moved,
@@ -1891,6 +2073,64 @@ def phase_train_pp(torch, dev, smi: str, vpp: int = 1):
         summary["replan"], added = _replan_pp(torch, t, smi, ref_loss)
         launches = {k: n + added[k] for k, n in launches.items()}
     log(f"[train] {route} report {json.dumps(summary)}")
+    del t
+    return summary, launches
+
+
+def phase_train_ssm_pp(torch, dev, smi: str, ref: dict):
+    """falcon-mamba-7b at full width and SSM_TRAIN_LAYERS layers through the
+    one-process pipeline, pp 2 of even stages, SSM_PP_BATCH sequences of
+    TRAIN_SEQ one a microbatch: TRAIN_STEPS steps, exact launches (each
+    block's forward twice under remat), step 0 against the reference
+    route's loss on the same sequences (forward only, a microbatch at a
+    time)."""
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.train import steps
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    L, m = SSM_TRAIN_LAYERS, SSM_PP_BATCH
+    b = registry.get_bundle(SSM_ARCH, num_layers=L)
+    plan = ParallelPlan(stages=(StagePlacement(0, L // 2, 1, 1),
+                                StagePlacement(1, L // 2, 1, 1, True)),
+                        micro_bs=1, global_batch=m, seq_len=TRAIN_SEQ)
+    t = Trainer(b, TrainerConfig(global_batch=m, seq_len=TRAIN_SEQ),
+                plan=plan, device=dev)
+    assert t._pipeline_active()
+    batch = t._device_batch(t.data.batch_at(t.step))
+    with torch.no_grad():
+        want = sum(float(steps.make_loss_fn(b)(
+            t.state["params"], {k: v[j] for k, v in batch.items()})[0])
+            for j in range(m)) / m
+    del batch
+    ops.reset_launch_counts()
+    out = t.run(TRAIN_STEPS)
+    launches = ops.launch_counts()
+    expect = dict.fromkeys(launches, 0)
+    expect.update(_ssm_launches(L, TRAIN_STEPS, m))
+    losses, step_s = out["losses"], out["step_s"]
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"[train] {SSM_ARCH} pp route ({plan.describe()}) on {smi}: losses "
+        f"{losses}, step s {step_s}, peak {peak:.2f} GB; step-0 loss vs "
+        f"the reference loss on its {m} sequences {want}: diff "
+        f"{abs(losses[0] - want):.3e} (tol {TRAIN_LOSS_TOL}); reference "
+        f"route's step 0 (batch 1) {ref['losses'][0]}")
+    log(f"[train] {SSM_ARCH} pp launches {launches} expected {expect}")
+    assert all(map(math.isfinite, losses)), losses
+    assert launches == expect, (launches, expect)
+    assert abs(losses[0] - want) < TRAIN_LOSS_TOL, (losses[0], want)
+    steady = step_s[1:]
+    summary = {"route": f"{SSM_ARCH} pp", "layers": L, "seq": TRAIN_SEQ,
+               "global_batch": m, "losses": losses,
+               "reference_loss_step0": want, "step_s": step_s,
+               "tok_s_steady": m * TRAIN_SEQ * len(steady) / sum(steady),
+               "peak_mem_gb": peak, "launches": launches,
+               "plan": plan.describe()}
+    log(f"[train] {SSM_ARCH} pp report {json.dumps(summary)}")
     del t
     return summary, launches
 
@@ -2586,6 +2826,16 @@ def _dir_bytes(d: Path) -> int:
     return sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
 
 
+def _ssm_launches(n_layers: int, steps: int, m: int = 1) -> dict:
+    """The ssm stack's launches over ``steps`` steps of ``m`` microbatches
+    under remat: each block's norm and scan forward twice, their
+    backwards once, the final norm once each way."""
+    return {"rmsnorm": m * (2 * n_layers + 1) * steps,
+            "rmsnorm_bwd": m * (n_layers + 1) * steps,
+            "ssm_scan": 2 * m * n_layers * steps,
+            "ssm_scan_bwd": m * n_layers * steps}
+
+
 def _reference_launches(n_layers: int, steps: int, qk_norm: bool = False,
                         remat: bool = True) -> dict:
     """The reference route's launches over ``steps`` steps (phase_train):
@@ -3223,9 +3473,16 @@ def main(argv=None) -> int:
     model_err = {arch: phase_model(torch, dev, arch) for arch in SERVE_ARCHS}
     serve, launches = {}, dict.fromkeys(LAUNCH_COUNTERS, 0)
     for arch in SERVE_ARCHS:
+        t_cell = time.perf_counter()
         serve[arch], counts = phase_serve(torch, dev, arch)
         for kname, n in counts.items():
             launches[kname] += n
+        if arch in SERVE_LAYERS:
+            r = serve[arch]
+            log(f"[serve] {arch} ({r['layers']} layers) on {smi}: TTFT s "
+                f"{r['ttft_s']}, TPOT s {r['tpot_s']}, decode tok/s "
+                f"{r['decode_tok_per_s']:.1f}, peak {r['peak_mem_gb']:.2f} "
+                f"GB; cell {time.perf_counter() - t_cell:.1f} s")
     # rmsnorm's and swiglu's two rows: their launches inside decode steps
     # (8 rows or fewer), and the rest (prefills and training)
     decode = {k: sum(serve[a]["decode_launches"][k] for a in SERVE_ARCHS)
@@ -3261,6 +3518,25 @@ def main(argv=None) -> int:
                                           arch=arch, seq=seq)
         for kname, n in counts.items():
             launches[kname] += n
+    # the ssm stack and MoE: falcon-mamba-7b on the reference route and
+    # through a pp 2 plan, mixtral-8x7b on the reference route
+    t_new = time.perf_counter()
+    train[SSM_ARCH], counts = phase_train(
+        torch, dev, "reference", arch=SSM_ARCH, layers=SSM_TRAIN_LAYERS,
+        hold_loss0=True)
+    for kname, n in counts.items():
+        launches[kname] += n
+    train[f"{SSM_ARCH} pp"], counts = phase_train_ssm_pp(torch, dev, smi,
+                                                         train[SSM_ARCH])
+    for kname, n in counts.items():
+        launches[kname] += n
+    train[MOE_TRAIN_ARCH], counts = phase_train(
+        torch, dev, "reference", arch=MOE_TRAIN_ARCH,
+        layers=MOE_TRAIN_LAYERS, hold_loss0=True)
+    for kname, n in counts.items():
+        launches[kname] += n
+    log(f"[train] falcon-mamba-7b and mixtral-8x7b cells: "
+        f"{time.perf_counter() - t_new:.1f} s")
     # danube's flash forward and backward run at hd 120: their rows
     swa_train = train["h2o-danube-3-4b"]["launches"]
     train["pp"], counts = phase_train_pp(torch, dev, smi)

@@ -52,7 +52,8 @@ _SIGNATURES = {
                             + [_c.c_longlong] * 9
                             + [_c.c_int, _c.c_int, _c.c_float, _c.c_float,
                                _c.c_int, _P]),
-    "ssm_scan_fwd": (_c.c_int, [_P] * 7 + [_c.c_int] * 5 + [_P]),
+    "ssm_scan_fwd": (_c.c_int, [_P] * 8 + [_c.c_int] * 5 + [_P]),
+    "ssm_scan_bwd": (_c.c_int, [_P] * 15 + [_c.c_int] * 5 + [_P]),
     "ring_step_fwd": (_c.c_int, [_P] * 9 + [_c.c_int] * 8
                       + [_c.POINTER(_c.c_int), _c.c_int, _c.c_float,
                          _c.c_int, _P]),
@@ -63,6 +64,7 @@ _SIGNATURES = {
                                              _c.POINTER(_c.c_int)]),
     "ring_step_fwd_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
     "ssm_scan_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
+    "ssm_scan_bwd_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
     "ring_step_bwd_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
     "rmsnorm_attrs": (_c.c_int, [_c.c_int] * 3 + [_c.POINTER(_c.c_int)]),
     "rmsnorm_bwd_blocks_per_sm": (_c.c_int, []),
@@ -161,7 +163,8 @@ def kernel_attrs(fn: str, *args: int) -> dict:
     """What the card's compiled kernel behind the C function ``fn`` takes
     as launched: the bf16 tensor-core kernels (``flash_attention_fwd_attrs``,
     ``ring_step_fwd_attrs``, ``ring_step_bwd_attrs``) at head dim ``args``,
-    the selective scan (``ssm_scan_attrs``) for u of dtype code ``args``,
+    the selective scan (``ssm_scan_attrs``) and its backward
+    (``ssm_scan_bwd_attrs``) for u of dtype code ``args``,
     rmsnorm (``rmsnorm_attrs``) at ``(bwd, D, dtype code)``."""
     out = (ctypes.c_int * 4)()
     check(getattr(library(), fn)(*args, out), fn)

@@ -14,8 +14,9 @@ goes to the forward directly, without the function's bookkeeping.  The
 flash backward is the one-rank ring hop backward (``ring_step_bwd``): a
 hop of one rank over the whole sequence is causal flash attention, and
 the hop backward takes the flash forward's window, softcap and head dims.
-The JAX package differentiates its jnp code instead; no Pallas kernel
-there has a backward.
+The selective scan's backward is a kernel of its own
+(``ssm_scan_bwd``).  The JAX package differentiates its jnp code instead;
+no Pallas kernel there has a backward.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ LAUNCH_COUNTERS = {
     "rmsnorm": (_rn, "launches"), "rmsnorm_bwd": (_rn, "bwd_launches"),
     "swiglu": (_sg, "launches"), "swiglu_bwd": (_sg, "bwd_launches"),
     "flash_attention": (_fa, "launches"), "ssm_scan": (_ss, "launches"),
+    "ssm_scan_bwd": (_ss, "bwd_launches"),
     "ring_step": (_ra, "launches"), "ring_step_bwd": (_ra, "bwd_launches"),
 }
 
@@ -326,10 +328,47 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 # ------------------------------------------------------------ ssm scan ---
+class SSMScanFn(torch.autograd.Function):
+    """The selective scan with its VJP.  On the card the forward stores the
+    state entering every chunk (``ssm_scan(..., keep_chunks=True)``) and
+    the backward kernel starts from them; on the CPU the plain backward
+    recomputes the states.  The last state carries no gradient: a nonzero
+    one raises (the training path never reads it)."""
+
+    @staticmethod
+    def forward(ctx, u, dt, Bc, Cc, A):
+        u, dt, Bc, Cc, A = (t.contiguous() for t in (u, dt, Bc, Cc, A))
+        ctx.set_materialize_grads(False)
+        if _on_cpu(u):
+            y, h = ref.ssm_scan(u, dt, Bc, Cc, A)
+            ctx.save_for_backward(u, dt, Bc, Cc, A)
+        else:
+            y, h, hc = _ss.ssm_scan(u, dt, Bc, Cc, A, keep_chunks=True)
+            ctx.save_for_backward(u, dt, Bc, Cc, A, hc)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        if dh is not None and bool(dh.ne(0).any()):
+            raise RuntimeError("ssm_scan: the last state has no gradient "
+                               "(it is the decode state, not a loss input)")
+        saved = ctx.saved_tensors
+        u = saved[0]
+        if dy is None:
+            dy = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+        dy = dy.float().contiguous()
+        if _on_cpu(u):
+            grads = ref.ssm_scan_bwd(*saved, dy)
+        else:
+            grads = _ss.ssm_scan_bwd(*saved, dy)
+        return grads
+
+
 def ssm_scan(u, dt, Bc, Cc, A) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y (B,S,di), h_last (B,di,ds)), both fp32.  On the card it has no
-    backward yet (ROADMAP.md queue A, item 9): its wrapper refuses inputs
-    that need one."""
+    """(y (B,S,di), h_last (B,di,ds)), both fp32; differentiable in u, dt,
+    Bc, Cc and A (not through h_last)."""
+    if _needs_grad(u, dt, Bc, Cc, A):
+        return SSMScanFn.apply(u, dt, Bc, Cc, A)
     if _on_cpu(u):
         return ref.ssm_scan(u, dt, Bc, Cc, A)
     return _ss.ssm_scan(u, dt, Bc, Cc, A)

@@ -109,6 +109,41 @@ def ssm_scan(u, dt, Bc, Cc, A):
     return y, h
 
 
+def ssm_scan_bwd(u, dt, Bc, Cc, A, dy):
+    """VJP of ``ssm_scan`` for dy = dL/dy (B,S,di), no gradient on the last
+    state, as a plain reverse loop: the states h_t are recomputed and kept,
+    then with a_t = exp(dt_t A) and g_t = dL/dh_t = dy_t C_t + a_{t+1}
+    g_{t+1}: du_t = sum_n g_t dt_t B_t, ddt_t = sum_n g_t (u_t B_t + A a_t
+    h_{t-1}), dB_t = sum_d g_t dt_t u_t, dC_t = sum_d dy_t h_t and dA =
+    sum_{b,t} g_t dt_t a_t h_{t-1}.  Returns (du in u's dtype, ddt, dB, dC,
+    dA) in fp32 (fp64 for fp64 inputs)."""
+    f = acc_dtype(u)
+    uf, dtf, Bf, Cf, Af, dyf = (t.to(f) for t in (u, dt, Bc, Cc, A, dy))
+    Bsz, S, di = u.shape
+    hs = torch.zeros((Bsz, S + 1, di, Af.shape[-1]), dtype=f,
+                     device=u.device)                 # hs[:, t + 1] = h_t
+    for t in range(S):
+        hs[:, t + 1] = (torch.exp(dtf[:, t, :, None] * Af) * hs[:, t]
+                        + (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None])
+    du, ddt = torch.empty_like(uf), torch.empty_like(dtf)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
+    dA = torch.zeros_like(Af)
+    carry = torch.zeros_like(hs[:, 0])               # a_{t+1} g_{t+1}
+    for t in range(S - 1, -1, -1):
+        dec = torch.exp(dtf[:, t, :, None] * Af)
+        g = dyf[:, t, :, None] * Cf[:, t, None] + carry
+        gdt = g * dtf[:, t, :, None]
+        dh = dec * hs[:, t]
+        du[:, t] = (gdt * Bf[:, t, None]).sum(-1)
+        ddt[:, t] = (g * (uf[:, t, :, None] * Bf[:, t, None]
+                          + Af * dh)).sum(-1)
+        dB[:, t] = (gdt * uf[:, t, :, None]).sum(1)
+        dC[:, t] = (dyf[:, t, :, None] * hs[:, t + 1]).sum(1)
+        dA += (gdt * dh).sum(0)
+        carry = dec * g
+    return du.to(u.dtype), ddt, dB, dC, dA
+
+
 def swiglu(g, u, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """silu(g) * u in fp32, cast to ``out_dtype`` (default g.dtype)."""
     dt = acc_dtype(g)

@@ -13,6 +13,17 @@ runs, so any S and any d_inner are taken (the Pallas kernel asserts
 special-function units' rate for the B*S*di*ds exponentials, a little
 above the bytes it must move.  One call is one launch.  Plain version:
 ``kernels/ref.py::ssm_scan``.
+
+For training the forward also stores the state entering every chunk of
+``CHUNK`` steps (``keep_chunks``), and ``ssm_scan_bwd`` is the scan's
+VJP: per block of channels it walks the chunks in reverse, recomputes a
+chunk's states from its stored start with the forward's arithmetic, then
+walks its steps backwards carrying dL/dh.  Its sums over the channels
+(dB, dC) and over the batch (dA) go through per-block partials that a
+second pass adds in a fixed order: no float atomics, so a repeated call
+gives the same bits.  A call counts once in ``bwd_launches``: the walk's
+kernel and the three passes that add its partials.  Plain version:
+``kernels/ref.py::ssm_scan_bwd``.
 """
 from __future__ import annotations
 
@@ -23,19 +34,18 @@ import torch
 from repro_torch.kernels import build
 
 MAX_STATE = 16   # the largest d_state the kernel takes
-launches = 0     # kernel launches since the last reset
+CHUNK = 64       # the steps between two stored states (kChunk)
+CHANNELS = 32    # channels a block (kChannels): the backward's partials
+launches = 0     # forward launches since the last reset
+bwd_launches = 0  # backward launches since the last reset
 
 
-def ssm_scan(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
-             Cc: torch.Tensor, A: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """u: (B,S,di) bf16 or fp32; dt: (B,S,di), Bc/Cc: (B,S,ds), A: (di,ds)
-    fp32, any strides (copied to contiguous where they are not).  Returns
-    y (B,S,di) and the last state h (B,di,ds), both fp32."""
-    global launches
-    build.forbid_grad("ssm_scan", "the selective scan has no backward yet: "
-                      "ROADMAP.md queue A, item 9", u, dt, Bc, Cc, A)
-    dev = build.require_cuda(u, dt, Bc, Cc, A)
+def n_chunks(S: int) -> int:
+    return -(-S // CHUNK)
+
+
+def _check(u, dt, Bc, Cc, A) -> Tuple[int, int, int, int]:
+    """(B, S, di, ds) of valid scan inputs; raise otherwise."""
     if u.dim() != 3 or dt.shape != u.shape:
         raise ValueError(f"u {tuple(u.shape)} and dt {tuple(dt.shape)}: "
                          "want equal (B,S,di)")
@@ -53,16 +63,77 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
     for name, t in (("dt", dt), ("Bc", Bc), ("Cc", Cc), ("A", A)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
+    return B, S, di, ds
+
+
+def ssm_scan(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+             Cc: torch.Tensor, A: torch.Tensor, keep_chunks: bool = False):
+    """u: (B,S,di) bf16 or fp32; dt: (B,S,di), Bc/Cc: (B,S,ds), A: (di,ds)
+    fp32, any strides (copied to contiguous where they are not).  Returns
+    y (B,S,di) and the last state h (B,di,ds), both fp32; with
+    ``keep_chunks`` also the state entering each chunk of ``CHUNK`` steps,
+    (B, n_chunks(S), di, ds) fp32, which ``ssm_scan_bwd`` takes (y and h
+    are the same bits either way)."""
+    global launches
+    build.forbid_grad("ssm_scan", "differentiate through kernels.ops."
+                      "ssm_scan", u, dt, Bc, Cc, A)
+    dev = build.require_cuda(u, dt, Bc, Cc, A)
+    B, S, di, ds = _check(u, dt, Bc, Cc, A)
     code = build.dtype_code(u)
     y = torch.empty((B, S, di), dtype=torch.float32, device=dev)
     h = torch.zeros((B, di, ds), dtype=torch.float32, device=dev)
-    if B == 0 or S == 0 or di == 0:
-        return y, h
-    u, dt, Bc, Cc, A = (t.contiguous() for t in (u, dt, Bc, Cc, A))
-    err = build.library().ssm_scan_fwd(
-        u.data_ptr(), dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-        A.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, di, ds, code,
-        build.stream_handle(dev))
-    build.check(err, "ssm_scan")
-    launches += 1
-    return y, h
+    hc = (torch.zeros((B, n_chunks(S), di, ds), dtype=torch.float32,
+                      device=dev) if keep_chunks else None)
+    if B and S and di:
+        u, dt, Bc, Cc, A = (t.contiguous() for t in (u, dt, Bc, Cc, A))
+        err = build.library().ssm_scan_fwd(
+            u.data_ptr(), dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+            A.data_ptr(), y.data_ptr(), h.data_ptr(),
+            hc.data_ptr() if keep_chunks else None, B, S, di, ds, code,
+            build.stream_handle(dev))
+        build.check(err, "ssm_scan")
+        launches += 1
+    return (y, h, hc) if keep_chunks else (y, h)
+
+
+def ssm_scan_bwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+                 Cc: torch.Tensor, A: torch.Tensor, chunk_h: torch.Tensor,
+                 dy: torch.Tensor):
+    """The VJP of ``ssm_scan`` for dy = dL/dy (B,S,di), no gradient on the
+    last state: (du in u's dtype, ddt (B,S,di), dB, dC (B,S,ds), dA
+    (di,ds)), all but du fp32.  ``chunk_h`` is what ``ssm_scan(...,
+    keep_chunks=True)`` returned for the same inputs."""
+    global bwd_launches
+    build.forbid_grad("ssm_scan_bwd", "differentiate through kernels.ops."
+                      "ssm_scan", u, dt, Bc, Cc, A, dy)
+    dev = build.require_cuda(u, dt, Bc, Cc, A, chunk_h, dy)
+    B, S, di, ds = _check(u, dt, Bc, Cc, A)
+    if tuple(chunk_h.shape) != (B, n_chunks(S), di, ds) \
+            or chunk_h.dtype != torch.float32:
+        raise ValueError(f"chunk_h {tuple(chunk_h.shape)} {chunk_h.dtype}: "
+                         f"want ({B}, {n_chunks(S)}, {di}, {ds}) float32")
+    if dy.shape != u.shape or dy.dtype != torch.float32:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype}: want "
+                         f"{tuple(u.shape)} float32")
+    code = build.dtype_code(u)
+    f32 = dict(dtype=torch.float32, device=dev)
+    run = bool(B and S and di)
+    new = torch.empty if run else torch.zeros   # the kernels write all
+    du = new(u.shape, dtype=u.dtype, device=dev)
+    ddt = new((B, S, di), **f32)
+    dB, dC = new((B, S, ds), **f32), new((B, S, ds), **f32)
+    dA = new((di, ds), **f32)
+    if run:
+        u, dt, Bc, Cc, A, chunk_h, dy = (t.contiguous() for t in (
+            u, dt, Bc, Cc, A, chunk_h, dy))
+        nblk = -(-di // CHANNELS)
+        part_b = torch.empty((nblk, B, S, ds), **f32)
+        part_c = torch.empty((nblk, B, S, ds), **f32)
+        part_a = torch.empty((B, di, ds), **f32)
+        err = build.library().ssm_scan_bwd(
+            *(t.data_ptr() for t in (u, dt, Bc, Cc, A, chunk_h, dy, du, ddt,
+                                     dB, dC, dA, part_b, part_c, part_a)),
+            B, S, di, ds, code, build.stream_handle(dev))
+        build.check(err, "ssm_scan_bwd")
+        bwd_launches += 1
+    return du, ddt, dB, dC, dA

@@ -1,7 +1,11 @@
 """Mamba-1 block (port of ``repro/models/mamba.py``), falcon-mamba-7b.
 
-Prefill runs the selective scan through ``kernels.ops.ssm_scan``: the
-Hopper kernel on the card, its plain sequential loop on the CPU.  The JAX
+Prefill and training run the selective scan through
+``kernels.ops.ssm_scan``: the Hopper kernel on the card, its plain
+sequential loop on the CPU; a gradient goes through its autograd
+function (the scan's VJP kernel on the card, ``ref.ssm_scan_bwd`` on the
+CPU), and the D skip, the ``silu(z)`` gate, ``_ssm_params`` and the conv
+are plain torch, as in JAX, differentiated by autograd.  The JAX
 package runs its own chunked associative scan there, the same scan up to
 fp32 rounding, which reshapes S into ``S // 128`` equal chunks and so
 fails when that count does not divide S (S = 500 or 1000); here any S

@@ -1,9 +1,10 @@
 """Architecture registry (port of ``repro/models/registry.py``).
 
 The dense family (``llama3-8b``, ``qwen3-14b``, ``nemotron-4-15b``,
-``h2o-danube-3-4b``) and ``falcon-mamba-7b`` are ported; every other arch
-id of the JAX registry raises ``NotImplementedError`` naming its ROADMAP
-item.
+``h2o-danube-3-4b``), the MoE family (``mixtral-8x7b``,
+``phi3.5-moe-42b-a6.6b``) and ``falcon-mamba-7b`` are ported; every other
+arch id of the JAX registry raises ``NotImplementedError`` naming its
+ROADMAP item.
 
 Unified batch dict keys: ``tokens`` (B, S) int.
 """
@@ -23,7 +24,11 @@ ARCH_IDS = (
     "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b", "whisper-tiny",
 )
 PORTED = ("llama3-8b", "qwen3-14b", "nemotron-4-15b", "h2o-danube-3-4b",
-          "falcon-mamba-7b")
+          "falcon-mamba-7b", "mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
+# the archs still to port, by family (``transformer.UNPORTED`` names the
+# ROADMAP item that ports each family)
+UNPORTED = {"phi-3-vision-4.2b": "vlm", "recurrentgemma-9b": "hybrid",
+            "whisper-tiny": "encdec"}
 
 
 def check_last_logits(logits, batch: int, vocab: int,
@@ -82,9 +87,9 @@ def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     if arch not in PORTED:
-        # the MoE, VLM, Griffin and enc-dec archs
         raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP.md queue A, item 9)")
+            f"{arch} is not ported yet (ROADMAP.md queue A, item "
+            f"{transformer.UNPORTED[UNPORTED[arch]]})")
     mod = importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
     cfg = mod.SMOKE if smoke else mod.CONFIG

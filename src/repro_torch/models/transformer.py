@@ -1,5 +1,5 @@
 """Decoder-only LM, uniform stacks (port of ``repro/models/transformer.py``,
-dense and ssm families).
+dense, MoE and ssm families).
 
 Public entry points:
   init_lm(cfg, seed=, device=)                   -> params
@@ -11,9 +11,13 @@ Public entry points:
 
 Blocks are stacked on a leading layer dim as in the JAX package; its
 ``lax.scan`` over layers is a Python loop over views of the stacks.  A
-dense block is ``{ln1, attn, ln2, mlp}`` and caches K/V; an ssm block
-(Mamba-1) is ``{ln1, ssm}`` and caches the scan state ``h`` and the conv
-tail, whose size does not grow with the sequence.  The
+dense block is ``{ln1, attn, ln2, mlp}`` and caches K/V; a MoE block is
+``{ln1, attn, ln2, moe}`` (``models/moe.py``) and caches K/V; an ssm
+block (Mamba-1) is ``{ln1, ssm}`` and caches the scan state ``h`` and the
+conv tail, whose size does not grow with the sequence.  Every block
+returns its auxiliary loss beside its output (the MoE router's Switch
+loss; None where a block has none), which the forward sums over the
+layers as JAX's ``lax.scan`` does.  The
 unembed returns fp32 logits: a bf16 matmul rounds them to bf16 first,
 where JAX accumulates straight into fp32.
 """
@@ -26,7 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.iccl.communicator import Communicator
-from repro_torch.models import mamba
+from repro_torch.models import mamba, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_he, attention, decode_attention,
                                        init_attention, init_kv_cache,
@@ -36,14 +40,27 @@ from repro_torch.parallel import tensor
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
+# the families of the JAX registry that the port does not run yet, by
+# the ROADMAP item that ports each (the registry's archs name them too)
+UNPORTED = {"hybrid": "A9d (Griffin)", "encdec": "A9e (enc-dec)",
+            "vlm": "A9f (the VLM prepend)"}
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the uniform dense attention stack (qk_norm, SWA,
-    every MLP activation of the registry) and the uniform Mamba-1
-    stack."""
-    if cfg.family not in ("dense", "ssm") or cfg.n_experts:
+    """The port runs the uniform dense attention stack (qk_norm, SWA,
+    every MLP activation of the registry), the uniform MoE stack and the
+    uniform Mamba-1 stack."""
+    if cfg.family not in ("dense", "moe", "ssm"):
+        item = UNPORTED.get(cfg.family, "A9")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(ROADMAP.md queue A, item 9)")
+            f"(ROADMAP.md queue A, item {item})")
+    if (cfg.family == "moe") != bool(cfg.n_experts) or (
+            cfg.n_experts and not 1 <= cfg.top_k <= cfg.n_experts):
+        raise ValueError(
+            f"{cfg.name}: family {cfg.family!r} with n_experts "
+            f"{cfg.n_experts}, top_k {cfg.top_k}: the moe family, and only "
+            "it, takes experts (1 <= top_k <= n_experts)")
 
 
 # ------------------------------------------------------------------ init ---
@@ -69,8 +86,11 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
         "ln1": init_rmsnorm(D, cfg.pdtype, dev, L),
         "attn": init_attention(gen, cfg, L),
         "ln2": init_rmsnorm(D, cfg.pdtype, dev, L),
-        "mlp": init_mlp(gen, cfg, L),
     }
+    if cfg.n_experts:
+        params["blocks"]["moe"] = moe.init_moe(gen, cfg, L)
+    else:
+        params["blocks"]["mlp"] = init_mlp(gen, cfg, L)
     return params
 
 
@@ -117,19 +137,51 @@ def _unembed(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return (x @ w).float()
 
 
+def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig,
+         model: Optional[Communicator] = None):
+    """The block's feed-forward half on the normed h: (out, aux), aux None
+    but for MoE."""
+    if "moe" in p:
+        return moe.moe_mlp(p["moe"], h, cfg)
+    return mlp(p["mlp"], h, cfg, model), None
+
+
 def _block(p: dict, x: torch.Tensor, cfg: ModelConfig,
            return_kv: bool = False,
            model: Optional[Communicator] = None):
+    """An attention block: (x, aux), with ``return_kv`` (x, aux, k, v)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     o, k, v = attention(p["attn"], h, cfg, return_kv=True, model=model)
     x = x + o
-    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, model)
-    return (x, k, v) if return_kv else x
+    y, aux = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, model)
+    x = x + y
+    return (x, aux, k, v) if return_kv else (x, aux)
 
 
 def _ssm_block(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """A Mamba-1 block: (x, aux = None)."""
     return x + mamba.mamba_block(p["ssm"], rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                 cfg)
+                                 cfg), None
+
+
+def block_fn(cfg: ModelConfig, model: Optional[Communicator] = None):
+    """The stack's block, ``(p, x) -> (x, aux)``."""
+    if cfg.family == "ssm":
+        return functools.partial(_ssm_block, cfg=cfg)
+    return functools.partial(_block, cfg=cfg, model=model)
+
+
+def run_blocks(layers, x: torch.Tensor, block, remat: bool):
+    """x through the layers' blocks in order, each under
+    ``torch.utils.checkpoint`` when ``remat``: (x, the sum of their aux
+    losses, None where no block has one)."""
+    aux = None
+    for p in layers:
+        x, a = (checkpoint(block, p, x, use_reentrant=False) if remat
+                else block(p, x))
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def _requires_grad(tree) -> bool:
@@ -147,6 +199,21 @@ def remat_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor) -> bool:
             and (x.requires_grad or _requires_grad(blocks)))
 
 
+def check_tp_supported(cfg: ModelConfig) -> None:
+    """Tensor parallelism splits the dense stack; the others raise,
+    naming their ROADMAP item."""
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over the ssm stack (d_inner "
+            "split over the model ranks) is not ported yet (ROADMAP.md "
+            "queue A, item A9a)")
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor and expert parallelism over MoE "
+            "(JAX's moe_mlp_manual) is not ported yet (ROADMAP.md queue A, "
+            "item A9b)")
+
+
 def lm_features(params: dict, tokens, cfg: ModelConfig,
                 model: Optional[Communicator] = None):
     """The forward WITHOUT the unembed: (features (B,S,D) after the final
@@ -159,22 +226,20 @@ def lm_features(params: dict, tokens, cfg: ModelConfig,
     gradients are those of the kept forward, bit for bit.  On a
     tensor-parallel rank (``model``) the features are whole and the
     weight is this rank's vocab slice, (D, V / tp), when the rules split
-    the vocab; a recomputed block all-reduces again."""
+    the vocab; a recomputed block all-reduces again.  ``aux_loss`` is the
+    sum of the blocks' auxiliary losses (the MoE router's), under remat
+    too."""
     check_supported(cfg)
-    if model is not None and cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over the ssm stack waits for "
-            "its training kernels (ROADMAP.md queue A, item 9)")
+    if model is not None:
+        check_tp_supported(cfg)
     x = _embed(params, tokens, cfg, model)
-    block = (functools.partial(_ssm_block, cfg=cfg) if cfg.family == "ssm"
-             else functools.partial(_block, cfg=cfg, model=model))
     remat = remat_blocks(cfg, params["blocks"], x)
-    for i in range(cfg.num_layers):
-        p = layer(params["blocks"], i)
-        x = (checkpoint(block, p, x, use_reentrant=False) if remat
-             else block(p, x))
+    x, aux = run_blocks((layer(params["blocks"], i)
+                         for i in range(cfg.num_layers)), x,
+                        block_fn(cfg, model), remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, _unembed_weight(params, cfg), aux
 
 
@@ -226,8 +291,8 @@ def lm_prefill(params: dict, tokens, cfg: ModelConfig, max_len: int):
         shift = S % Sw if cfg.window and keep == Sw else 0
         ck, cv = cache["kv"]["k"], cache["kv"]["v"]
         for i in range(cfg.num_layers):
-            x, k, v = _block(layer(params["blocks"], i), x, cfg,
-                             return_kv=True)
+            x, _, k, v = _block(layer(params["blocks"], i), x, cfg,
+                                return_kv=True)
             if shift:
                 ck[i] = torch.roll(k[:, S - keep:], shift, dims=1)
                 cv[i] = torch.roll(v[:, S - keep:], shift, dims=1)
@@ -261,7 +326,7 @@ def lm_decode_step(params: dict, token, cache: dict, cfg: ModelConfig):
             p = layer(params["blocks"], i)
             h = rmsnorm(p["ln1"], x, cfg.norm_eps)
             x = x + decode_attention(p["attn"], h, ck[i], cv[i], pos, cfg)
-            x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+            x = x + _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)[0]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     cache["pos"] = pos + 1
     return _unembed(params, x, cfg)[:, 0], cache

@@ -57,8 +57,14 @@ the ring ranks of a group are replicas of one state, whose partial
 gradients are summed over ``pod``; ZeRO-1 slices over ``data``, the
 groups, never over the ring (JAX's ``opt_state_spec``).
 
-Scope: the uniform dense (attention) stack.  Mamba training waits for the
-scan's backward kernel (ROADMAP.md queue A, item 9).  On one card, stage
+Scope: a uniform stack, dense, MoE or Mamba-1.  A MoE block's auxiliary
+loss joins the loss as JAX's does: the sum over the valid slots of every
+stage's aux, over m, times ``AUX_COEF``; on ranks each stage's backward
+takes ``AUX_COEF / m`` of its own aux beside its output's gradient, so
+the aux's gradient reaches the earlier stages through the hops.  A
+replica's aux over its own rows is not JAX's aux over the whole batch,
+so MoE at dp > 1 is refused (ROADMAP.md queue A, item A9c), and tp over
+the ssm and MoE stacks waits for items A9a and A9b.  On one card, stage
 tp and activation sharding are bookkeeping; on ranks, stages of mixed tp
 widths (the ``pp_reshard`` boundary) and tied embeddings wait for
 ROADMAP.md queue A, item A5c, which also records why interleaved plans
@@ -67,12 +73,10 @@ on ranks waits for ROADMAP.md queue A, item A8b.
 """
 from __future__ import annotations
 
-import functools
 from typing import (Any, Dict, List, NamedTuple, Optional, Sequence, Tuple,
                     Union)
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.plan import ParallelPlan
 from repro_torch.core.simulator import (interleaved_streams,
@@ -81,8 +85,10 @@ from repro_torch.iccl.communicator import Communicator, _note
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.registry import bundle_for
-from repro_torch.models.transformer import (_block, _embed, _unembed,
-                                            _unembed_weight, vocab_model)
+from repro_torch.models.transformer import (_embed, _unembed,
+                                            _unembed_weight, block_fn,
+                                            check_tp_supported, run_blocks,
+                                            vocab_model)
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.parallel import context
@@ -91,22 +97,17 @@ from repro_torch.parallel.sharding import (ShardingRules, gather_trees,
                                            map_with_path, shard_tree,
                                            zero_dims, zero_gather_trees,
                                            zero_shard_tree)
-from repro_torch.train.steps import (LossFn, cross_entropy, make_loss_fn,
-                                     with_aux)
+from repro_torch.train.steps import (AUX_COEF, LossFn, cross_entropy,
+                                     make_loss_fn, with_aux)
 
 
 def check_pp_supported(cfg: ModelConfig) -> None:
     """Raise ValueError when ``cfg`` falls outside the pipeline loss's
-    scope (the uniform dense stack)."""
+    scope (a uniform stack: dense, MoE or Mamba-1), as JAX's assert."""
     kinds = set(cfg.layer_kinds())
     if len(kinds) != 1:
         raise ValueError("pp execution needs a uniform scanned stack "
                          f"(got kinds={sorted(kinds)})")
-    if kinds != {"attn"} or cfg.n_experts:
-        raise ValueError(
-            f"{cfg.name}: pp execution trains the uniform dense stack; "
-            f"kinds={sorted(kinds)}, n_experts={cfg.n_experts} need "
-            "training kernels not ported yet (ROADMAP.md queue A, item 9)")
 
 
 def virtual_stage_layers(n_layers: int, n_stages: int,
@@ -213,7 +214,9 @@ def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
     unembed and the cross-entropy run on the whole microbatch at its
     finishing tick (no ``loss_chunk``, as in JAX).  The loss is the mean
     over microbatches of the CE plus ``AUX_COEF`` times the mean aux:
-    the reference loss's value on the same tokens, same metrics dict.
+    the reference loss's value on the same tokens (for MoE, JAX's pp
+    loss: the aux of each microbatch, where the reference loss takes it
+    over the whole batch), same metrics dict.
 
     ``telemetry`` (``telemetry.StageTelemetry``) takes a mark at the end
     of every tick, after its valid slots ran, and one after the last, as
@@ -230,13 +233,13 @@ def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
     V = len(vl)
     starts = [sum(vl[:vs]) for vs in range(V)]
     reshard = _mixed_tp(stage_tp) and bool(cfg.act_sharding)
-    block = functools.partial(_block, cfg=cfg)
+    block = block_fn(cfg)
 
-    def run_stage(layers, vs: int, x: torch.Tensor) -> torch.Tensor:
-        for p in layers[starts[vs]:starts[vs] + vl[vs]]:
-            x = (checkpoint(block, p, x, use_reentrant=False) if cfg.remat
-                 else block(p, x))
-        return x
+    def run_stage(layers, vs: int, x: torch.Tensor):
+        """(x after virtual stage vs, the sum of its blocks' aux or
+        None)."""
+        return run_blocks(layers[starts[vs]:starts[vs] + vl[vs]], x, block,
+                          cfg.remat)
 
     def loss_fn(params, batch):
         tokens, labels = batch["tokens"], batch["labels"]
@@ -252,12 +255,15 @@ def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
         acts: Dict[int, torch.Tensor] = {}     # microbatch -> activation
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=params["embed"].device)
+        aux_sum = torch.zeros_like(loss_sum)
         for t in range(m + V - 1):
             if t < m:
                 acts[t] = _embed(params, tokens[t], cfg)
             # the valid slots: virtual stage vs holds microbatch t - vs
             for vs in range(max(0, t - m + 1), min(t, V - 1) + 1):
-                acts[t - vs] = run_stage(layers, vs, acts[t - vs])
+                acts[t - vs], aux = run_stage(layers, vs, acts[t - vs])
+                if aux is not None:
+                    aux_sum = aux_sum + aux
             if telemetry is not None:
                 telemetry.mark(t, loss_sum)
             j_out = t - (V - 1)
@@ -271,8 +277,7 @@ def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
             _note("pp_shift", "pod", hop)
         if telemetry is not None:
             telemetry.mark(m + V - 1, loss_sum)
-        # dense blocks have no auxiliary loss: the valid slots' aux sum is 0
-        return with_aux(loss_sum / m, torch.zeros_like(loss_sum))
+        return with_aux(loss_sum / m, aux_sum / m)
 
     return loss_fn
 
@@ -280,6 +285,7 @@ def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
 # ---------------------------------------------------------- the ranks ----
 A5C = "ROADMAP.md queue A, item A5c"
 A8B = "ROADMAP.md queue A, item A8b"
+A9C = "ROADMAP.md queue A, item A9c"
 
 
 def check_rank_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
@@ -287,9 +293,18 @@ def check_rank_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
     a plan of the dense stack, one tp width and one dp width, under
     ``interleaved-1f1b`` with vpp > 1 a microbatch count that Megatron's
     order matches every message of (m <= pp, or m a multiple of pp), and
-    cp > 1 only at pp 1 on a model in the cp loss's scope."""
+    cp > 1 only at pp 1 on a model in the cp loss's scope; tp > 1 on the
+    dense stack only; MoE on one replica."""
     check_pp_supported(cfg)
     m, pp = plan.micro_batches, plan.pp
+    if max(plan.tps) > 1:
+        check_tp_supported(cfg)
+    if cfg.n_experts and max(plan.dps) > 1:
+        raise ValueError(
+            f"{cfg.name} at dp {max(plan.dps)}: JAX's MoE aux is a product "
+            f"of means over the whole (micro)batch, and a replica's over "
+            f"its own rows is another number; MoE at dp > 1 waits for "
+            f"{A9C}")
     if plan.vpp > 1 and m > pp and m % pp:
         raise ValueError(
             f"interleaved-1f1b with vpp={plan.vpp} on ranks: Megatron's "
@@ -808,7 +823,8 @@ class PPRankStep:
         self.async_sends = plan.schedule == "1f1b-eager"
         self.peak_inflight = 0
         self.clock = None
-        self._block = functools.partial(_block, cfg=cfg, model=self.model)
+        self.last_aux = None    # this rank's aux sum / m of the last step
+        self._block = block_fn(cfg, self.model)
         self.order: Optional[List[Op]] = None
         self.boundaries = None
         if plan.pp == 1:
@@ -846,11 +862,8 @@ class PPRankStep:
             if op == "recv":
                 inbox[msg] = next(got)
 
-    def _run_layers(self, layers, x: torch.Tensor) -> torch.Tensor:
-        for p in layers:
-            x = (checkpoint(self._block, p, x, use_reentrant=False)
-                 if self.cfg.remat else self._block(p, x))
-        return x
+    def _run_layers(self, layers, x: torch.Tensor):
+        return run_blocks(layers, x, self._block, self.cfg.remat)
 
     def _whole_grads(self, grads: Dict[str, Any]) -> Dict[str, Any]:
         """Sum over ``model`` the gradients each rank holds in part."""
@@ -886,16 +899,21 @@ class PPRankStep:
         like = torch.empty(tokens.shape[1:] + (cfg.d_model,),
                            dtype=cfg.adtype, device=leaves[0].device)
         ce_sum = torch.zeros((), dtype=torch.float32, device=like.device)
-        saved: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+        aux_sum = torch.zeros_like(ce_sum)
+        saved: Dict[Tuple[int, int], Tuple[torch.Tensor, ...]] = {}
 
         def forward(c: int, j: int, x: Optional[torch.Tensor]):
             """Chunk c's forward of microbatch j from ``x`` (None: the
             embedding): the activation to send on, or None at V - 1."""
-            nonlocal ce_sum
+            nonlocal ce_sum, aux_sum
             vs = c * pp + s
             x = _embed(p, tokens[j], cfg, self.model) if vs == 0 else \
                 x.requires_grad_()
-            y = self._run_layers(layers[c], x)
+            y, aux = self._run_layers(layers[c], x)
+            if aux is not None:
+                aux_sum = aux_sum + aux.detach()
+                # the chunk's part of the loss's AUX_COEF * aux_sum / m
+                aux = aux * (AUX_COEF / m)
             out = None
             if vs == V - 1:
                 h = rmsnorm(p["final_norm"], y, cfg.norm_eps)
@@ -905,7 +923,7 @@ class PPRankStep:
                 y = ce / m
             else:
                 out = y.detach()
-            saved[(c, j)] = (x, y)
+            saved[(c, j)] = (x, y, aux)
             self.peak_inflight = max(self.peak_inflight, len(saved))
             return out
 
@@ -913,8 +931,11 @@ class PPRankStep:
             """Chunk c's backward of microbatch j from ``dy`` (None: the
             loss): its input's gradient, or None at virtual stage 0."""
             vs = c * pp + s
-            x, y = saved.pop((c, j))
-            y.backward(dy)
+            x, y, aux = saved.pop((c, j))
+            if aux is not None and aux.requires_grad:
+                torch.autograd.backward([y, aux], [dy, None])
+            else:
+                y.backward(dy)
             return x.grad if vs > 0 else None
 
         outbox: Dict[Msg, Any] = {}
@@ -944,24 +965,30 @@ class PPRankStep:
             work.wait()
         grads = tree_map(
             lambda t: torch.zeros_like(t) if t.grad is None else t.grad, p)
-        return ce_sum / m, self._whole_grads(grads)
+        self.last_aux = aux_sum / m
+        return (ce_sum + AUX_COEF * aux_sum) / m, self._whole_grads(grads)
 
     def _accumulated(self, p: Dict[str, Any], batch: Dict[str, torch.Tensor],
                      rows: int):
         """pp 1 over the plan's m microbatches of ``rows`` rows, one at a
         time, each loss's gradient / m added into the leaves' grads (as
         the pipeline's backwards add theirs): the activations of one
-        microbatch at a time, the memory the plan was priced at."""
-        ce_sum = None
+        microbatch at a time, the memory the plan was priced at.  A MoE
+        aux is each microbatch's, averaged: JAX's pp loss (the reference
+        loss takes it over the whole batch, another number at m > 1)."""
+        loss_sum = aux_sum = None
         for j in range(self.m):
             mb = {k: v[j * rows:(j + 1) * rows] for k, v in batch.items()}
-            loss, _ = self._loss(p, mb)
+            loss, metrics = self._loss(p, mb)
             (loss / self.m).backward()
-            ce_sum = loss.detach() if ce_sum is None else \
-                ce_sum + loss.detach()
+            loss_sum = loss.detach() if loss_sum is None else \
+                loss_sum + loss.detach()
+            aux = metrics["aux"].detach()
+            aux_sum = aux if aux_sum is None else aux_sum + aux
         grads = tree_map(
             lambda t: torch.zeros_like(t) if t.grad is None else t.grad, p)
-        return ce_sum / self.m, self._whole_grads(grads)
+        self.last_aux = aux_sum / self.m
+        return loss_sum / self.m, self._whole_grads(grads)
 
     def __call__(self, state: Dict[str, Any],
                  batch: Dict[str, torch.Tensor]):
@@ -984,11 +1011,14 @@ class PPRankStep:
             params, grads, state["opt"], self.opt_cfg, grad_norm=gnorm,
             data=self.data if dp > 1 else None,
             zero=_zero(params, self.rules, dp))
+        aux = self.last_aux
         if pp > 1 or cp > 1:
             loss = self.pod.iallreduce(loss)
+            if pp > 1 and self.cfg.n_experts:
+                aux = self.pod.iallreduce(aux)
         if dp > 1:
             loss = self.data.iallreduce(loss) / dp
-        metrics = {"ce": loss, "aux": torch.zeros_like(loss), "loss": loss,
+        metrics = {"ce": loss - AUX_COEF * aux, "aux": aux, "loss": loss,
                    **om}
         return {"params": params, "opt": opt,
                 "step": state["step"] + 1}, metrics

@@ -44,7 +44,7 @@ import torch.distributed as dist
 
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.iccl.communicator import Communicator
-from repro_torch.models import registry
+from repro_torch.models import registry, transformer
 from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import ShardingRules, shard_tree
 from repro_torch.profile.store import ProfileStore
@@ -237,10 +237,8 @@ def bench_layers(store: ProfileStore, dev: str, arch: str,
     all-reduces: one layer of a tp-wide stage, what
     ``ProfiledCostModel.layer_time(..., tp)`` prices."""
     device = resolve_device(device)
-    if tp > 1 and registry.get_config(arch, smoke=smoke).family != "dense":
-        raise NotImplementedError(
-            f"{arch}: tensor parallelism runs the dense stack; the others "
-            "wait for their training kernels (ROADMAP.md queue A, item 9)")
+    if tp > 1:      # the dense stack's; the others name their item
+        transformer.check_tp_supported(registry.get_config(arch, smoke=smoke))
     times = (probe_times(arch, seqs, micro_bss, warmup, reps, smoke, device)
              if tp == 1 else
              _tp_probe_times(arch, seqs, micro_bss, tp, warmup, reps, smoke,

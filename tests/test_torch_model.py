@@ -126,17 +126,24 @@ def test_lm_decode_steps_match_jax(models, per_row):
 
 
 def test_unported_options_raise():
-    """What the port still refuses: MoE and the families of queue A item
-    9.  The dense family's window, qk_norm and activations are ported
-    (tests/test_torch_archs.py)."""
-    with pytest.raises(NotImplementedError, match="queue A"):
+    """What the port still refuses: the families of queue A items A9d-A9f
+    (Griffin, enc-dec, the VLM prepend), each by its item, and a config
+    whose family and experts disagree.  The dense family's window, qk_norm
+    and activations (tests/test_torch_archs.py) and the MoE family
+    (tests/test_torch_moe.py) are ported."""
+    with pytest.raises(NotImplementedError, match="queue A, item A9d"):
+        transformer.init_lm(
+            treg.get_config("llama3-8b", smoke=True, family="hybrid"),
+            device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A, item A9e"):
+        transformer.init_cache(
+            treg.get_config("llama3-8b", smoke=True, family="encdec"), 1, 16,
+            "cpu")
+    with pytest.raises(ValueError, match="moe family, and only it"):
         transformer.init_lm(
             treg.get_config("llama3-8b", smoke=True, family="moe"),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A"):
-        transformer.init_cache(
-            treg.get_config("llama3-8b", smoke=True, family="moe"), 1, 16,
-            "cpu")
-    for arch in ("mixtral-8x7b", "recurrentgemma-9b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for arch, item in (("recurrentgemma-9b", "A9d"), ("whisper-tiny", "A9e"),
+                       ("phi-3-vision-4.2b", "A9f")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             treg.get_bundle(arch, smoke=True)

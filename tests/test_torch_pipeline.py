@@ -187,11 +187,15 @@ def test_stack_and_unstack_equal_jax(smoke4, vpp, vl):
 
 
 def test_pp_scope_and_argument_errors():
-    """An ssm stack names its ROADMAP item; layer counts and stage tp
-    widths must fit the stages, as JAX asserts."""
+    """A uniform ssm stack builds a pp loss (its gradients against JAX's:
+    tests/test_torch_mamba_train.py); a non-uniform stack raises, as JAX
+    asserts; layer counts and stage tp widths must fit the stages."""
     ssm = treg.get_bundle("falcon-mamba-7b", smoke=True)
-    with pytest.raises(ValueError, match="queue A, item 9"):
-        tpp.make_pp_loss_fn(ssm.cfg, 2, 4)
+    assert callable(tpp.make_pp_loss_fn(ssm.cfg, 2, 4))
+    mixed = dataclasses.replace(ssm.cfg, family="hybrid",
+                                block_pattern=("rec", "attn"))
+    with pytest.raises(ValueError, match="uniform scanned stack"):
+        tpp.make_pp_loss_fn(mixed, 2, 4)
     _, tb = _models()
     with pytest.raises(ValueError, match="stage_tp needs 2 entries"):
         tpp.make_pp_loss_fn(tb.cfg, 2, 4, stage_tp=[1])

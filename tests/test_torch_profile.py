@@ -263,9 +263,9 @@ def test_runner_defaults_to_cuda(monkeypatch):
 
 def test_runner_refuses_tensor_parallel_layers():
     """tp > 1 probes run the dense stack's tensor-parallel loss
-    (tests/test_torch_tp.py); the ssm stack's wait for its training
-    kernels, and the runner says so before it starts any rank."""
-    with pytest.raises(NotImplementedError, match="queue A, item 9"):
+    (tests/test_torch_tp.py); tp over the ssm stack waits for its own
+    item, and the runner says so before it starts any rank."""
+    with pytest.raises(NotImplementedError, match="queue A, item A9a"):
         t_runner.bench_layers(t_store.ProfileStore(), "cpu",
                               "falcon-mamba-7b", (32,), (1,), tp=2,
                               device="cpu")

@@ -691,9 +691,17 @@ def test_rank_route_scope_errors_name_a5c():
     tied = dataclasses.replace(cfg, tie_embeddings=True)
     with pytest.raises(ValueError, match="tied embeddings.*A5c"):
         tpp.check_rank_plan(tied, _plan())
-    with pytest.raises(ValueError, match="queue A, item 9"):
-        tpp.check_rank_plan(treg.get_config("falcon-mamba-7b", smoke=True),
-                            _plan())
+    # falcon's plan runs on ranks (tests/test_torch_mamba_train.py); MoE
+    # at dp > 1 raises A9c: a replica's aux is not JAX's batch aux
+    tpp.check_rank_plan(treg.get_config("falcon-mamba-7b", smoke=True,
+                                        num_layers=4), _plan())
+    moe = treg.get_config("mixtral-8x7b", smoke=True, num_layers=4)
+    tpp.check_rank_plan(moe, _plan())
+    two = ParallelPlan(stages=tuple(StagePlacement(s, n, 2, 1, s == 1)
+                                    for s, n in enumerate((3, 1))),
+                       micro_bs=1, global_batch=8, seq_len=SEQ)
+    with pytest.raises(ValueError, match="dp > 1 waits for .*item A9c"):
+        tpp.check_rank_plan(moe, two)
 
 
 def test_gpu_transport_on_a_shared_card_raises():

@@ -1397,8 +1397,10 @@ def phase_train_kernels(torch, dev, name, device_only=False):
     # A and the chunk states read once, du, ddt, dB, dC and dA written
     # once; per state and step ~20 FLOP (the recomputed update and the
     # reverse step) and one exponential: the recurrence and the gradients
-    # share a_t = exp(dt_t A), which the kernel, by its design, computes
-    # again in its reverse walk
+    # share a_t = exp(dt_t A), which the kernel, by its design (a walk
+    # over the chunk for its carry, then a recompute of each sub-chunk),
+    # takes twice.  A call is the flags' memset, the walk and the passes
+    # adding its partials
     sa, shc, sdy = scan_train
     Sb, dib = sa[0].shape[1:]
     dsb = sa[2].shape[-1]
@@ -1411,7 +1413,8 @@ def phase_train_kernels(torch, dev, name, device_only=False):
               "ddt/dB/dC/dA fp32 (falcon-mamba-7b's training shape)",
         fn=lambda: ss.ssm_scan_bwd(*sa, shc, sdy),
         plain=lambda: ref.ssm_scan_bwd(*sa, sdy), per_call=1,
-        library=None, kernels=("ssm_scan_bwd_kernel", "sum_partials_kernel"),
+        library=None, kernels=("ssm_scan_bwd_kernel", "sum_partials_kernel",
+                               "Memset"),
         bytes=(Sb * dib * (el + 4 + 4 + el + 4) + 4 * Sb * dsb * f4
                + 2 * dib * dsb * f4 + shc.numel() * f4),
         ops=[(20 * states, fp32_peak),

@@ -53,7 +53,7 @@ _SIGNATURES = {
                             + [_c.c_int, _c.c_int, _c.c_float, _c.c_float,
                                _c.c_int, _P]),
     "ssm_scan_fwd": (_c.c_int, [_P] * 8 + [_c.c_int] * 5 + [_P]),
-    "ssm_scan_bwd": (_c.c_int, [_P] * 15 + [_c.c_int] * 5 + [_P]),
+    "ssm_scan_bwd": (_c.c_int, [_P] * 17 + [_c.c_int] * 5 + [_P]),
     "ring_step_fwd": (_c.c_int, [_P] * 9 + [_c.c_int] * 8
                       + [_c.POINTER(_c.c_int), _c.c_int, _c.c_float,
                          _c.c_int, _P]),

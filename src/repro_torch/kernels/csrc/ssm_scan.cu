@@ -46,12 +46,16 @@
 // decay is too small to add to h; the card tests hold it at the fp32
 // tolerance from decays of 1 (dt and A near 0, 4096 steps) to underflow
 // (|dt * A| >= 50).
+#include <cooperative_groups.h>
+
 #include <algorithm>
 
 #include "common.cuh"
 #include "mma.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kStates = 16;                   // largest d_state taken
 constexpr int kPer = 4;                       // states a thread owns
@@ -273,47 +277,131 @@ cudaError_t attrs(int* out) {
 
 // ------------------------------------------------------------- the VJP ---
 // ssm_scan_bwd: given dy = dL/dy (B, S, di) fp32, the gradients of u, dt,
-// Bc, Cc and A.  With g_t = dL/dh_t (no gradient reaches the last state):
+// Bc, Cc and A.  With a_t = exp(dt_t A) and g_t = dL/dh_t (no gradient
+// reaches the last state):
 //
-//   g_t   = dy_t C_t + exp(dt_{t+1} A) g_{t+1}
-//   du_t  = sum_n g_t dt_t B_t             ddt_t = sum_n g_t (u_t B_t + A a_t h_{t-1})
-//   dB_t  = sum_d g_t dt_t u_t             dC_t  = sum_d dy_t h_t
-//   dA    = sum_{b,t} g_t dt_t a_t h_{t-1}        (a_t = exp(dt_t A))
+//   g_t   = dy_t C_t + a_{t+1} g_{t+1}
+//   du_t  = dt_t s1_t                ddt_t = u_t s1_t + s2_t
+//     with s1_t = sum_n g_t B_t and s2_t = sum_n g_t A a_t h_{t-1}
+//   dB_t  = sum_d g_t dt_t u_t       dC_t  = sum_d dy_t h_t
+//   dA    = sum_{b,t} g_t dt_t a_t h_{t-1}
 //
-// The forward stored the state entering every kChunk-step chunk.  The
-// block (the forward's layout: 4 states of a channel a thread, 4 lanes a
-// channel, 32 channels) walks the chunks in reverse.  For each it
-// recomputes the chunk's states from the stored start with the forward's
-// own arithmetic (the same h bit for bit), keeping each thread's 4
-// states of every step in shared memory (128 KB), then walks the steps
-// backwards carrying a_{t+1} g_{t+1} in registers across chunks: one
-// exponential a state a step in each walk.  The state is never run
-// backwards (h_{t-1} = (h_t - dt u B) / a_t is lost where a underflows).
+// Time is split over blocks.  The forward stored the state entering every
+// kChunk-step chunk, so chunk k's states need only that state.  The one
+// serial link is the reverse carry c = a_{t+1} g_{t+1}, and it is linear:
+// a stretch of steps that receives the carry c passes on L + Q c, where Q
+// is the product of its decays and L = sum_t (a_t0 ... a_t) dy_t C_t its
+// carry from a zero start.  One block takes one (chunk, 32 channels, batch
+// row) in the forward's layout (4 states of a channel a thread, 4 lanes a
+// channel), 128 threads, and:
+//   1. copies the chunk's dt, dy, u, B and C into shared memory with
+//      cp.async, in two halves, and starts on the first half while the
+//      second lands;
+//   2. takes L_j and the dt sum of each kSub-step sub-chunk j, a walk
+//      that needs no state: a_tj ... a_t = exp2(A log2e (dt_tj + ... +
+//      dt_t)), and Q_j that of the whole sum;
+//   3. waits for c_k from the block of chunk k + 1 (an integer flag,
+//      acquire/release), composes the sub-chunks' (L_j, Q_j) back from
+//      c_k into the carry entering each sub-chunk, and passes chunk k's
+//      carry on to chunk k - 1;
+//   4. takes the sub-chunks in order, the state carried from the chunk's
+//      stored start: recomputes a sub-chunk's states and decays into
+//      registers with the forward's own arithmetic (the same h bit for
+//      bit), then walks its steps backwards from its carry, reusing those
+//      decays.
+// Blocks take their work from a ticket (an integer atomic) in order of
+// chunks from the last, so a block only ever waits for a block that got
+// its ticket earlier and is running: no deadlock whatever the order the
+// card starts blocks in.  At falcon-mamba-7b's shape (B1 S4096 di8192)
+// that is 16,384 blocks of 4 warps with 55 KB of shared memory (bf16 u),
+// 4 blocks an SM, where one block a channel group had 256 blocks at one
+// an SM.
 //
-// Sums: du and ddt over a channel's 4 lanes, 4 steps a group with 3
-// shuffles each, as y in the forward; dB and dC over the warp's 8
-// channels with 7 shuffles a step (each lane left with one of the 8
-// sums), then over the block's 4 warps in shared memory in a fixed order
-// into a partial of the block; a second kernel adds the blocks' partials
-// in block order, and dA's partials (one a batch row) in row order.  No
-// float atomics: two runs of one input give the same bits.
+// Sums, each in a fixed order (no float atomics: two runs of one input
+// give the same bits): du and ddt over a channel's 4 lanes, 4 steps a
+// group with 3 shuffles each, as y in the forward; dB and dC over the
+// warp's 8 channels with 7 shuffles a step, the 4 steps of a group side
+// by side so that their shuffles overlap, over the block's 4 warps in
+// shared memory in warp order, then over a cluster of kCluster blocks (256
+// channels) through distributed shared memory in rank order into one
+// partial a cluster, which a second kernel adds in cluster order (32
+// partials at di 8192: 16.8 MB written and read, an eighth of what 256
+// per-block partials took); dA along the chunks' chain (each
+// block adds its own to the running sum of the chunks after it, behind
+// a second flag) into one partial a batch row, added in row order.
+//
+// What bounds it on the H100 SXM (700 W): the bytes are u, dt, dy, B, C,
+// A and the chunk states read once, du, ddt, dB, dC and dA written once,
+// 571 MB at falcon's shape (0.171 ms at the data sheet's 3.35 TB/s), and
+// the partials 34 MB more.  Each state and step takes two exponentials,
+// one in step 2 and one in the sub-chunk's recompute (the reverse walk
+// reuses the recompute's), 1.07 G on the special-function units (16 an SM
+// a clock, 132 SMs at 1.98 GHz): 0.257 ms.  Above both, the instructions
+// bind: ~35 a state and step (the walks' arithmetic, the shuffles and
+// selects of the per-step sums), 0.57 ms at one a clock per scheduler,
+// and 16 warps an SM (registers cap them) do not hide all the latency.
+// Tensor cores do not apply: each step's sums over d (dB, dC) and over n
+// (du, ddt) are matrix-vector products with a new matrix every step.  The
+// state is never run backwards (h_{t-1} = (h_t - dt u B) / a_t is lost
+// where a underflows).
 constexpr int kWarps = kThreads / 32;
 constexpr int kRedVals = 2 * kPer;            // dB and dC of 4 states
 constexpr int kWarpChannels = 32 / kLanes;    // channels a warp
+constexpr int kSub = 8;                       // steps a sub-chunk
+constexpr int kSubs = kChunk / kSub;          // sub-chunks a chunk
+constexpr int kCluster = 8;                   // blocks a cluster
+constexpr int kRankSteps = kChunk / kCluster; // steps a rank sums
+static_assert(kSub * 32 % kThreads == 0 && kRankSteps * 32 % kThreads == 0,
+              "whole rounds of the block's threads");
 
 template <typename Tu>
 struct BwdSmem {
-  float4 h[kChunk][kThreads];       // h_t of each thread's 4 states
   float dt[kChunk][kChannels];
   float dy[kChunk][kChannels];
   Tu u[kChunk][kChannels];
   float b[kChunk][kStates];
   float c[kChunk][kStates];
-  float red[kWarps][kChunk][32];    // a warp's 8-channel sums, a step
+  float4 lc[kSubs - 1][kThreads];   // L_j of sub-chunks 1 .., then the
+                                    // carries entering sub-chunks 0 ..
+  union {
+    float sdt[kSubs][kThreads];     // a sub-chunk's dt sum (steps 2-3)
+    float red[kWarps][kSub][32];    // a warp's 8-channel sums, a step
+  };
+  float bsum[kChunk][32];           // the block's dB and dC sums, a step
+  int ticket;                       // the cluster's, in rank 0
 };
 
-template <typename Tu>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// thread 0 waits until *flag >= want, then the block goes on.  A chain
+// that never arrives is a fault: trap after ~2^26 polls (seconds) rather
+// than hang the card.
+__device__ __forceinline__ void wait_flag(const int* flag, int want) {
+  if (threadIdx.x == 0) {
+    for (unsigned polls = 0; ld_acquire(flag) < want; ++polls) {
+      if (polls >= (1u << 26)) __trap();
+      __nanosleep(32);
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// kVec: ds == 16, di % kChannels == 0 and 16-byte aligned bases (cp.async
+// of whole 16-byte pieces); else plain loads.  flags: [0] the tickets,
+// then the carry's and dA's flags, each (B, n_cl * kCluster): how many
+// chunks of that batch row and channel group have passed theirs on.
+template <typename Tu, bool kVec>
+__global__ void __launch_bounds__(kThreads, 4)
 ssm_scan_bwd_kernel(const Tu* __restrict__ u, const float* __restrict__ dt,
                     const float* __restrict__ Bc,
                     const float* __restrict__ Cc,
@@ -322,169 +410,331 @@ ssm_scan_bwd_kernel(const Tu* __restrict__ u, const float* __restrict__ dt,
                     const float* __restrict__ dy, Tu* __restrict__ du,
                     float* __restrict__ ddt, float* __restrict__ part_b,
                     float* __restrict__ part_c, float* __restrict__ part_a,
-                    int S, int di, int ds) {
+                    float* __restrict__ carry_buf, int* __restrict__ flags,
+                    int Bsz, int S, int di, int ds, int n_cl) {
   static_assert(kWarpChannels == kRedVals, "one sum a lane");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdSmem<Tu>& sm = *reinterpret_cast<BwdSmem<Tu>*>(smem_raw);
-
-  const int b = blockIdx.y, blk = blockIdx.x, Bsz = gridDim.y;
-  const int d0 = blk * kChannels;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
+
+  if (rank == 0 && tid == 0) sm.ticket = atomicAdd(flags, 1);
+  cluster.sync();
+  const int ticket = *cluster.map_shared_rank(&sm.ticket, 0);
+  const int n_chunks = (S + kChunk - 1) / kChunk;
+  const int per_chunk = n_cl * Bsz;
+  const int k = n_chunks - 1 - ticket / per_chunk;   // the last chunk first
+  const int b = ticket % per_chunk / n_cl, cl = ticket % n_cl;
+  const int grp = cl * kCluster + rank, n_gp = n_cl * kCluster;
+  const int d0 = grp * kChannels;
   const int c = tid / kLanes, q = tid % kLanes;
   const int d = d0 + c, n0 = q * kPer;
   const int lane = tid & 31, warp = tid >> 5;
+  const int t0 = k * kChunk;
   const int64_t row0 = (int64_t)b * S;
-  const int n_chunks = (S + kChunk - 1) / kChunk;
 
-  float a[kPer], a2[kPer], carry[kPer], da[kPer];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const bool live = d < di && n0 + j < ds;
-    a[j] = live ? A[(int64_t)d * ds + n0 + j] : 0.f;
-    a2[j] = a[j] * kLog2e;
-    carry[j] = 0.f;          // a_{t+1} g_{t+1}: nothing after the last step
-    da[j] = 0.f;
-  }
-
-  for (int k = n_chunks - 1; k >= 0; --k) {
-    const int t0 = k * kChunk;
-    const int T = min(kChunk, S - t0);
-    const int Tp = (T + kLanes - 1) / kLanes * kLanes;   // whole groups
-    __syncthreads();         // every thread is done with the last chunk's
-    for (int i = tid; i < kChunk * kChannels; i += kThreads) {
-      const int tt = i / kChannels, cc = i % kChannels;
-      const bool in = tt < T && d0 + cc < di;
-      const int64_t off = (row0 + t0 + tt) * di + d0 + cc;
-      sm.dt[tt][cc] = in ? dt[off] : 0.f;
-      sm.dy[tt][cc] = in ? dy[off] : 0.f;
-      sm.u[tt][cc] = in ? u[off] : from_f32<Tu>(0.f);
-    }
-    for (int i = tid; i < kChunk * kStates; i += kThreads) {
-      const int tt = i / kStates, n = i % kStates;
-      const bool in = tt < T && n < ds;
-      const int64_t off = (row0 + t0 + tt) * ds + n;
-      sm.b[tt][n] = in ? Bc[off] : 0.f;
-      sm.c[tt][n] = in ? Cc[off] : 0.f;
-    }
-    float h0[kPer];          // the state entering the chunk
-    const float* hc = chunk_h + (((int64_t)b * n_chunks + k) * di + d) * ds;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      h0[j] = d < di && n0 + j < ds ? hc[n0 + j] : 0.f;
-    __syncthreads();
-
-    // the chunk's states, as the forward computed them; rows past T are
-    // zero-filled (dt = 0) and leave h as it is
-    {
-      float h[kPer];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) h[j] = h0[j];
-      for (int t = 0; t < Tp; ++t) {
-        const float dtv = sm.dt[t][c];
-        const float dus = dtv * to_f32(sm.u[t][c]);
-        const float4 b4 = *reinterpret_cast<const float4*>(&sm.b[t][n0]);
-        const float bv[kPer] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int j = 0; j < kPer; ++j)
-          h[j] = fmaf(tc::exp2_fast(dtv * a2[j]), h[j], dus * bv[j]);
-        sm.h[t][tid] = make_float4(h[0], h[1], h[2], h[3]);
+  // step 1: the chunk into shared memory, rows past S zero-filled (dt = 0
+  // and dy = 0: a decay of 1, nothing added, g unchanged)
+  auto stage = [&](int half) {
+    constexpr int kRows = kChunk / 2;
+    const int tb = half * kRows;
+    if constexpr (kVec) {
+      constexpr int kDt = kChannels / 4;              // 16 B pieces a row
+      constexpr int kU = kChannels * sizeof(Tu) / 16;
+      constexpr int kE = 16 / sizeof(Tu);             // u elements a piece
+      constexpr int kBC = kStates / 4;
+      const bool live = d0 < di;
+      for (int i = tid; i < kRows * kDt; i += kThreads) {
+        const int tt = tb + i / kDt, p = i % kDt;
+        const bool in = live && t0 + tt < S;
+        const int64_t off = (in ? (row0 + t0 + tt) * di + d0 : 0) + 4 * p;
+        tc::cp_async16(&sm.dt[tt][4 * p], dt + off, in);
+        tc::cp_async16(&sm.dy[tt][4 * p], dy + off, in);
+      }
+      for (int i = tid; i < kRows * kU; i += kThreads) {
+        const int tt = tb + i / kU, p = i % kU;
+        const bool in = live && t0 + tt < S;
+        tc::cp_async16(&sm.u[tt][kE * p],
+                       u + (in ? (row0 + t0 + tt) * di + d0 : 0) + kE * p,
+                       in);
+      }
+      for (int i = tid; i < kRows * kBC; i += kThreads) {
+        const int tt = tb + i / kBC, p = i % kBC;
+        const bool in = t0 + tt < S;
+        const int64_t off = (in ? (row0 + t0 + tt) * kStates : 0) + 4 * p;
+        tc::cp_async16(&sm.b[tt][4 * p], Bc + off, in);
+        tc::cp_async16(&sm.c[tt][4 * p], Cc + off, in);
+      }
+    } else {
+      for (int i = tid; i < kRows * kChannels; i += kThreads) {
+        const int tt = tb + i / kChannels, cc = i % kChannels;
+        const bool in = t0 + tt < S && d0 + cc < di;
+        const int64_t off = (row0 + t0 + tt) * di + d0 + cc;
+        sm.dt[tt][cc] = in ? dt[off] : 0.f;
+        sm.dy[tt][cc] = in ? dy[off] : 0.f;
+        sm.u[tt][cc] = in ? u[off] : from_f32<Tu>(0.f);
+      }
+      for (int i = tid; i < kRows * kStates; i += kThreads) {
+        const int tt = tb + i / kStates, n = i % kStates;
+        const bool in = t0 + tt < S && n < ds;
+        const int64_t off = (row0 + t0 + tt) * ds + n;
+        sm.b[tt][n] = in ? Bc[off] : 0.f;
+        sm.c[tt][n] = in ? Cc[off] : 0.f;
       }
     }
+    tc::cp_async_commit();
+  };
+  stage(0);
+  stage(1);
 
-    // the reverse walk, kLanes steps a group.  Padded rows come only in
-    // the last chunk, which is walked first: g is 0 through them
-    for (int tt = Tp - kLanes; tt >= 0; tt -= kLanes) {
-      float vdu[kLanes], vdt[kLanes];
+  bool live[kPer];
+  float a[kPer], a2[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    live[j] = d < di && n0 + j < ds;
+    a[j] = live[j] ? A[(int64_t)d * ds + n0 + j] : 0.f;
+    a2[j] = a[j] * kLog2e;
+  }
+
+  // step 2: each sub-chunk's carry from a zero start, L_j = sum_t (a_tj
+  // ... a_t) dy_t C_t (L_0 in registers, L_1 .. in sm.lc), and its dt sum,
+  // whose exp2(A log2e sum) is Q_j, the product of its decays
+  float L0[kPer];
+  tc::cp_async_wait<1>();   // the first half has landed
+  __syncthreads();
+#pragma unroll 1
+  for (int sb = 0; sb < kSubs; ++sb) {
+    if (sb == kSubs / 2) {
+      tc::cp_async_wait<0>();
+      __syncthreads();
+    }
+    // a_tj ... a_t = exp2(A log2e (dt_tj + ... + dt_t)): one exponential
+    // a state and step, no product carried from step to step
+    float L[kPer], sdt = 0.f;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) L[j] = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSub; ++s) {
+      const int t = sb * kSub + s;
+      const float dyv = sm.dy[t][c];
+      const float4 c4 = *reinterpret_cast<const float4*>(&sm.c[t][n0]);
+      const float cv[kPer] = {c4.x, c4.y, c4.z, c4.w};
+      sdt += sm.dt[t][c];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        L[j] = fmaf(tc::exp2_fast(sdt * a2[j]), dyv * cv[j], L[j]);
+    }
+    sm.sdt[sb][tid] = sdt;
+    if (sb == 0) {
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) L0[j] = L[j];
+    } else {
+      sm.lc[sb - 1][tid] = make_float4(L[0], L[1], L[2], L[3]);
+    }
+  }
+
+  // step 3: the carry c_k from chunk k + 1 (zero past the last step);
+  // then, from the last sub-chunk back, the carry entering each
+  // sub-chunk's last step (over L_j in sm.lc), and chunk k's carry on to
+  // chunk k - 1, in place
+  float c_last[kPer];   // the carry entering the last sub-chunk: c_k
+  int* cflag = flags + 1 + (int64_t)b * n_gp + grp;
+  int* aflag = cflag + (int64_t)Bsz * n_gp;
+  float* cb = carry_buf + ((int64_t)b * di + d) * ds + n0;
+  if (k + 1 < n_chunks) {
+    wait_flag(cflag, n_chunks - 1 - k);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) c_last[j] = live[j] ? __ldcg(cb + j) : 0.f;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) c_last[j] = 0.f;
+  }
+  {
+    float cur[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) cur[j] = c_last[j];
+#pragma unroll 1
+    for (int sb = kSubs - 1; sb >= 1; --sb) {
+      const float4 l4 = sm.lc[sb - 1][tid];
+      const float lv[kPer] = {l4.x, l4.y, l4.z, l4.w};
+      const float sd = sm.sdt[sb][tid];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        cur[j] = fmaf(tc::exp2_fast(sd * a2[j]), cur[j], lv[j]);
+      sm.lc[sb - 1][tid] = make_float4(cur[0], cur[1], cur[2], cur[3]);
+    }
+    if (k > 0) {
+      const float sd = sm.sdt[0][tid];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        if (live[j])
+          __stcg(cb + j, fmaf(tc::exp2_fast(sd * a2[j]), cur[j], L0[j]));
+      __threadfence();
+    }
+    __syncthreads();   // the stores above; sm.sdt is done (red reuses it)
+    if (k > 0 && tid == 0) st_release(cflag, n_chunks - k);
+  }
+
+  // step 4: the sub-chunks in order, the state carried from the chunk's
+  // stored start: recompute a sub-chunk's states and decays into
+  // registers, then walk its steps backwards from its carry
+  float h[kPer], da[kPer];
+  {
+    const float* hc = chunk_h + (((int64_t)b * n_chunks + k) * di + d) * ds;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      h[j] = live[j] ? hc[n0 + j] : 0.f;
+      da[j] = 0.f;
+    }
+  }
+#pragma unroll 1
+  for (int sb = 0; sb < kSubs; ++sb) {
+    float hs[kSub + 1][kPer], dec[kSub][kPer];   // hs[s + 1] = h at step s
+    float carry[kPer];
+    if (sb + 1 < kSubs) {
+      const float4 v = sm.lc[sb][tid];
+      carry[0] = v.x; carry[1] = v.y; carry[2] = v.z; carry[3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) carry[j] = c_last[j];
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) hs[0][j] = h[j];
+#pragma unroll
+    for (int s = 0; s < kSub; ++s) {
+      const int t = sb * kSub + s;
+      const float dtv = sm.dt[t][c];
+      const float dus = dtv * to_f32(sm.u[t][c]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&sm.b[t][n0]);
+      const float bv[kPer] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        dec[s][j] = tc::exp2_fast(dtv * a2[j]);
+        hs[s + 1][j] = fmaf(dec[s][j], hs[s][j], dus * bv[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) h[j] = hs[kSub][j];
+    // backwards, kLanes steps a group
+#pragma unroll
+    for (int grp4 = kSub / kLanes - 1; grp4 >= 0; --grp4) {
+      float v1[kLanes], v2[kLanes], r[kLanes][kRedVals];
 #pragma unroll
       for (int gi = kLanes - 1; gi >= 0; --gi) {
-        const int t = tt + gi;
+        const int s = grp4 * kLanes + gi, t = sb * kSub + s;
         const float dtv = sm.dt[t][c];
         const float uv = to_f32(sm.u[t][c]);
         const float dyv = sm.dy[t][c];
+        const float dtu = dtv * uv;
         const float4 b4 = *reinterpret_cast<const float4*>(&sm.b[t][n0]);
         const float4 c4 = *reinterpret_cast<const float4*>(&sm.c[t][n0]);
-        const float4 h4 = sm.h[t][tid];
         const float bv[kPer] = {b4.x, b4.y, b4.z, b4.w};
         const float cv[kPer] = {c4.x, c4.y, c4.z, c4.w};
-        const float hv[kPer] = {h4.x, h4.y, h4.z, h4.w};
-        float hp[kPer];
-        if (t > 0) {
-          const float4 p4 = sm.h[t - 1][tid];
-          hp[0] = p4.x; hp[1] = p4.y; hp[2] = p4.z; hp[3] = p4.w;
-        } else {
-#pragma unroll
-          for (int j = 0; j < kPer; ++j) hp[j] = h0[j];
-        }
-        float pdu = 0.f, pdt = 0.f, r[kRedVals];
+        float s1 = 0.f, s2 = 0.f;
 #pragma unroll
         for (int j = 0; j < kPer; ++j) {
-          const float dec = tc::exp2_fast(dtv * a2[j]);
           const float g = fmaf(dyv, cv[j], carry[j]);
-          const float gdt = g * dtv;
-          const float dh = dec * hp[j];
-          pdu = fmaf(gdt, bv[j], pdu);
-          pdt = fmaf(g, fmaf(uv, bv[j], a[j] * dh), pdt);
-          da[j] = fmaf(gdt, dh, da[j]);
-          r[j] = gdt * uv;              // dB of state n0 + j
-          r[kPer + j] = dyv * hv[j];    // dC of state n0 + j
-          carry[j] = dec * g;
+          const float gh = g * (dec[s][j] * hs[s][j]);
+          s1 = fmaf(g, bv[j], s1);
+          s2 = fmaf(gh, a[j], s2);
+          da[j] = fmaf(gh, dtv, da[j]);
+          r[gi][j] = g * dtu;                    // dB of state n0 + j
+          r[gi][kPer + j] = dyv * hs[s + 1][j];  // dC of state n0 + j
+          carry[j] = dec[s][j] * g;
         }
-        vdu[gi] = pdu;
-        vdt[gi] = pdt;
-        // over the warp's 8 channels (lane bits 2-4): halve the values a
-        // lane holds at each bit, leaving lane (cw, q) with the sum of
-        // value cw (cw = lane >> 2)
+        v1[gi] = s1;
+        v2[gi] = s2;
+      }
+      // dB and dC over the warp's 8 channels (lane bits 2-4), the group's
+      // steps side by side: halve the values a lane holds at each bit,
+      // leaving lane (cw, q) with the sum of value cw (cw = lane >> 2)
 #pragma unroll
-        for (int rd = 0; rd < 3; ++rd) {
-          const int m = 16 >> rd, half = (kRedVals / 2) >> rd;
-          const bool upper = lane & m;
+      for (int rd = 0; rd < 3; ++rd) {
+        const int m = 16 >> rd, half = (kRedVals / 2) >> rd;
+        const bool upper = lane & m;
+#pragma unroll
+        for (int gi = 0; gi < kLanes; ++gi) {
 #pragma unroll
           for (int i = 0; i < half; ++i) {
-            const float send = upper ? r[i] : r[i + half];
-            const float keep = upper ? r[i + half] : r[i];
-            r[i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+            const float send = upper ? r[gi][i] : r[gi][i + half];
+            const float keep = upper ? r[gi][i + half] : r[gi][i];
+            r[gi][i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
           }
         }
-        sm.red[warp][t][lane] = r[0];
       }
-      // du and ddt over the channel's lanes: lane q keeps step tt + q
+#pragma unroll
+      for (int gi = 0; gi < kLanes; ++gi)
+        sm.red[warp][grp4 * kLanes + gi][lane] = r[gi][0];
+      // s1 and s2 over the channel's lanes: lane q keeps step grp4 * 4 + q
 #pragma unroll
       for (int m = kLanes / 2; m >= 1; m >>= 1) {
         const bool upper = q & m;
 #pragma unroll
         for (int i = 0; i < m; ++i) {
-          const float s1 = upper ? vdu[i] : vdu[i + m];
-          const float k1 = upper ? vdu[i + m] : vdu[i];
-          vdu[i] = k1 + __shfl_xor_sync(0xffffffffu, s1, m);
-          const float s2 = upper ? vdt[i] : vdt[i + m];
-          const float k2 = upper ? vdt[i + m] : vdt[i];
-          vdt[i] = k2 + __shfl_xor_sync(0xffffffffu, s2, m);
+          const float x1 = upper ? v1[i] : v1[i + m];
+          const float k1 = upper ? v1[i + m] : v1[i];
+          v1[i] = k1 + __shfl_xor_sync(0xffffffffu, x1, m);
+          const float x2 = upper ? v2[i] : v2[i + m];
+          const float k2 = upper ? v2[i + m] : v2[i];
+          v2[i] = k2 + __shfl_xor_sync(0xffffffffu, x2, m);
         }
       }
-      if (d < di && tt + q < T) {
-        const int64_t off = (row0 + t0 + tt + q) * di + d;
-        du[off] = from_f32<Tu>(vdu[0]);
-        ddt[off] = vdt[0];
+      const int t = sb * kSub + grp4 * kLanes + q;
+      if (d < di && t0 + t < S) {
+        const int64_t off = (row0 + t0 + t) * di + d;
+        du[off] = from_f32<Tu>(sm.dt[t][c] * v1[0]);
+        ddt[off] = fmaf(to_f32(sm.u[t][c]), v1[0], v2[0]);
       }
     }
     __syncthreads();
-    // the block's partial dB and dC of the chunk: the warps in order
-    for (int i = tid; i < T * 32; i += kThreads) {
-      const int t = i / 32, l = i % 32;
+    // the block's dB and dC of the sub-chunk: the warps in order
+#pragma unroll
+    for (int it = 0; it < kSub * 32 / kThreads; ++it) {
+      const int i = tid + it * kThreads, s = i / 32, l = i % 32;
       float sum = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += sm.red[w][t][l];
-      const int cw = l / kLanes, n = kPer * (l % kLanes) + cw % kPer;
-      if (n < ds) {
-        float* part = cw < kPer ? part_b : part_c;
-        part[(((int64_t)blk * Bsz + b) * S + t0 + t) * ds + n] = sum;
-      }
+      for (int w = 0; w < kWarps; ++w) sum += sm.red[w][s][l];
+      sm.bsum[sb * kSub + s][l] = sum;
     }
+    __syncthreads();
+  }
+
+  // the cluster's dB and dC: rank r adds its kRankSteps steps of the
+  // kCluster blocks' sums, in rank order, into the cluster's partial
+  cluster.sync();
+#pragma unroll
+  for (int it = 0; it < kRankSteps * 32 / kThreads; ++it) {
+    const int i = tid + it * kThreads;
+    const int t = rank * kRankSteps + i / 32, l = i % 32;
+    float sum = 0.f;
+#pragma unroll
+    for (int rr = 0; rr < kCluster; ++rr)
+      sum += cluster.map_shared_rank(&sm.bsum[0][0], rr)[t * 32 + l];
+    const int cw = l / kLanes, n = kPer * (l % kLanes) + cw % kPer;
+    if (n < ds && t0 + t < S) {
+      float* part = cw < kPer ? part_b : part_c;
+      part[(((int64_t)cl * Bsz + b) * S + t0 + t) * ds + n] = sum;
+    }
+  }
+  cluster.sync();   // no block leaves while another reads its sums
+
+  // dA: the running sum of the chunks after this one, then this chunk's
+  float* pa = part_a + ((int64_t)b * di + d) * ds + n0;
+  if (k + 1 < n_chunks) {
+    wait_flag(aflag, n_chunks - 1 - k);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (live[j]) da[j] = __ldcg(pa + j) + da[j];
   }
 #pragma unroll
   for (int j = 0; j < kPer; ++j)
-    if (d < di && n0 + j < ds)
-      part_a[((int64_t)b * di + d) * ds + n0 + j] = da[j];
+    if (live[j]) __stcg(pa + j, da[j]);
+  if (k > 0) {
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) st_release(aflag, n_chunks - k);
+  }
 }
 
 // out[i] = sum over p = 0, 1, ..., P - 1 of part[p][i], in that order
@@ -508,27 +758,85 @@ cudaError_t sum_partials(const float* part, float* out, int P, int64_t N,
   return cudaGetLastError();
 }
 
+// the clusters a call's channels take, and the flag words it needs
+inline int bwd_clusters(int di) {
+  return (di + kChannels * kCluster - 1) / (kChannels * kCluster);
+}
+
+template <typename Tu, bool kVec>
+cudaError_t set_bwd_smem() {
+  constexpr int smem = (int)sizeof(BwdSmem<Tu>);
+  auto* kernel = ssm_scan_bwd_kernel<Tu, kVec>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             100);
+  return e;
+}
+
+template <typename Tu, bool kVec>
+cudaError_t launch_bwd_vec(const Tu* u, const float* dt, const float* Bc,
+                           const float* Cc, const float* A,
+                           const float* chunk_h, const float* dy, Tu* du,
+                           float* ddt, float* part_b, float* part_c,
+                           float* part_a, float* carry, int* flags, int B,
+                           int S, int di, int ds, cudaStream_t stream) {
+  cudaError_t e = set_bwd_smem<Tu, kVec>();
+  if (e != cudaSuccess) return e;
+  const int n_cl = bwd_clusters(di);
+  const int64_t n_chunks = (S + kChunk - 1) / kChunk;
+  const int64_t blocks = (int64_t)n_cl * kCluster * n_chunks * B;
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  e = cudaMemsetAsync(flags, 0,
+                      sizeof(int) * (1 + 2 * (size_t)B * n_cl * kCluster),
+                      stream);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = sizeof(BwdSmem<Tu>);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, ssm_scan_bwd_kernel<Tu, kVec>, u, dt, Bc, Cc,
+                         A, chunk_h, dy, du, ddt, part_b, part_c, part_a,
+                         carry, flags, B, S, di, ds, n_cl);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 template <typename Tu>
 cudaError_t launch_bwd(const void* u, const float* dt, const float* Bc,
                        const float* Cc, const float* A, const float* chunk_h,
                        const float* dy, void* du, float* ddt, float* dB,
                        float* dC, float* dA, float* part_b, float* part_c,
-                       float* part_a, int B, int S, int di, int ds,
-                       cudaStream_t stream) {
-  constexpr size_t smem = sizeof(BwdSmem<Tu>);
-  auto* kernel = ssm_scan_bwd_kernel<Tu>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                       float* part_a, float* carry, int* flags, int B, int S,
+                       int di, int ds, cudaStream_t stream) {
+  const Tu* up = static_cast<const Tu*>(u);
+  Tu* dup = static_cast<Tu*>(du);
+  const bool vec = ds == kStates && di % kChannels == 0 && aligned16(u) &&
+                   aligned16(dt) && aligned16(dy) && aligned16(Bc) &&
+                   aligned16(Cc);
+  cudaError_t e =
+      vec ? launch_bwd_vec<Tu, true>(up, dt, Bc, Cc, A, chunk_h, dy, dup,
+                                     ddt, part_b, part_c, part_a, carry,
+                                     flags, B, S, di, ds, stream)
+          : launch_bwd_vec<Tu, false>(up, dt, Bc, Cc, A, chunk_h, dy, dup,
+                                      ddt, part_b, part_c, part_a, carry,
+                                      flags, B, S, di, ds, stream);
   if (e != cudaSuccess) return e;
-  const dim3 grid((di + kChannels - 1) / kChannels, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const Tu*>(u), dt, Bc, Cc, A, chunk_h, dy,
-      static_cast<Tu*>(du), ddt, part_b, part_c, part_a, S, di, ds);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const int n_cl = bwd_clusters(di);
   const int64_t n_bc = (int64_t)B * S * ds;
-  if ((e = sum_partials(part_b, dB, grid.x, n_bc, stream)) != cudaSuccess)
+  if ((e = sum_partials(part_b, dB, n_cl, n_bc, stream)) != cudaSuccess)
     return e;
-  if ((e = sum_partials(part_c, dC, grid.x, n_bc, stream)) != cudaSuccess)
+  if ((e = sum_partials(part_c, dC, n_cl, n_bc, stream)) != cudaSuccess)
     return e;
   return sum_partials(part_a, dA, B, (int64_t)di * ds, stream);
 }
@@ -536,12 +844,10 @@ cudaError_t launch_bwd(const void* u, const float* dt, const float* Bc,
 template <typename Tu>
 cudaError_t bwd_attrs(int* out) {
   constexpr size_t smem = sizeof(BwdSmem<Tu>);
-  auto* kernel = ssm_scan_bwd_kernel<Tu>;
+  auto* kernel = ssm_scan_bwd_kernel<Tu, true>;
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) e = set_bwd_smem<Tu, true>();
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel,
                                                       kThreads, smem);
@@ -550,7 +856,6 @@ cudaError_t bwd_attrs(int* out) {
   out[2] = (int)smem;
   return e;
 }
-
 }  // namespace
 
 // u: (B, S, di) of u_dtype; dt: (B, S, di); Bc, Cc: (B, S, ds); A: (di, ds)
@@ -596,32 +901,36 @@ extern "C" int ssm_scan_attrs(int u_dtype, int* out) {
 // The VJP of ssm_scan_fwd.  u, dt, Bc, Cc, A as there; chunk_h the states
 // ssm_scan_fwd stored, (B, ceil(S / kChunk), di, ds); dy (B, S, di) fp32
 // -> du (B, S, di) of u_dtype, ddt (B, S, di), dB, dC (B, S, ds), dA
-// (di, ds), all fp32 but du.  part_b and part_c (ceil(di / 32), B, S, ds)
-// and part_a (B, di, ds) are fp32 scratch for the blocks' partial sums.
-// All contiguous.  Four launches on the stream, in order.
+// (di, ds), all fp32 but du.  Scratch: part_b and part_c (ceil(di / 256),
+// B, S, ds) and part_a (B, di, ds) fp32 for the clusters' and batch rows'
+// partial sums, carry (B, di, ds) fp32 for the carry between chunks, and
+// flags (1 + 2 * B * 8 * ceil(di / 256)) int32, which the call zeroes.
+// All contiguous.  A memset and four launches on the stream, in order.
 extern "C" int ssm_scan_bwd(const void* u, const void* dt, const void* Bc,
                             const void* Cc, const void* A,
                             const void* chunk_h, const void* dy, void* du,
                             void* ddt, void* dB, void* dC, void* dA,
-                            void* part_b, void* part_c, void* part_a, int B,
-                            int S, int di, int ds, int u_dtype,
-                            void* stream) {
+                            void* part_b, void* part_c, void* part_a,
+                            void* carry, void* flags, int B, int S, int di,
+                            int ds, int u_dtype, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || di <= 0 || ds <= 0 || ds > kStates)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto w = [](void* p) { return static_cast<float*>(p); };
+  int* fl = static_cast<int*>(flags);
   switch (u_dtype) {
     case REPRO_F32:
       return launch_bwd<float>(u, f(dt), f(Bc), f(Cc), f(A), f(chunk_h),
                                f(dy), du, w(ddt), w(dB), w(dC), w(dA),
-                               w(part_b), w(part_c), w(part_a), B, S, di, ds,
-                               s);
+                               w(part_b), w(part_c), w(part_a), w(carry), fl,
+                               B, S, di, ds, s);
     case REPRO_BF16:
       return launch_bwd<__nv_bfloat16>(u, f(dt), f(Bc), f(Cc), f(A),
                                        f(chunk_h), f(dy), du, w(ddt), w(dB),
                                        w(dC), w(dA), w(part_b), w(part_c),
-                                       w(part_a), B, S, di, ds, s);
+                                       w(part_a), w(carry), fl, B, S, di, ds,
+                                       s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -144,6 +144,61 @@ def ssm_scan_bwd(u, dt, Bc, Cc, A, dy):
     return du.to(u.dtype), ddt, dB, dC, dA
 
 
+def ssm_scan_bwd_chunked(u, dt, Bc, Cc, A, dy, chunk: int = 64):
+    """``ssm_scan_bwd`` split over time as the card kernel splits it, in
+    three passes over chunks of ``chunk`` steps (for tests: the split's
+    algebra where no kernel runs).  1: each chunk's L_k = sum_t (a_t0 ...
+    a_t) dy_t C_t, the carry it passes on from a zero start, with a_t0 ...
+    a_t = exp(A (dt_t0 + ... + dt_t)), and Q_k = exp(A sum_t dt_t), the
+    product of its decays.  2: the carries in
+    series, c_{k-1} = L_k + Q_k c_k from c = 0 past the last chunk.  3:
+    each chunk's states recomputed from its start, carried from the chunk
+    before, and walked backwards from c_k.  Same returns as
+    ``ssm_scan_bwd``."""
+    f = acc_dtype(u)
+    uf, dtf, Bf, Cf, Af, dyf = (t.to(f) for t in (u, dt, Bc, Cc, A, dy))
+    Bsz, S, di = u.shape
+    n = -(-S // chunk)
+    zero = torch.zeros((Bsz, di, Af.shape[-1]), dtype=f, device=u.device)
+    Ls, Qs = [], []
+    for k in range(n):                               # pass 1
+        t0, t1 = k * chunk, min(S, (k + 1) * chunk)
+        L = zero
+        for t in range(t0, t1):
+            L = L + torch.exp(dtf[:, t0:t + 1].sum(1)[..., None] * Af) \
+                * dyf[:, t, :, None] * Cf[:, t, None]
+        Ls.append(L)
+        Qs.append(torch.exp(dtf[:, t0:t1].sum(1)[..., None] * Af))
+    carries = [zero] * n                             # pass 2
+    for k in range(n - 1, 0, -1):
+        carries[k - 1] = Ls[k] + Qs[k] * carries[k]
+    du, ddt = torch.empty_like(uf), torch.empty_like(dtf)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
+    dA = torch.zeros_like(Af)
+    h = zero
+    for k in range(n):                               # pass 3
+        t0, t1 = k * chunk, min(S, (k + 1) * chunk)
+        hs, decs = [h], []
+        for t in range(t0, t1):
+            decs.append(torch.exp(dtf[:, t, :, None] * Af))
+            hs.append(decs[-1] * hs[-1] + (dtf[:, t] * uf[:, t])[..., None]
+                      * Bf[:, t, None])
+        h = hs[-1]
+        carry = carries[k]
+        for t in range(t1 - 1, t0 - 1, -1):
+            i = t - t0
+            g = dyf[:, t, :, None] * Cf[:, t, None] + carry
+            dh = decs[i] * hs[i]
+            s1 = (g * Bf[:, t, None]).sum(-1)
+            du[:, t] = dtf[:, t] * s1
+            ddt[:, t] = uf[:, t] * s1 + (g * Af * dh).sum(-1)
+            dB[:, t] = (g * (dtf[:, t] * uf[:, t])[..., None]).sum(1)
+            dC[:, t] = (dyf[:, t, :, None] * hs[i + 1]).sum(1)
+            dA += (g * dtf[:, t, :, None] * dh).sum(0)
+            carry = decs[i] * g
+    return du.to(u.dtype), ddt, dB, dC, dA
+
+
 def swiglu(g, u, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """silu(g) * u in fp32, cast to ``out_dtype`` (default g.dtype)."""
     dt = acc_dtype(g)

@@ -415,14 +415,21 @@ def _jax_search(cluster, kw, res):
 @pytest.fixture(scope="module")
 def auto(tmp_path_factory):
     """JAX's acceptance scenario (``auto_e2e``): healthy steps, an
-    injected 8x on gpu-a, and the controller on its own."""
+    injected 8x on gpu-a, and the controller on its own.  The recorder's
+    tick marks and the trainer's step times read a scripted clock, as in
+    ``test_link_degrade_triggers_replan_schedule``: every healthy stage
+    tick is the same, so only the injected 8x moves what the policy sees
+    (with ``ewma`` 1.0 one slow baseline step on a loaded host would
+    otherwise hide it)."""
     tee = _Tee(dict(patience=2, cooldown=4, baseline_steps=2, ewma=1.0,
                     min_gain=0.0))
-    t = _mk_trainer(tmp_path_factory.mktemp("auto"), policy=tee)
-    with _WatchSearch() as seen:
-        r1 = t.run(4)
-        t.inject_degrade("gpu-a", 8.0)
-        r2 = t.run(6)
+    with mock.patch.object(trecorder, "time", _ScriptedTime(1e-3)), \
+            mock.patch.object(ttrainer, "time", _ScriptedTime(1e-3)):
+        t = _mk_trainer(tmp_path_factory.mktemp("auto"), policy=tee)
+        with _WatchSearch() as seen:
+            r1 = t.run(4)
+            t.inject_degrade("gpu-a", 8.0)
+            r2 = t.run(6)
     return dict(t=t, tee=tee, seen=seen, r1=r1, r2=r2)
 
 

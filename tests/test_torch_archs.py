@@ -47,6 +47,17 @@ SWA_JAX_AGREES = (20, 32, 64)   # <= the buffer, or a multiple of it
 _MODELS = {}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's in-process port code (SMOKE
+    sizes gain nothing from more), so that test workers running side by
+    side do not oversubscribe the host's cores; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _models(arch, **kw):
     """(JAX bundle, JAX params, port bundle, port params), made once."""
     key = (arch, tuple(sorted(kw.items())))

@@ -85,6 +85,24 @@ OPT = dict(lr=1e-2, warmup_steps=2)
 IL = "interleaved-1f1b"
 
 
+def _deadline(world: int) -> float:
+    """``run_ranks``' wait for ``world`` ranks: TIMEOUT for two, scaled with
+    the ranks beyond (each starts an interpreter and a process group, and
+    shares the host's cores with the other test workers)."""
+    return TIMEOUT * max(1.0, world / 2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's in-process port code (SMOKE
+    sizes gain nothing from more), so that test workers running side by
+    side do not oversubscribe the host's cores; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _flat(tree, prefix=""):
     if isinstance(tree, dict):
         return {p: x for k, v in tree.items()
@@ -688,7 +706,7 @@ def _pp_train(plan, d, steps, every, start=0, after=0):
     ``d``, keeping every rank's states."""
     world = plan.pp * plan.dps[0] * plan.tps[0]
     return run_ranks(rank_programs.pp_train, world, device="cpu",
-                     timeout_s=TIMEOUT,
+                     timeout_s=_deadline(world),
                      args=(SMOKE4, plan.to_dict(), steps, OPT, False, d,
                            every, start, after, True))
 

@@ -75,6 +75,24 @@ CASES = [("cp2", CP2, 1, True), ("cp2-no-remat", CP2, 1, False),
          ("cp2-tp2", CP2, 2, True)]
 
 
+def _deadline(world: int) -> float:
+    """``run_ranks``' wait for ``world`` ranks: TIMEOUT for two, scaled with
+    the ranks beyond (each starts an interpreter and a process group, and
+    shares the host's cores with the other test workers)."""
+    return TIMEOUT * max(1.0, world / 2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's in-process port code (SMOKE
+    sizes gain nothing from more), so that test workers running side by
+    side do not oversubscribe the host's cores; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -108,7 +126,7 @@ def _meanwhile(*runs):
     """Start each ``(fn, world, args)`` on ranks from a thread, so the JAX
     reference compiles while they run; returns the futures."""
     pool = ThreadPoolExecutor(max_workers=len(runs))
-    futures = [pool.submit(run_ranks, fn, world, timeout_s=TIMEOUT,
+    futures = [pool.submit(run_ranks, fn, world, timeout_s=_deadline(world),
                            device="cpu", args=args)
                for fn, world, args in runs]
     pool.shutdown(wait=False)
@@ -233,7 +251,7 @@ def test_ring_function_matches_the_stacked_ring(chunks):
     k, v = (rng.standard_normal((B, S, Hk, hd)).astype(np.float32)
             for _ in range(2))
     res = run_ranks(rank_programs.ring_ranks_attention, cp,
-                    timeout_s=TIMEOUT, device="cpu",
+                    timeout_s=_deadline(cp), device="cpu",
                     args=(q, k, v, dout, chunks))
     qt, kt, vt = (pad_chunks(torch.from_numpy(a), chunks).requires_grad_()
                   for a in (q, k, v))
@@ -344,7 +362,7 @@ def test_cp_at_pp2_raises_naming_a8b_in_process_and_on_ranks():
         tpp.check_rank_plan(cfg, plan)
     tpp.check_rank_plan(cfg, _cp_plan(CP2))
     with pytest.raises(RuntimeError, match="A8b"):
-        run_ranks(rank_programs.trainer_steps, 4, timeout_s=TIMEOUT,
+        run_ranks(rank_programs.trainer_steps, 4, timeout_s=_deadline(4),
                   device="cpu", args=(SMOKE4, plan.to_dict(), None, 1, OPT))
 
 

@@ -41,6 +41,11 @@ TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
        torch.float32: dict(rtol=2e-5, atol=2e-5)}
 BF16_REL = 1e-2
 SCAN_TOL = dict(rtol=2e-4, atol=2e-4)
+# the scan's VJP by each gradient's norm, as chip_smoke.py holds it: fp32
+# sums over up to S decayed terms in another order; du in bf16 may round
+# one bf16 step apart where the two sums straddle a rounding boundary
+SCAN_BWD_REL = 1e-4
+SCAN_BWD_BF16_DU_REL = 2e-4
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -301,6 +306,39 @@ def test_ssm_scan_kernel_edges(dev, u_dtype, B, S, di, ds, dt_kind):
     want_y, want_h = ref.ssm_scan(u, dt, Bc, Cc, A)
     torch.testing.assert_close(y, want_y, **SCAN_TOL)
     torch.testing.assert_close(h, want_h, **SCAN_TOL)
+
+
+@pytest.mark.parametrize("u_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,di,ds", [
+    (1, 37, 64, 16),       # S inside one chunk of 64 steps
+    (2, 200, 96, 16),      # B 2; S over 4 chunks, the last ragged
+    (1, 129, 40, 4),       # d_state 4; a partial block of channels
+    (2, 70, 300, 1),       # d_state 1; channels over two clusters
+    (1, 520, 256, 16),     # 9 chunks of one whole cluster of channels
+])
+def test_ssm_scan_bwd_kernel(dev, u_dtype, B, S, di, ds):
+    """The VJP kernel (split over time: chunks chained by their carries)
+    against the plain reverse loop, each gradient by its norm; one count
+    a call, and a second call equal bit for bit (no float atomics).  The
+    forward with its chunk states gives y and h of the forward without."""
+    args = _scan_inputs(dev, B, S, di, ds, u_dtype)
+    dy = _randn(dev, B, S, di, dtype=torch.float32, seed=3)
+    y0, h0 = tss.ssm_scan(*args)
+    y, h, hc = tss.ssm_scan(*args, keep_chunks=True)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    n = tss.bwd_launches
+    got = tss.ssm_scan_bwd(*args, hc, dy)
+    again = tss.ssm_scan_bwd(*args, hc, dy)
+    torch.cuda.synchronize()
+    assert tss.bwd_launches == n + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert got[0].dtype == u_dtype
+    assert all(g.dtype == torch.float32 for g in got[1:])
+    want = ref.ssm_scan_bwd(*args, dy)
+    for name, g, w in zip(("du", "ddt", "dB", "dC", "dA"), got, want):
+        limit = SCAN_BWD_BF16_DU_REL if name == "du" and \
+            u_dtype == torch.bfloat16 else SCAN_BWD_REL
+        assert _rel(g, w) <= limit, (name, _rel(g, w))
 
 
 def _to(node, dev):

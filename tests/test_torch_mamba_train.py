@@ -54,6 +54,17 @@ PP_LAYERS = [2, 1]
 PP3 = dict(arch=ARCH, smoke=True, num_layers=3)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's in-process port code (SMOKE
+    sizes gain nothing from more), so that test workers running side by
+    side do not oversubscribe the host's cores; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -144,6 +155,30 @@ def test_plain_scan_vjp_matches_jax_vjp(S):
     y, _ = ops.ssm_scan(*x)
     for g, w in zip(torch.autograd.grad(y, x, torch.from_numpy(dy)), got):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("S,chunk,decays", [
+    (200, 64, "softplus"),    # a ragged last chunk of the kernel's 64
+    (64, 64, "softplus"),     # one whole chunk: no carry between chunks
+    (61, 8, "near1"),         # dt A ~ 1e-3: decays ~1, 8 chunks
+    (45, 7, "underflow"),     # dt A <= -800 on half the channels: exp = 0
+])
+def test_chunked_scan_vjp_matches_the_plain_loop(S, chunk, decays):
+    """The card kernel's split over time (zero-carry chunk walks, the
+    carries in series, walks from the carried state), mirrored in plain
+    PyTorch, gives the plain reverse loop's VJP in fp64."""
+    u, dt, Bc, Cc, A, dy = (torch.from_numpy(a) for a in _scan_inputs(
+        2, S, 6, 5, seed=S, dtype=np.float64))
+    if decays == "near1":
+        dt, A = dt * 1e-3, A * 1e-1
+    elif decays == "underflow":
+        dt = torch.where(torch.arange(6) % 2 == 0, 900.0 + dt, dt)
+        assert (torch.exp(dt[..., None] * A) == 0).any()
+    want = ref.ssm_scan_bwd(u, dt, Bc, Cc, A, dy)
+    got = ref.ssm_scan_bwd_chunked(u, dt, Bc, Cc, A, dy, chunk=chunk)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10)
 
 
 def test_last_state_gradient_raises():

@@ -22,6 +22,17 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 MAX_LEN = 24
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's in-process port code (SMOKE
+    sizes gain nothing from more), so that test workers running side by
+    side do not oversubscribe the host's cores; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def models():
     jb = jreg.get_bundle("llama3-8b", smoke=True)

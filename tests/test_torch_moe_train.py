@@ -53,6 +53,17 @@ PP_CASES = [("2-1", 1, [2, 1], "1f1b"),
 JAX_LAYOUT = [2, 1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's in-process port code (SMOKE
+    sizes gain nothing from more), so that test workers running side by
+    side do not oversubscribe the host's cores; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 

@@ -61,6 +61,17 @@ CONFIGS = ("llama3-8b", "falcon-mamba-7b", "llama2-7b", "llama2-70b",
 SCHEDULES = ("1f1b", "1f1b-eager", "gpipe", "interleaved-1f1b")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's in-process port code (SMOKE
+    sizes gain nothing from more), so that test workers running side by
+    side do not oversubscribe the host's cores; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def plain(x):
     """A value both packages' results reduce to, for ``==``: dataclasses
     become (class name, fields), numpy values Python values."""

@@ -54,6 +54,17 @@ PORT = types.SimpleNamespace(
     store=t_store, registry=t_registry)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's in-process port code (SMOKE
+    sizes gain nothing from more), so that test workers running side by
+    side do not oversubscribe the host's cores; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def same(build):
     want, got = build(JAX), build(PORT)
     assert plain(got) == plain(want)

@@ -78,6 +78,24 @@ SCHEDULES = ("1f1b", "1f1b-eager", "gpipe")
 SLACK = 1
 
 
+def _deadline(world: int) -> float:
+    """``run_ranks``' wait for ``world`` ranks: TIMEOUT for two, scaled with
+    the ranks beyond (each starts an interpreter and a process group, and
+    shares the host's cores with the other test workers)."""
+    return TIMEOUT * max(1.0, world / 2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's in-process port code (SMOKE
+    sizes gain nothing from more), so that test workers running side by
+    side do not oversubscribe the host's cores; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -86,7 +104,7 @@ def _ranks_meanwhile(*runs):
     """Start each ``(fn, world, args)`` on ranks from a thread, so the JAX
     reference compiles while they run; returns the futures."""
     pool = ThreadPoolExecutor(max_workers=len(runs))
-    futures = [pool.submit(run_ranks, fn, world, timeout_s=TIMEOUT,
+    futures = [pool.submit(run_ranks, fn, world, timeout_s=_deadline(world),
                            device="cpu", args=args)
                for fn, world, args in runs]
     pool.shutdown(wait=False)
@@ -169,7 +187,8 @@ def jax_comm(comm_inputs):
 
 @pytest.fixture(scope="module")
 def torch_comm(comm_inputs):
-    return run_ranks(rank_programs.comm_ops, N_DEV, timeout_s=TIMEOUT,
+    return run_ranks(rank_programs.comm_ops, N_DEV,
+                     timeout_s=_deadline(N_DEV),
                      device="cpu",
                      args=(comm_inputs, N_EL))
 
@@ -753,7 +772,7 @@ def test_run_ranks_defaults_to_cuda(monkeypatch):
 def test_p2p_pairs_and_zeros():
     """Ranks pass only the pairs they are in; a rank that receives nothing
     gets zeros."""
-    res = run_ranks(rank_programs.p2p_once, 3, timeout_s=TIMEOUT,
+    res = run_ranks(rank_programs.p2p_once, 3, timeout_s=_deadline(3),
                     device="cpu",
                     args=([[(0, 2)], [(1, 1)], [(0, 2)]],))
     np.testing.assert_array_equal(np.stack(res),

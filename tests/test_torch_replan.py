@@ -80,6 +80,17 @@ SEARCH_KW = dict(pp_options=[2], tp_options=[1], micro_bs_options=[1, 2],
                  require_fit=False, include_tp_comm=False)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's in-process port code (SMOKE
+    sizes gain nothing from more), so that test workers running side by
+    side do not oversubscribe the host's cores; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 # ------------------------------------------------------- the recorder ----
 def _entries(store):
     """(device kind, op, shape, value, trust meta) of every entry: what

@@ -40,6 +40,17 @@ from repro_torch.serve.engine import request_generator, sample  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's in-process port code (SMOKE
+    sizes gain nothing from more), so that test workers running side by
+    side do not oversubscribe the host's cores; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _bundle(seed=0):
     b = registry.get_bundle("llama3-8b", smoke=True)
     return b, b.init(b.cfg, seed=seed, device="cpu")

@@ -45,6 +45,17 @@ ARCH = "falcon-mamba-7b"
 MAX_LEN = 1024
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's in-process port code (SMOKE
+    sizes gain nothing from more), so that test workers running side by
+    side do not oversubscribe the host's cores; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _scan_inputs(B, S, di, ds, seed=0):
     """numpy fp32 inputs shaped like the model's: dt > 0, A < 0."""
     rng = np.random.default_rng(seed)

@@ -68,6 +68,24 @@ CHUNKED = dict(SMOKE4, loss_chunk=8)
 OPT = dict(lr=1e-2, warmup_steps=2)
 
 
+def _deadline(world: int) -> float:
+    """``run_ranks``' wait for ``world`` ranks: TIMEOUT for two, scaled with
+    the ranks beyond (each starts an interpreter and a process group, and
+    shares the host's cores with the other test workers)."""
+    return TIMEOUT * max(1.0, world / 2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's in-process port code (SMOKE
+    sizes gain nothing from more), so that test workers running side by
+    side do not oversubscribe the host's cores; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -218,7 +236,7 @@ def tp_results():
     ranks = {}
     for world, cases in ((2, W2_CASES), (4, W4_CASES)):
         res = run_ranks(rank_programs.tp_loss_and_grads, world,
-                        timeout_s=TIMEOUT, device="cpu",
+                        timeout_s=_deadline(world), device="cpu",
                         args=([case(*c) for c in cases],))
         for i, c in enumerate(cases):
             ranks[c[0]] = [r[i] for r in res]
@@ -323,7 +341,7 @@ def test_trainer_pp2_dp2_tp2_ranks_match_jax_train_step():
     unstack = lambda tree: tpp.unstack_blocks_for_stages(  # noqa: E731
         convert.from_jax(_np(tree), device="cpu"), 2, vl)
     res = run_ranks(rank_programs.trainer_steps, 2 * dp * tp,
-                    timeout_s=TIMEOUT, device="cpu",
+                    timeout_s=_deadline(2 * dp * tp), device="cpu",
                     args=(SMOKE4, plan.to_dict(), _port_np(start), 3, OPT))
     data = JTokens(vocab_size=jb.cfg.vocab_size, seq_len=SEQ,
                    global_batch=gb)

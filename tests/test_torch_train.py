@@ -47,6 +47,17 @@ F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's in-process port code (SMOKE
+    sizes gain nothing from more), so that test workers running side by
+    side do not oversubscribe the host's cores; restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _np(x):
     return np.asarray(x, np.float32)
 

@@ -11,7 +11,9 @@ Phases, each raising on failure so the script exits non-zero:
               selective scan, and their registers, spill bytes, dynamic
               shared memory and resident blocks per SM as the card reports
               them, with those of the rmsnorm kernels at the main paths'
-              widths
+              widths (the flash forward and backward at every tile width,
+              256 included, the backward's windowed general variant at hd
+              120 and 256)
   3. kernels  each kernel against its plain PyTorch version on the card at
               the main paths' shapes (bf16 tol 2e-2, fp32 tol 2e-5, the
               selective scan 2e-4 in y and its last state), timed with CUDA
@@ -39,26 +41,40 @@ Phases, each raising on failure so the script exits non-zero:
               and 16, a partial block of channels and decays from 1 to
               underflow, each gradient by its norm, run twice (bit for
               bit), the forward with its chunk states giving y and the
-              last state bit for bit.  bf16 attention (the tensor cores take P and
+              last state bit for bit.  recurrentgemma-9b's attention at
+              head dim 256 over one KV head, window 2048
+              (phase_griffin_kernels): the forward at B1 S3000 and S4096,
+              with and without lse, fp32 at S300; the backward at B1
+              S4096 on 4 heads; each beside SDPA with the band mask and a
+              control with an in-band key tile left out, then timed at 16
+              heads; and, timed only, the RG-LRU's plain torch (the scan
+              at a prefill and a training step, a rec block's decode step
+              at batch 8, a gate product's fp32-upcast and bf16-in,
+              fp32-out routes).  bf16 attention (the tensor cores take P and
               dS as bf16 operands, P of the ring hop as a hi + lo pair; the
               plain versions keep them in fp32) is also held by each
               output's norm-relative error (REL_TOL), read beside SDPA's
               and the controls'
   4. model    llama3-8b, falcon-mamba-7b, qwen3-14b, nemotron-4-15b,
-              h2o-danube-3-4b, mixtral-8x7b and phi3.5-moe-42b-a6.6b
-              SMOKE in fp32: the kernels on the card
+              h2o-danube-3-4b, mixtral-8x7b, phi3.5-moe-42b-a6.6b and
+              recurrentgemma-9b (5 layers: a group and a tail) SMOKE in
+              fp32: the kernels on the card
               against the plain versions on the CPU through forward/
-              prefill/the cache/decode (danube's prompt past its window)
+              prefill/the cache/decode (danube's and recurrentgemma's
+              prompts past their windows)
   5. serve    llama3-8b, falcon-mamba-7b, qwen3-14b, nemotron-4-15b,
               h2o-danube-3-4b, then mixtral-8x7b and phi3.5-moe at 4
-              layers (their TTFT and TPOT printed with the card), one
+              layers, then recurrentgemma-9b at full depth (their TTFT
+              and TPOT printed with the card), one
               after another, each at full width and
               depth (bf16, seeded random weights) through
               ServeEngine(max_batch=8) on a 16-request trace: prompts
               {128, 500, 1000} at max_len 2048, danube's {1000, 4500,
               6000} at max_len 8192 (its window of 4096 binds in the
               prefill's flash band and wraps the decode's rolling
-              buffer); every kernel's launch count equals its expected
+              buffer), recurrentgemma-9b's {1000, 2500, 3000} at max_len
+              4096 (its window of 2048 the same); every kernel's launch
+              count equals its expected
               count for that path (qk_norm's two norms a layer,
               nemotron's MLP without the swiglu kernel), first tokens
               equal decode_sequential's (the new archs' sequential pass
@@ -67,8 +83,12 @@ Phases, each raising on failure so the script exits non-zero:
               next is made.  danube also: one request's prefill of 6000
               tokens and 4 decode steps across the wrapped buffer against
               lm_forward of the same tokens, logits within 2e-2 by norm
-              in bf16 and 1e-4 with the same weights in fp32, where a
-              control decoding from JAX's front-written layout must miss.
+              in bf16 (recurrentgemma-9b: 5e-2 at its 38 layers, the
+              distance logged at 5, 11 and 20) and 1e-4 with the same
+              weights in fp32, where a
+              control decoding from JAX's front-written layout must miss;
+              recurrentgemma-9b the same at a prompt of 3000, its fp32
+              check on its first group and its tail (5 layers).
               Then the serve CLI (h2o-danube-3-4b, full width) with
               --plan --metrics-out --prom-out in a child process, its
               artifacts through tools/validate_serve.py
@@ -93,8 +113,10 @@ Phases, each raising on failure so the script exits non-zero:
               each at full width and 4 layers, batch 1 (then
               falcon-mamba-7b at 8 layers, S 4096, on the reference route
               and through a pp 2 plan in one process at batch 2, and
-              mixtral-8x7b at 2 layers, each step 0 held to the forward
-              loss of its weights, mixtral's aux printed), with finite
+              mixtral-8x7b at 2 layers, and recurrentgemma-9b at 5
+              layers, S 4096 (its window binding in every flash
+              backward), each step 0 held to the forward loss of its
+              weights, mixtral's aux printed), with finite
               losses, exact launch counts (qwen3's qk_norm two more norms
               a block), step times, tokens/s and peak memory, each freed
               before the next; the cp and reference step-0 losses
@@ -220,7 +242,10 @@ which takes the launches made inside decode steps, the first row the rest;
 the flash forward has a second row at h2o-danube-3-4b's prefill shape,
 which takes that serve cell's launches and those of danube's train run,
 and ring_step_bwd one at danube's training shape, which takes that
-run's launches; the scan's row is its S1000
+run's launches; at head dim 256 the flash forward has a row at
+recurrentgemma-9b's prefill shape (that serve cell's launches) and one
+at its training forward with lse (its train run's), ring_step_bwd one
+at its training shape (its train run's); the scan's row is its S1000
 timing; each row with its library call's device time and the floor), the
 card line, and the last line
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
@@ -330,22 +355,36 @@ SERVE_CELLS = {
     "h2o-danube-3-4b": ((1000, 4500, 6000), 8192, 4),
     "mixtral-8x7b": ((128, 500, 1000), 2048, 4),
     "phi3.5-moe-42b-a6.6b": ((128, 500, 1000), 2048, 4),
+    # recurrentgemma-9b at full width and depth: its window (2048) binds
+    # in the longer prompts' flash band and wraps the decode's buffer
+    "recurrentgemma-9b": ((1000, 2500, 3000), 4096, 4),
 }
 # the serve cells cut in depth (their weights at full width and depth
 # would not fit one card): mixtral-8x7b ~12.1 GB and phi3.5-moe ~10.9 GB
 # of bf16 weights at 4 layers
 SERVE_LAYERS = {"mixtral-8x7b": 4, "phi3.5-moe-42b-a6.6b": 4}
-# the serve cell whose SWA check runs (phase_swa)
-SWA_ARCH = "h2o-danube-3-4b"
 SERVE_ARCHS = tuple(SERVE_CELLS)
-# the SWA check (phase_swa): one danube request's prefill of SWA_PROMPT
-# tokens and SWA_STEPS decode steps across the wrapped buffer against
+# the SWA check (phase_swa): one request's prefill of a prompt past the
+# window and SWA_STEPS decode steps across the wrapped buffer against
 # lm_forward of the same tokens, by the logits' norm-relative error: in
-# bf16 (24 layers: the prefill and the forward take other GEMM shapes,
+# bf16 at full depth (the prefill and the forward take other GEMM shapes,
 # the decode plain attention with bf16 weights; the bf16 tolerance), and
-# with the same weights in fp32 (the fp32 model tolerance)
+# in fp32 (the fp32 model tolerance) with the same weights, or (a number)
+# with the first whole groups and the tail of that many layers.  The
+# cells it runs in: arch -> (prompt, max_len, fp32 layers or None, the
+# bf16 limit).  The bf16 distance between the decode steps and the
+# forward grows with depth (the prefill's logits equal the forward's bit
+# for bit; M = 1 products round apart from M = S ones in every layer):
+# ~1e-2 at 5 recurrentgemma-9b layers to ~4e-2 at its 38, against
+# danube's 1.4e-2 at 24 (PERF.md §6), so the hybrid cell's bf16
+# limit is 5e-2 and phase_swa logs that distance at its cut depths
+# (SWA_DEPTHS) beside it; the fp32 check and its control are the ones
+# that see a misplaced key
 SWA_PROMPT, SWA_STEPS = 6000, 4
 SWA_REL_TOL, SWA_FP32_TOL = 2e-2, 1e-4
+SWA_CHECKS = {"h2o-danube-3-4b": (SWA_PROMPT, 8192, None, SWA_REL_TOL),
+              "recurrentgemma-9b": (3000, 4096, 5, 5e-2)}
+SWA_DEPTHS = (5, 11, 20)
 # the serve CLI's --plan --metrics-out --prom-out run on the card, checked
 # by tools/validate_serve.py
 SERVE_CLI_ARCH = "h2o-danube-3-4b"
@@ -354,6 +393,9 @@ SCAN_SEQS = (128, 500, 1000)
 # model-level fp32 tolerance: two layers of matmuls summed in other orders
 # on the CPU and the card, then a 256-way unembed
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
+# phase 4's SMOKE depths other than the config's: recurrentgemma-9b at 5
+# layers, one group and a tail of two rec blocks
+MODEL_LAYERS = {"recurrentgemma-9b": 5}
 # the training slice: llama3-8b at full width, cut to 4 layers (its train
 # state, ~16 bytes a parameter, does not fit 80 GB at 32), one sequence of
 # 4096 over a cp = 4 ring whose chunks the port's planner splits
@@ -380,6 +422,18 @@ NEW_TRAIN = (("qwen3-14b", TRAIN_SEQ), ("h2o-danube-3-4b", SWA_TRAIN_SEQ))
 # each is held to the forward loss of its weights and batch
 SSM_ARCH, SSM_TRAIN_LAYERS, SSM_PP_BATCH = "falcon-mamba-7b", 8, 2
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "mixtral-8x7b", 2
+# recurrentgemma-9b trains at full width and GRIFFIN_TRAIN_LAYERS layers
+# (one group and a tail of two rec blocks, the 38's structure: 3.09 B
+# parameters, 2.10 B of them the two untied 256000 x 4096 tables), S
+# TRAIN_SEQ, batch 1 on the reference route, so that its window binds in
+# every attention backward; step 0 held to the forward loss
+GRIFFIN_ARCH, GRIFFIN_TRAIN_LAYERS = "recurrentgemma-9b", 5
+# its attention (phase_griffin_kernels): head dim 256 over one KV head,
+# window 2048; the forward at the serve trace's longest prompt and at
+# the training length, the backward at the training length, checked
+# against the plain version on GRIFFIN_BWD_HEADS of its 16 heads
+GRIFFIN_H, GRIFFIN_WINDOW, GRIFFIN_PREFILL = 16, 2048, 3000
+GRIFFIN_BWD_HEADS = 4
 # the pipeline route: the planner's pp 2 plan on the train CLI's two-kind
 # cluster for 4 sequences of TRAIN_SEQ; the SMOKE parity phase also runs
 # an interleaved plan (vpp 2, a zero-layer chunk) at 4 SMOKE layers
@@ -536,6 +590,7 @@ def phase_build():
     resident blocks per SM (at every head dim; the scan for bf16 and fp32
     u), from the card."""
     from repro_torch.kernels import build
+    from repro_torch.kernels import ring_attention as ra
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     t0 = time.perf_counter()
     build.library()
@@ -549,12 +604,20 @@ def phase_build():
         if show and ("entry function" in line or "Used" in line
                      or "spill" in line):
             log(f"[build]   {line.strip()}")
-    variants = [(kernel, fn, (hd,), f"hd{hd}", "(bf16, as launched)")
-                for kernel, fn in TC_KERNELS.items() for hd in HEAD_DIMS]
+    # every tile width of the flash forward and backward (256 included),
+    # the ring forward's; the backward's attributes at (hd, windowed)
+    variants = [(kernel, fn, (hd, 0) if "bwd" in kernel else (hd,),
+                 f"hd{hd}", "(bf16, as launched)")
+                for kernel, fn in TC_KERNELS.items()
+                for hd in (ra.HEAD_DIMS if "ring_fwd" in kernel
+                           else HEAD_DIMS)]
     # the backward's general variant (a window, a head dim narrower than
-    # its tile) at h2o-danube-3-4b's hd 120
-    variants.append(("ring_bwd_mma_kernel", "ring_step_bwd_attrs", (120,),
+    # its tile) at h2o-danube-3-4b's hd 120 and recurrentgemma-9b's 256
+    variants.append(("ring_bwd_mma_kernel", "ring_step_bwd_attrs", (120, 1),
                      "hd120", "(bf16, the windowed general variant)"))
+    variants.append(("ring_bwd_mma_kernel", "ring_step_bwd_attrs", (256, 1),
+                     "hd256 windowed", "(bf16, the windowed general "
+                     "variant recurrentgemma-9b trains with)"))
     variants += [(*SCAN_KERNEL, (code,), f"u {dt}",
                   "(as the prefill launches it)")
                  for dt, code in (("bf16", 1), ("fp32", 0))]
@@ -1525,6 +1588,292 @@ def phase_train_kernels(torch, dev, name, device_only=False):
     return checks, timed, extra
 
 
+# ----------------------------------------------------------- phase 3b ---
+def _band_without_key_tile(torch, F, ref, q, k, v, window: int, lo: int,
+                           hi: int):
+    """The windowed causal forward in fp32 (SDPA on the plain math path)
+    with keys [lo, hi) left out of every row: a control."""
+    S = q.shape[1]
+    mask = ref.attention_mask(S, S, causal=True, window=window,
+                              device=q.device).clone()
+    mask[:, lo:hi] = False
+    qt, kt, vt = (t.float().transpose(1, 2) for t in (q, k, v))
+    return F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+
+def phase_griffin_kernels(torch, dev, name, device_only=False):
+    """recurrentgemma-9b's attention kernels at head dim 256 over one KV
+    head, window GRIFFIN_WINDOW, against their plain versions on the card
+    (bf16 2e-2 and REL_TOL by norm, beside SDPA with the boolean band
+    mask and a control with an in-band key tile left out): the forward at
+    the serve trace's longest prompt (B1 S GRIFFIN_PREFILL) and at the
+    training length (B1 S TRAIN_SEQ) with and without lse, fp32 at a
+    small shape; the backward (one-rank ring_step_bwd) at B1 S TRAIN_SEQ
+    on GRIFFIN_BWD_HEADS heads.  Then each is timed at 16 heads beside
+    the plain version (the backward's in groups of GRIFFIN_BWD_HEADS
+    heads) and SDPA with the band mask, with its bound counted over the
+    band's pairs.  Also timed, not kernels (the JAX package has none
+    there either): the RG-LRU scan (plain torch) at a prefill and a
+    training step, one decode step of a rec block at the engine's batch,
+    and a gate product's two routes (fp32 upcasts, which training takes,
+    and cuBLAS's bf16 product with fp32 output, which serving takes).
+    ``device_only``: as in phase_kernels."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ring_attention as ra
+    from repro_torch.models import griffin, registry
+    from repro_torch.utils.timing import device_ms, event_ms
+
+    bw, bf16_peak, fp32_peak = peaks(name)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    checks, readings = [], []
+    bf, f32 = torch.bfloat16, torch.float32
+    H, W, hd, el, f4 = GRIFFIN_H, GRIFFIN_WINDOW, 256, 2, 4
+    S_pf, S_tr = GRIFFIN_PREFILL, TRAIN_SEQ
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def compare(kernel, label, got, want, tol_, rel=False):
+        err = _max_err(got, want)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), **tol_)
+        checks.append({"kernel": kernel, "case": label, "max_abs_err": err})
+        msg = ""
+        if rel:
+            r = checks[-1]["rel_err"] = _rel_err(got, want)
+            msg = f", rel_err {r:.3e} (limit {REL_TOL})"
+            assert r <= REL_TOL, (kernel, label, r)
+        log(f"[kernels] {kernel:15s} {label:42s} max_abs_err {err:.3e}"
+            f"{msg} ok")
+        return err
+
+    def band_pairs(S):
+        return sum(min(i + 1, W) for i in range(S))
+
+    def sdpa_band(q, k, v):
+        S = q.shape[1]
+        band = ref.attention_mask(S, S, causal=True, window=W, device=dev)
+        return F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in (q, k, v)), attn_mask=band,
+            enable_gqa=True).transpose(1, 2)
+
+    fwd = {S: (randn(1, S, H, hd), randn(1, S, 1, hd), randn(1, S, 1, hd))
+           for S in (S_pf, S_tr)}
+    errs = {}
+    if not device_only:
+        for S, (q, k, v) in fwd.items():
+            case = f"B1 S{S} H16 Hk1 hd256 window{W} bf16"
+            want, want_lse = ref.flash_attention(q, k, v, window=W,
+                                                 return_lse=True)
+            errs[S] = compare("flash_attention", case,
+                              (fa.flash_attention(q, k, v, window=W),),
+                              (want,), BF16_TOL, rel=True)
+            got, lse = fa.flash_attention(q, k, v, window=W,
+                                          return_lse=True)
+            errs[S, "lse"] = compare("flash_attention", case + " +lse",
+                                     (got,), (want,), BF16_TOL, rel=True)
+            compare("flash_attention", case + " its lse", (lse,),
+                    (want_lse,), FP32_TOL)
+            _reading(readings, "flash_attention", case, "SDPA, band mask",
+                     sdpa_band(q, k, v), want)
+            _reading(readings, "flash_attention", case,
+                     f"control: key tile {W} out",
+                     _band_without_key_tile(torch, F, ref, q, k, v, W, W,
+                                            W + 64), want)
+            del want, want_lse, got, lse
+        qs, ks, vs = (randn(1, 300, 4, hd, dtype=f32),
+                      randn(1, 300, 1, hd, dtype=f32),
+                      randn(1, 300, 1, hd, dtype=f32))
+        compare("flash_attention", "B1 S300 H4 Hk1 hd256 window100 fp32",
+                (fa.flash_attention(qs, ks, vs, window=100),),
+                (ref.flash_attention(qs, ks, vs, window=100),), FP32_TOL)
+
+    # the backward at the training length: inputs with o and lse from the
+    # forward kernel, as FlashAttentionFn saves them
+    def bwd_inputs(heads):
+        q_, do_ = randn(1, 1, S_tr, heads, hd), randn(1, 1, S_tr, heads, hd)
+        k_, v_ = randn(1, 1, S_tr, 1, hd), randn(1, 1, S_tr, 1, hd)
+        with torch.no_grad():
+            o_, lse_ = fa.flash_attention(q_[0], k_[0], v_[0], window=W,
+                                          return_lse=True)
+        dl_ = (do_.float() * o_[None].float()).sum(-1)
+        return q_, k_, v_, do_, lse_[None], dl_
+
+    hop = [(0, 0, 0, S_tr, S_tr)]
+
+    def acc_of(ins):
+        return (torch.zeros(ins[0].shape, device=dev),
+                torch.zeros(ins[1].shape, device=dev),
+                torch.zeros(ins[1].shape, device=dev))
+
+    if not device_only:
+        few = bwd_inputs(GRIFFIN_BWD_HEADS)
+        case = (f"flash backward B1 S{S_tr} H{GRIFFIN_BWD_HEADS} Hk1 hd256 "
+                f"window{W} bf16")
+        want = ref.ring_step_bwd(*few, *acc_of(few), hop, window=W)
+        errs["bwd"] = compare("ring_step_bwd", case,
+                              ra.ring_step_bwd(*few, *acc_of(few), hop,
+                                               window=W), want, BF16_TOL,
+                              rel=True)
+        band = ref.attention_mask(S_tr, S_tr, causal=True, window=W,
+                                  device=dev)
+        ts = [t[0].transpose(1, 2).detach().requires_grad_()
+              for t in few[:3]]
+        sd = torch.autograd.grad(F.scaled_dot_product_attention(
+            *ts, attn_mask=band, enable_gqa=True), ts,
+            few[3][0].transpose(1, 2))
+        _reading(readings, "ring_step_bwd", case, "SDPA, band mask",
+                 tuple(t.transpose(1, 2)[None] for t in sd), want)
+        del ts, sd
+        _reading(readings, "ring_step_bwd", case,
+                 f"control: key tile {W} out",
+                 _bwd_without_key_tile(torch, ref, *few, W, W + 64,
+                                       window=W), want)
+        del want, few
+
+    # ---- timings at 16 heads
+    bq = bwd_inputs(H)
+    bacc = acc_of(bq)
+    bt = [t[0].transpose(1, 2).detach().requires_grad_() for t in bq[:3]]
+    band_tr = ref.attention_mask(S_tr, S_tr, causal=True, window=W,
+                                 device=dev)
+    b_out = F.scaled_dot_product_attention(*bt, attn_mask=band_tr,
+                                           enable_gqa=True)
+    b_do = bq[3][0].transpose(1, 2)
+    G = GRIFFIN_BWD_HEADS
+
+    def bwd_plain():
+        q_, k_, v_, do_, lse_, dl_ = bq
+        for g_ in range(H // G):
+            h_ = slice(G * g_, G * g_ + G)
+            ref.ring_step_bwd(q_[:, :, :, h_], k_, v_, do_[:, :, :, h_],
+                              lse_[..., h_], dl_[..., h_],
+                              bacc[0][:, :, :, h_], bacc[1], bacc[2], hop,
+                              window=W)
+
+    qp, kp, vp = fwd[S_pf]
+    qt_, kt_, vt_ = fwd[S_tr]
+    src = "src/repro_torch/kernels/csrc/"
+    rows = {
+        "flash_attention hd256": dict(
+            name="flash_attention", source=src + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:91",
+            shape=f"B1 S{S_pf} H16 Hk1 hd256 window{W} causal bf16 "
+                  "(recurrentgemma-9b's prefill)",
+            fn=lambda: fa.flash_attention(qp, kp, vp, window=W),
+            plain=lambda: ref.flash_attention(qp, kp, vp, window=W),
+            library=lambda: sdpa_band(qp, kp, vp), kernels=("flash_fwd",),
+            bytes=(2 * S_pf * H * hd + 2 * S_pf * hd) * el,
+            ops=[(4 * band_pairs(S_pf) * hd * H, bf16_peak)],
+            err=errs.get(S_pf)),
+        "flash_attention hd256 lse": dict(
+            name="flash_attention", source=src + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:91",
+            shape=f"B1 S{S_tr} H16 Hk1 hd256 window{W} causal bf16, with "
+                  "lse (recurrentgemma-9b's training forward)",
+            fn=lambda: fa.flash_attention(qt_, kt_, vt_, window=W,
+                                          return_lse=True),
+            plain=lambda: ref.flash_attention(qt_, kt_, vt_, window=W,
+                                              return_lse=True),
+            library=lambda: sdpa_band(qt_, kt_, vt_),
+            kernels=("flash_fwd",),
+            bytes=(2 * S_tr * H * hd + 2 * S_tr * hd) * el + S_tr * H * f4,
+            ops=[(4 * band_pairs(S_tr) * hd * H, bf16_peak)],
+            err=errs.get((S_tr, "lse"))),
+        "ring_step_bwd hd256": dict(
+            name="ring_step_bwd", source=src + "ring_attention.cu",
+            replaces="src/repro/kernels/ring_attention.py:169 (its VJP; "
+                     "no TPU backward kernel)",
+            shape=f"one rank B1 S{S_tr} H16 Hk1 hd256 window{W} causal bf16 "
+                  "(recurrentgemma-9b's flash backward), fp32 dq/dk/dv; "
+                  f"plain in {H // G} groups of {G} heads",
+            fn=lambda: ra.ring_step_bwd(*bq, *bacc, hop, window=W),
+            plain=bwd_plain, kernels=("ring_bwd",),
+            library=lambda: torch.autograd.grad(b_out, bt, b_do,
+                                                retain_graph=True),
+            bytes=(2 * S_tr * H * hd + 2 * S_tr * hd) * el
+            + 2 * S_tr * H * f4 + 2 * (S_tr * H * hd + 2 * S_tr * hd) * f4,
+            ops=[(10 * band_pairs(S_tr) * H * hd, bf16_peak)],
+            err=errs.get("bwd")),
+    }
+    timed = {}
+    for kname, r in rows.items():
+        if device_only:
+            timed[kname] = _device_row(device_ms, r)
+            continue
+        bytes_ms = r["bytes"] / bw * 1e3
+        ops_ms = max(n / peak for n, peak in r["ops"]) * 1e3
+        timed[kname] = {
+            "name": r["name"], "line": True, "route": "cuda",
+            "source": r["source"], "replaces": r["replaces"],
+            "shape": r["shape"], "max_abs_err": r["err"],
+            "ms": event_ms(r["fn"]),
+            "plain_ms": event_ms(r["plain"], iters=3, warmup=1),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": event_ms(r["library"]),
+        }
+        t = timed[kname]
+        log(f"[kernels] time {kname:15s} {r['shape']}: kernel {t['ms']:.4f} "
+            f"ms, plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f}"
+            f" ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    del bq, bacc, bt, b_out, fwd
+    if device_only:
+        return checks, timed, {}
+
+    # the RG-LRU's plain torch at full width (W 4096): the scan over a
+    # prefill (no gradient) and a training step (forward and backward),
+    # one rec block's decode step at the engine's batch of 8, and one gate
+    # product (S, W) x (W, W) by both routes
+    cfg = registry.get_config(GRIFFIN_ARCH)
+    Wd = cfg.lru_width_
+    rg = {}
+    with torch.no_grad():
+        x, ig, la = (randn(1, S_pf, Wd, dtype=f32) for _ in range(3))
+        ig, la = torch.sigmoid(ig), -torch.rand(
+            (1, S_pf, Wd), generator=gen, device=dev)
+        rg[f"scan_prefill_S{S_pf}_ms"] = event_ms(
+            lambda: griffin.rglru_scan(x, ig, la))
+    xs = [randn(1, S_tr, Wd, dtype=f32).requires_grad_() for _ in range(3)]
+    dh = randn(1, S_tr, Wd, dtype=f32)
+
+    def scan_train():
+        h = griffin.rglru_scan(xs[0], torch.sigmoid(xs[1]),
+                               -torch.nn.functional.softplus(xs[2]))
+        return torch.autograd.grad(h, xs, dh)
+
+    rg[f"scan_train_fwd_bwd_S{S_tr}_ms"] = event_ms(scan_train, iters=5)
+    del xs, dh
+    gb = torch.Generator(device=dev).manual_seed(4)
+    one = griffin.init_rglru_block(gb, cfg, 1)
+    p1 = {k: v[0] for k, v in one.items()}
+    with torch.no_grad():
+        xd = randn(8, 1, cfg.d_model)
+        h8 = torch.zeros((8, Wd), device=dev)
+        c8 = torch.zeros((8, cfg.ssm_conv - 1, Wd), dtype=bf, device=dev)
+        rg["decode_step_B8_ms"] = event_ms(
+            lambda: griffin.rglru_decode(p1, xd, h8, c8, cfg))
+        u = randn(1, S_pf, Wd)
+        wg = p1["w_input_gate"]
+        rg[f"gate_mm_upcast_S{S_pf}_ms"] = event_ms(
+            lambda: u.float() @ wg.float())
+        rg[f"gate_mm_bf16_fp32_out_S{S_pf}_ms"] = event_ms(
+            lambda: griffin._mm_f32(u, wg))
+        rg["gate_mm_max_abs_diff"] = (
+            (griffin._mm_f32(u, wg) - u.float() @ wg.float()).abs().max()
+            .item())
+    rg["gate_mm_bound_ms"] = 2 * S_pf * Wd * Wd / bf16_peak * 1e3
+    log(f"[kernels] RG-LRU plain torch W{Wd}: " + ", ".join(
+        f"{k} {v:.4g}" for k, v in rg.items()))
+    del one, p1
+    return checks, timed, {"rel_readings": readings, "rglru": rg}
+
+
 def _device_row(device_ms, r, per_call: int = 1) -> dict:
     """A timed row's profiler readings: its kernels' device time a launch,
     and its library call's (everything that call runs on the card)."""
@@ -1545,7 +1894,8 @@ def phase_model(torch, dev, arch):
     """SMOKE fp32: kernels on the card vs plain versions on the CPU."""
     from repro_torch.models import registry
 
-    b = registry.get_bundle(arch, smoke=True)
+    b = registry.get_bundle(arch, smoke=True, **(
+        {"num_layers": MODEL_LAYERS[arch]} if arch in MODEL_LAYERS else {}))
     cfg = b.cfg
     p_cpu = b.init(cfg, seed=0, device="cpu")
     p_gpu = _tree(p_cpu, lambda t: t.to(dev))
@@ -1568,7 +1918,8 @@ def phase_model(torch, dev, arch):
         torch.testing.assert_close(g.cpu(), a, **MODEL_TOL)
     err = max((g.cpu() - a).abs().max().item()
               for a, g in zip(out["cpu"], out["gpu"]))
-    log(f"[model] {arch} SMOKE fp32 card vs CPU: forward, prefill, "
+    log(f"[model] {arch} SMOKE ({cfg.num_layers} layers) fp32 card vs CPU: "
+        f"forward, prefill, "
         f"{'/'.join(state)} cache, 4 decode steps max_abs_err {err:.3e} ok")
     return err
 
@@ -1576,6 +1927,8 @@ def phase_model(torch, dev, arch):
 def _tree(node, fn):
     if isinstance(node, dict):
         return {k: _tree(v, fn) for k, v in node.items()}
+    if isinstance(node, list):      # the hybrid stack's tail
+        return [_tree(v, fn) for v in node]
     return fn(node)
 
 
@@ -1642,10 +1995,13 @@ def phase_serve(torch, dev, arch):
         # ln1, ln2 (and qk_norm's q_norm, k_norm) a layer, the final norm;
         # the swiglu kernel only for swiglu MLPs (nemotron's squared ReLU
         # is plain torch, as in the JAX package); flash in prefills only
+        # (a hybrid stack: ln1, ln2 a block of either kind; flash in its
+        # attn blocks)
         per_step = (2 + 2 * cfg.qk_norm) * L + 1
         sg_step = L if cfg.act == "swiglu" else 0
         expect.update(rmsnorm=per_step * steps, swiglu=sg_step * steps,
-                      flash_attention=L * len(reqs))
+                      flash_attention=cfg.layer_kinds().count("attn")
+                      * len(reqs))
     log(f"[serve] {arch} launches {launches} expected {expect}")
     assert launches == expect, (launches, expect)
     log(f"[serve] {arch} rmsnorm / swiglu launches in decode steps "
@@ -1683,7 +2039,7 @@ def phase_serve(torch, dev, arch):
         f"decode tokens agreeing at their position: {agree}/{n_dec}; "
         f"streams fully equal: {full_equal}/{len(reqs)}")
     assert first_equal, "first tokens differ from decode_sequential"
-    swa = phase_swa(torch, dev, base, params) if arch == SWA_ARCH else None
+    swa = phase_swa(torch, dev, base, params) if arch in SWA_CHECKS else None
 
     # the same statistics (mean, median, max over requests) as the CLI's
     summary = {
@@ -1702,19 +2058,23 @@ def phase_serve(torch, dev, arch):
 
 
 def phase_swa(torch, dev, b, params):
-    """An SWA arch at full width: one request's prefill of SWA_PROMPT
-    tokens (past the window, so the rolling buffer holds positions
-    SWA_PROMPT - Sw .. SWA_PROMPT - 1 at their index mod Sw) and SWA_STEPS
-    decode steps, each step's logits against lm_forward over the whole
-    sequence so far (the flash kernel's window band) at its last
-    position, by norm: in bf16 within SWA_REL_TOL, the distance between
-    two bf16 routes; then the same weights in fp32 within SWA_FP32_TOL.
-    A control decodes from JAX's front-written buffer layout.  With random
-    weights attention is near uniform over the 4096 keys, so the key or
-    two such a fault misplaces a step moves the logits by about the bf16
-    distance; in fp32 the control must read above the limit."""
+    """An SWA arch at full width (SWA_CHECKS: its prompt, max_len and the
+    depth of its fp32 check): one request's prefill of the prompt (past
+    the window, so the rolling buffer holds positions S - Sw .. S - 1 at
+    their index mod Sw) and SWA_STEPS decode steps, each step's logits
+    against lm_forward over the whole sequence so far (the flash kernel's
+    window band) at its last position, by norm: in bf16 within
+    SWA_REL_TOL, the distance between two bf16 routes; then the same
+    weights (recurrentgemma-9b: its first group and its tail, 5 layers)
+    in fp32 within SWA_FP32_TOL.  A control decodes from JAX's
+    front-written buffer layout (a hybrid's recurrent state as the
+    prefill left it).  With random weights attention is near uniform over
+    the window's keys, so the key or two such a fault misplaces a step
+    moves the logits by about the bf16 distance; in fp32 the control must
+    read above the limit."""
     cfg = b.cfg
-    S, n = SWA_PROMPT, SWA_STEPS
+    S, max_len, fp32_layers, bf16_tol = SWA_CHECKS[cfg.name]
+    n = SWA_STEPS
     gen = torch.Generator().manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size, (1, S + n),
                            generator=gen).to(dev)
@@ -1734,33 +2094,58 @@ def phase_swa(torch, dev, b, params):
             return torch.stack(got)
 
         last, cache = b_.prefill(params_, {"tokens": tokens[:, :S]}, b_.cfg,
-                                 8192)
+                                 max_len)
         Sw = cache["kv"]["k"].shape[2]
         # JAX's layout: the kept positions S - Sw .. S - 1 at the front
         front = {"pos": torch.tensor(S, device=dev),
                  "kv": {k: torch.roll(v, -(S % Sw), dims=2)
                         for k, v in cache["kv"].items()}}
+        if "rec" in cache:
+            front["rec"] = _tree(cache["rec"], lambda t: t.clone())
         got = decode_from(last, cache)
         ctl = decode_from(last, front)
         return (_rel_err(got, want), _max_err(got, want),
                 _rel_err(ctl, want), Sw)
 
+    def cut(b_, params_, layers):
+        """The first whole groups and the tail: ``layers`` layers."""
+        g = (layers - len(params_["tail"])) // len(cfg.block_pattern)
+        return (dataclasses.replace(b_, cfg=dataclasses.replace(
+                    b_.cfg, num_layers=layers)),
+                dict(params_, groups=_tree(params_["groups"],
+                                           lambda t: t[:g])))
+
     rel, err, ctl, Sw = check(b, params)
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32", dtype="float32")
-    p32 = _tree(params, lambda t: t.float())
-    rel32, err32, ctl32, _ = check(dataclasses.replace(b, cfg=cfg32), p32)
+    by_depth = {}
+    if fp32_layers:     # the bf16 distance at the cut depths
+        for layers in SWA_DEPTHS:
+            by_depth[layers] = check(*cut(b, params, layers))[0]
+        by_depth[cfg.num_layers] = rel
+        log(f"[serve] {cfg.name} SWA bf16 rel_err by depth: " + ", ".join(
+            f"{k} layers {v:.3e}" for k, v in by_depth.items()))
+    b32 = dataclasses.replace(b, cfg=dataclasses.replace(
+        cfg, param_dtype="float32", dtype="float32"))
+    p32 = params
+    if fp32_layers:
+        b32, p32 = cut(b32, params, fp32_layers)
+    cfg32 = b32.cfg
+    p32 = _tree(p32, lambda t: t.float())
+    rel32, err32, ctl32, _ = check(b32, p32)
     del p32
     log(f"[serve] {cfg.name} SWA: prefill S{S} (window {cfg.window}, "
         f"buffer {Sw}) + {n} decode steps vs lm_forward: bf16 rel_err "
-        f"{rel:.3e} (limit {SWA_REL_TOL}), max_abs_err {err:.3e}, control "
-        f"(JAX's front layout) {ctl:.3e}; fp32 rel_err {rel32:.3e} (limit "
-        f"{SWA_FP32_TOL}), max_abs_err {err32:.3e}, control {ctl32:.3e}")
-    assert rel <= SWA_REL_TOL, (rel, SWA_REL_TOL)
+        f"{rel:.3e} (limit {bf16_tol}), max_abs_err {err:.3e}, control "
+        f"(JAX's front layout) {ctl:.3e}; fp32 ({cfg32.num_layers} layers) "
+        f"rel_err {rel32:.3e} (limit {SWA_FP32_TOL}), max_abs_err "
+        f"{err32:.3e}, control {ctl32:.3e}")
+    assert rel <= bf16_tol, (rel, bf16_tol)
     assert rel32 <= SWA_FP32_TOL, (rel32, SWA_FP32_TOL)
     assert ctl32 > SWA_FP32_TOL, ("the control reads inside the limit",
                                   ctl32)
     return {"prompt": S, "steps": n, "buffer": Sw, "rel_err": rel,
             "max_abs_err": err, "control_rel_err": ctl,
+            "bf16_limit": bf16_tol, "bf16_rel_err_by_depth": by_depth,
+            "fp32_layers": cfg32.num_layers,
             "fp32_rel_err": rel32, "fp32_max_abs_err": err32,
             "fp32_control_rel_err": ctl32}
 
@@ -1932,6 +2317,8 @@ def phase_train(torch, dev, route: str, global_batch: int = 1,
     L, cp, n = layers, len(chunks), TRAIN_STEPS
     expect = dict.fromkeys(launches, 0)
     expect.update(_ssm_launches(L, n) if b.cfg.family == "ssm" else
+                  _hybrid_launches(b.cfg, n, remat)
+                  if b.cfg.family == "hybrid" else
                   _reference_launches(L, n, b.cfg.qk_norm, remat))
     if route.startswith("cp"):
         # the ring in each block's forward, again in its recompute
@@ -2854,6 +3241,19 @@ def _reference_launches(n_layers: int, steps: int, qk_norm: bool = False,
             "ring_step_bwd": n_layers * steps}
 
 
+def _hybrid_launches(cfg, steps: int, remat: bool = True) -> dict:
+    """The hybrid stack's launches on the reference route over ``steps``
+    steps: under remat each group's and tail block's forward kernels
+    twice (two norms a block, flash in its attn blocks), the backward
+    kernels once, the final norm once each way."""
+    L, n_attn = cfg.num_layers, cfg.layer_kinds().count("attn")
+    f = 2 if remat else 1
+    return {"rmsnorm": (f * 2 * L + 1) * steps,
+            "rmsnorm_bwd": (2 * L + 1) * steps,
+            "flash_attention": f * n_attn * steps,
+            "ring_step_bwd": n_attn * steps}
+
+
 def phase_ckpt(torch, dev, smi: str, d: Path, fs: str):
     """Checkpoints on the card: the reference cell (batch 1, 4 layers),
     trainer A taking TRAIN_STEPS steps saving every CKPT_EVERY into ``d``,
@@ -3407,6 +3807,8 @@ def device_times_main(torch, dev) -> int:
     _, train_timed, train_extra = phase_train_kernels(torch, dev, name,
                                                       device_only=True)
     timed.update(train_timed)
+    timed.update(phase_griffin_kernels(torch, dev, name,
+                                       device_only=True)[1])
     times = dict(timed, flash_attention_S4096=extra["flash_attention_S4096"],
                  **train_extra)
     one = torch.zeros(1, device=dev)
@@ -3418,6 +3820,9 @@ def device_times_main(torch, dev) -> int:
 def _leaves(node):
     if isinstance(node, dict):
         for v in node.values():
+            yield from _leaves(v)
+    elif isinstance(node, list):
+        for v in node:
             yield from _leaves(v)
     else:
         yield node
@@ -3473,6 +3878,14 @@ def main(argv=None) -> int:
     timed.update(train_timed)
     extra["rel_readings"] += train_extra.pop("rel_readings")
     extra.update(train_extra)
+    t_griffin = time.perf_counter()
+    g_checks, g_timed, g_extra = phase_griffin_kernels(torch, dev, name)
+    checks += g_checks
+    timed.update(g_timed)
+    extra["rel_readings"] += g_extra.pop("rel_readings")
+    extra.update(g_extra)
+    log(f"[kernels] recurrentgemma-9b's kernels and the RG-LRU: "
+        f"{time.perf_counter() - t_griffin:.1f} s")
     model_err = {arch: phase_model(torch, dev, arch) for arch in SERVE_ARCHS}
     serve, launches = {}, dict.fromkeys(LAUNCH_COUNTERS, 0)
     for arch in SERVE_ARCHS:
@@ -3480,7 +3893,7 @@ def main(argv=None) -> int:
         serve[arch], counts = phase_serve(torch, dev, arch)
         for kname, n in counts.items():
             launches[kname] += n
-        if arch in SERVE_LAYERS:
+        if arch in SERVE_LAYERS or arch == GRIFFIN_ARCH:
             r = serve[arch]
             log(f"[serve] {arch} ({r['layers']} layers) on {smi}: TTFT s "
                 f"{r['ttft_s']}, TPOT s {r['tpot_s']}, decode tok/s "
@@ -3490,8 +3903,10 @@ def main(argv=None) -> int:
     # (8 rows or fewer), and the rest (prefills and training)
     decode = {k: sum(serve[a]["decode_launches"][k] for a in SERVE_ARCHS)
               for k in ("rmsnorm", "swiglu")}
-    # flash's row at danube's prefill shape takes that cell's launches
+    # flash's row at danube's prefill shape takes that cell's launches,
+    # its hd-256 row at recurrentgemma-9b's prefill shape that cell's
     swa_flash = serve["h2o-danube-3-4b"]["launches"]["flash_attention"]
+    griffin_flash = serve[GRIFFIN_ARCH]["launches"]["flash_attention"]
     serve_cli = phase_serve_cli(torch)
     train_parity = phase_train_parity(torch, dev)
     train = {}
@@ -3540,6 +3955,17 @@ def main(argv=None) -> int:
         launches[kname] += n
     log(f"[train] falcon-mamba-7b and mixtral-8x7b cells: "
         f"{time.perf_counter() - t_new:.1f} s")
+    # the hybrid stack: recurrentgemma-9b at 5 layers on the reference
+    # route, its flash forward and backward at hd 256 over one KV head
+    t_new = time.perf_counter()
+    train[GRIFFIN_ARCH], counts = phase_train(
+        torch, dev, "reference", arch=GRIFFIN_ARCH,
+        layers=GRIFFIN_TRAIN_LAYERS, hold_loss0=True)
+    for kname, n in counts.items():
+        launches[kname] += n
+    log(f"[train] recurrentgemma-9b cell: {time.perf_counter() - t_new:.1f}"
+        f" s")
+    griffin_train = train[GRIFFIN_ARCH]["launches"]
     # danube's flash forward and backward run at hd 120: their rows
     swa_train = train["h2o-danube-3-4b"]["launches"]
     train["pp"], counts = phase_train_pp(torch, dev, smi)
@@ -3621,11 +4047,17 @@ def main(argv=None) -> int:
         "ring_step_bwd_cp4_per_launch_device_ms"]
     hd120_flash = swa_flash + swa_train["flash_attention"]
     row_launches = {
-        "flash_attention": launches["flash_attention"] - hd120_flash,
+        "flash_attention": (launches["flash_attention"] - hd120_flash
+                            - griffin_flash
+                            - griffin_train["flash_attention"]),
         "flash_attention hd120": hd120_flash,
+        "flash_attention hd256": griffin_flash,
+        "flash_attention hd256 lse": griffin_train["flash_attention"],
         "ring_step_bwd": (launches["ring_step_bwd"]
-                          - swa_train["ring_step_bwd"]),
-        "ring_step_bwd hd120": swa_train["ring_step_bwd"]}
+                          - swa_train["ring_step_bwd"]
+                          - griffin_train["ring_step_bwd"]),
+        "ring_step_bwd hd120": swa_train["ring_step_bwd"],
+        "ring_step_bwd hd256": griffin_train["ring_step_bwd"]}
     for k, n in decode.items():
         row_launches[k], row_launches[f"{k} decode"] = launches[k] - n, n
 

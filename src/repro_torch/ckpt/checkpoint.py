@@ -85,7 +85,9 @@ _NAMES = {t: name for name, (t, _, _) in DTYPES.items()}
 # ------------------------------------------------------------ the files ---
 def _entries(tree: Any) -> List[Tuple[str, Any]]:
     """(path, leaf) in JAX's flatten order, ``_stacked`` markers included
-    (a zero-d fp32 zero beside every ``blocks``)."""
+    (a zero-d fp32 zero beside every ``blocks``); list element i (the
+    hybrid stack's ``tail``) in index order under ``[i]``, JAX's name of
+    a sequence key (``params/tail/[0]/ln1/scale``)."""
     out: List[Tuple[str, Any]] = []
 
     def walk(node, prefix):
@@ -94,6 +96,9 @@ def _entries(tree: Any) -> List[Tuple[str, Any]]:
                 node = dict(node, **{MARKER: torch.zeros(())})
             for k in sorted(node):
                 walk(node[k], prefix + (k,))
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, prefix + (f"[{i}]",))
         else:
             out.append(("/".join(prefix), node))
 

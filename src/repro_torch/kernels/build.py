@@ -65,7 +65,8 @@ _SIGNATURES = {
     "ring_step_fwd_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
     "ssm_scan_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
     "ssm_scan_bwd_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
-    "ring_step_bwd_attrs": (_c.c_int, [_c.c_int, _c.POINTER(_c.c_int)]),
+    "ring_step_bwd_attrs": (_c.c_int, [_c.c_int, _c.c_int,
+                                       _c.POINTER(_c.c_int)]),
     "rmsnorm_attrs": (_c.c_int, [_c.c_int] * 3 + [_c.POINTER(_c.c_int)]),
     "rmsnorm_bwd_blocks_per_sm": (_c.c_int, []),
 }
@@ -162,7 +163,8 @@ def check(err: int, kernel: str) -> None:
 def kernel_attrs(fn: str, *args: int) -> dict:
     """What the card's compiled kernel behind the C function ``fn`` takes
     as launched: the bf16 tensor-core kernels (``flash_attention_fwd_attrs``,
-    ``ring_step_fwd_attrs``, ``ring_step_bwd_attrs``) at head dim ``args``,
+    ``ring_step_fwd_attrs``) at head dim ``args``, the backward
+    (``ring_step_bwd_attrs``) at ``(head dim, windowed)``,
     the selective scan (``ssm_scan_attrs``) and its backward
     (``ssm_scan_bwd_attrs``) for u of dtype code ``args``,
     rmsnorm (``rmsnorm_attrs``) at ``(bwd, D, dtype code)``."""

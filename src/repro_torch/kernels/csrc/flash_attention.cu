@@ -11,10 +11,10 @@
 // One block owns a (b, h, 64-row q tile), heaviest tiles first, and walks
 // the kv tiles inside the causal/window band; m, l and O stay on chip.
 //
-// Head dims: any multiple of 8 up to 128.  The tiles are instantiated at
-// 16, 32, 64 and 128 columns; a narrower head dim (h2o-danube-3-4b's 120,
-// a SMOKE config's 24) runs in the next tile width, its columns past hd
-// zero-filled on load (they add 0 to every score and give 0 output
+// Head dims: any multiple of 8 up to 256.  The tiles are instantiated at
+// 16, 32, 64, 128 and 256 columns; a narrower head dim (h2o-danube-3-4b's
+// 120, a SMOKE config's 24) runs in the next tile width, its columns past
+// hd zero-filled on load (they add 0 to every score and give 0 output
 // columns) and never stored.  The scale stays 1/sqrt(hd) of the real hd.
 //
 // Bound: at the serving and training shapes (S 1000-4096, hd 128) the work
@@ -29,12 +29,16 @@
 // softcap is a template flag.  The softmax runs in the log2 domain on the
 // fragments, and P, rounded to bf16 as SDPA does, is the A operand of
 // O += P V from registers.  112 KB of shared memory at hd 128, two blocks
-// an SM.  The 16-byte copies need q/k/v bases and strides 16-byte aligned
-// (the wrapper checks).
+// an SM.  At hd 256 (recurrentgemma-9b) a warp's O strip alone takes 128
+// registers a lane: Q's fragment of each k-step is read from shared
+// memory where it is used, key tiles are 32 wide and the ring has 2
+// stages (96 KB, two blocks an SM).  The 16-byte copies need q/k/v bases
+// and strides 16-byte aligned (the wrapper checks).
 //
 // fp32 (only the fp32 parity checks): fp32 FMAs on the CUDA cores from
-// fp32 shared tiles, since the tensor cores would round fp32 to TF32.  The
-// C entry point chooses by dtype.
+// fp32 shared tiles, since the tensor cores would round fp32 to TF32
+// (194 KB of shared memory at hd 256, one block an SM).  The C entry point
+// chooses by dtype.
 #include <math.h>
 
 #include "common.cuh"
@@ -260,15 +264,35 @@ namespace mma_fwd {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kStages = 3;     // K/V ring depth: two tiles in flight
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kBQ == 16 * kWarps, "one 16-row strip a warp");
 
+// Up to hd 128 a warp holds Q's fragments in registers for the whole kv
+// loop, key tiles are kBK wide and the K/V ring has 3 stages (two tiles
+// in flight).  At hd 256 a warp's fp32 O strip alone takes 128 registers
+// a lane, and Q's fragments would take 64 more: so Q's fragment of each
+// k-step is read from shared memory where it is used, key tiles are 32
+// wide (S: 16 registers a lane) and the ring has 2 stages, 96 KB of
+// shared memory, two blocks an SM.
+template <int HD>
+__host__ __device__ constexpr bool q_in_regs() {
+  return HD <= 128;
+}
+template <int HD>
+__host__ __device__ constexpr int key_tile() {
+  return HD <= 128 ? kBK : 32;
+}
+template <int HD>
+__host__ __device__ constexpr int stages() {
+  return HD <= 128 ? 3 : 2;
+}
+
 template <int HD>
 constexpr size_t smem_bytes() {
-  // Q [kBQ][HD] + K, V [kStages][kBK][HD], bf16
-  return sizeof(__nv_bfloat16) * (kBQ * HD + 2 * kStages * kBK * HD);
+  // Q [kBQ][HD] + K, V [stages][key_tile][HD], bf16
+  return sizeof(__nv_bfloat16) *
+         (kBQ * HD + 2 * stages<HD>() * key_tile<HD>() * HD);
 }
 
 // kCap: the softcap is on (its tanh stays out of the other kernel's
@@ -277,6 +301,9 @@ template <int HD, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma_kernel(const FlashParams p) {
   using tc::bf16;
+  constexpr int kBK = key_tile<HD>();     // keys of a K/V tile
+  constexpr int kStages = stages<HD>();   // K/V ring depth
+  constexpr bool kQRegs = q_in_regs<HD>();
   constexpr int kKSteps = HD / 16;   // k-steps of Q K^T over hd
   constexpr int kOutTiles = HD / 8;  // 8-column C tiles of O
   constexpr int kSTiles = kBK / 8;   // 8-column C tiles of S
@@ -324,12 +351,17 @@ flash_fwd_mma_kernel(const FlashParams p) {
   }
   tc::cp_async_wait<kStages - 1>();  // Q has landed
   __syncthreads();
-  // Q's strip as A fragments, held for the whole kv loop
-  uint32_t qf[kKSteps][4];
+  // Q's strip as A fragments: held for the whole kv loop, or (hd 256)
+  // read again at each k-step
+  auto q_frag = [&](uint32_t(&a)[4], int ks) {
+    tc::ldmatrix_x4(a, Qs + tc::swz<HD>(warp * 16 + (lane & 15),
+                                        2 * ks + (lane >> 4)));
+  };
+  uint32_t qf[kQRegs ? kKSteps : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int ks = 0; ks < kKSteps; ++ks)
-    tc::ldmatrix_x4(qf[ks], Qs + tc::swz<HD>(warp * 16 + (lane & 15),
-                                             2 * ks + (lane >> 4)));
+    for (int ks = 0; ks < kKSteps; ++ks) q_frag(qf[ks], ks);
+  }
 
   float o[kOutTiles][4];
 #pragma unroll
@@ -359,13 +391,20 @@ flash_fwd_mma_kernel(const FlashParams p) {
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < kKSteps; ++ks) {
+      uint32_t qa[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[ks][e];
+      } else {
+        q_frag(qa, ks);
+      }
 #pragma unroll
       for (int np = 0; np < kSTiles / 2; ++np) {
         uint32_t kb[4];
         tc::ldmatrix_x4(kb, Kt + tc::swz<HD>(np * 16 + (mat >> 1) * 8 + mrow,
                                              2 * ks + (mat & 1)));
-        tc::mma_bf16(s[2 * np], qf[ks], kb[0], kb[1]);
-        tc::mma_bf16(s[2 * np + 1], qf[ks], kb[2], kb[3]);
+        tc::mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+        tc::mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
       }
     }
 
@@ -520,13 +559,16 @@ cudaError_t dispatch_hd(const FlashParams& p, int dtype,
     case 128:
       return bf ? mma_fwd::launch<128>(p, stream)
                 : launch_f32<128>(p, stream);
+    case 256:
+      return bf ? mma_fwd::launch<256>(p, stream)
+                : launch_f32<256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q: (B,Sq,H,hd), k/v: (B,Sk,Hk,hd), hd a multiple of 8 up to 128, with
+// q: (B,Sq,H,hd), k/v: (B,Sk,Hk,hd), hd a multiple of 8 up to 256, with
 // unit stride on hd and the given element strides for b, s, h; o:
 // contiguous (B,Sq,H,hd) of q's dtype;
 // lse: contiguous fp32 (B,Sq,H) or nullptr.  bf16 runs on the tensor
@@ -559,6 +601,7 @@ extern "C" int flash_attention_fwd_attrs(int hd, int* out) {
     case 32: return mma_fwd::attrs<32>(out);
     case 64: return mma_fwd::attrs<64>(out);
     case 128: return mma_fwd::attrs<128>(out);
+    case 256: return mma_fwd::attrs<256>(out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -51,9 +51,9 @@
 // capped score cap * tanh(x / cap) and dS takes its derivative,
 // 1 - (s / cap)^2.  The backward alone also takes a sliding window (key
 // visible iff kpos > qpos - window, the flash forward's band) and any
-// head dim that is a multiple of 8 up to 128: it runs in the next tile
-// width (16, 32, 64, 128) with the columns past hd zero-filled on load
-// and never stored.  Only the flash backward (one rank) passes a window, a
+// head dim that is a multiple of 8 up to 256: it runs in the next tile
+// width (16, 32, 64, 128, 256) with the columns past hd zero-filled on
+// load and never stored.  Only the flash backward (one rank) passes a window, a
 // softcap or such a head dim; the ring forward keeps the tile widths (the
 // cp route refuses a window and a softcap, as JAX's does).  Bound: five
 // products per visible (q, k) pair at the bf16 tensor-core rate.
@@ -66,7 +66,11 @@
 // (as SDPA rounds them); dS^T goes through shared memory for dQ = dS K,
 // added with float2 atomics.  8 warps and 128 keys a block at hd >= 32
 // (145 KB of shared memory at hd 128): against 4 warps and 64 keys it
-// halves the dq atomics and Q/dO loads a key, and timed faster.
+// halves the dq atomics and Q/dO loads a key, and timed faster.  At hd
+// 256 two warps share each strip of 16 keys and split dK/dV's columns (a
+// warp's accumulators as at hd 128), each computing the strip's S^T and
+// dP^T: 64 keys a block, 201 KB of shared memory, one block an SM; the
+// fp32 kernel stops at hd 128 (its tiles would need 300 KB).
 //   fp32 (the fp32 parity checks): fp32 FMAs from fp32 shared tiles; the
 // tensor cores would round fp32 to TF32.
 //
@@ -825,27 +829,31 @@ namespace mma_bwd {
 constexpr int kStages = 2;     // Q/dO/lse/delta ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD, int W>
+// SPLIT warps share a strip of 16 keys: each computes the strip's S^T
+// and dP^T and keeps dK and dV on 1 / SPLIT of the head dim's columns
+template <int HD, int W, int SPLIT>
 constexpr size_t smem_bytes() {
-  // K, V [16 W][HD] + Q, dO [kStages][kBQ][HD] + dS^T [16 W][kBQ], bf16;
-  // lse, delta [kStages][kBQ] fp32
-  return sizeof(__nv_bfloat16) * (2 * 16 * W * HD + 2 * kStages * kBQ * HD +
-                                  16 * W * kBQ) +
+  // K, V [16 W / SPLIT][HD] + Q, dO [kStages][kBQ][HD] + dS^T [16 W /
+  // SPLIT][kBQ], bf16; lse, delta [kStages][kBQ] fp32
+  return sizeof(__nv_bfloat16) * (2 * 16 * W / SPLIT * HD +
+                                  2 * kStages * kBQ * HD +
+                                  16 * W / SPLIT * kBQ) +
          sizeof(float) * 2 * kStages * kBQ;
 }
 
-// W warps own the block's 16 W keys; kCap: the softcap is on (its tanh
-// stays out of the other variants' loop); kGen: a window or a head dim
-// narrower than the tile (the tile-width, windowless variant keeps hd and
-// the band as constants, so the causal llama path pays for neither)
-template <int HD, int W, bool kCap, bool kGen>
+// W warps own the block's 16 W / SPLIT keys; kCap: the softcap is on (its
+// tanh stays out of the other variants' loop); kGen: a window or a head
+// dim narrower than the tile (the tile-width, windowless variant keeps hd
+// and the band as constants, so the causal llama path pays for neither)
+template <int HD, int W, int SPLIT, bool kCap, bool kGen>
 __global__ void __launch_bounds__(32 * W)
 ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
   using tc::bf16;
   constexpr int kThreads = 32 * W;
-  constexpr int kKeys = 16 * W;        // keys of the block's tile
+  constexpr int kKeys = 16 * W / SPLIT;  // keys of the block's tile
   constexpr int kKSteps = HD / 16;     // k-steps over hd
   constexpr int kDTiles = HD / 8;      // 8-column C tiles over hd
+  constexpr int kMyTiles = kDTiles / SPLIT;  // this warp's dK/dV tiles
   constexpr int kQTiles = kBQ / 8;     // 8-column C tiles over a q tile
   // dQ (kBQ x HD) is split among the warps: 4 strips of 16 q rows times
   // W / 4 column parts, each done in blocks of at most 64 columns
@@ -853,6 +861,7 @@ ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
   constexpr int kPartTiles = kDTiles / kParts;
   constexpr int kDQTiles = kPartTiles < 8 ? kPartTiles : 8;
   static_assert(W % 4 == 0 && kPartTiles % 2 == 0, "whole x4 loads of dQ");
+  static_assert(W % SPLIT == 0 && kMyTiles % 2 == 0, "whole key strips");
   extern __shared__ __align__(128) unsigned char smem_tc[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_tc);   // [kKeys][HD]
   bf16* Vs = Ks + kKeys * HD;                     // [kKeys][HD]
@@ -917,13 +926,15 @@ ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
   load_q(0);
   tc::cp_async_commit();
 
-  float dk[kDTiles][4], dv[kDTiles][4];
+  // the warp's key strip and its first dK/dV column tile
+  const int strip = warp / SPLIT, c_base = (warp % SPLIT) * kMyTiles;
+  float dk[kMyTiles][4], dv[kMyTiles][4];
 #pragma unroll
-  for (int n = 0; n < kDTiles; ++n)
+  for (int n = 0; n < kMyTiles; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
   const float scale_log2 = s.sm_scale * kLog2e;
-  const int kw = k0 + warp * 16 + gid;  // this lane's key of row gid
+  const int kw = k0 + strip * 16 + gid;  // this lane's key of row gid
   // the warp's strip and column part of dQ
   const int dq_strip = warp & 3, dq_part = warp >> 2;
 
@@ -950,7 +961,7 @@ ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
 #pragma unroll
     for (int ks = 0; ks < kKSteps; ++ks) {
       uint32_t ka[4], va[4];
-      const int arow = warp * 16 + (lane & 15), acol = 2 * ks + (lane >> 4);
+      const int arow = strip * 16 + (lane & 15), acol = 2 * ks + (lane >> 4);
       tc::ldmatrix_x4(ka, Ks + tc::swz<HD>(arow, acol));
       tc::ldmatrix_x4(va, Vs + tc::swz<HD>(arow, acol));
 #pragma unroll
@@ -1004,14 +1015,17 @@ ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
       }
     }
 
-    // dS^T to shared memory for dQ, as bf16 pairs
+    // dS^T to shared memory for dQ, as bf16 pairs (by the strip's first
+    // warp)
+    if (warp % SPLIT == 0) {
 #pragma unroll
-    for (int j = 0; j < kQTiles; ++j)
+      for (int j = 0; j < kQTiles; ++j)
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr)
-        *reinterpret_cast<uint32_t*>(
-            dSs + tc::swz<kBQ>(warp * 16 + gid + 8 * rr, j) + 2 * tig) =
-            tc::pack_bf16(dpT[j][2 * rr], dpT[j][2 * rr + 1]);
+        for (int rr = 0; rr < 2; ++rr)
+          *reinterpret_cast<uint32_t*>(
+              dSs + tc::swz<kBQ>(strip * 16 + gid + 8 * rr, j) + 2 * tig) =
+              tc::pack_bf16(dpT[j][2 * rr], dpT[j][2 * rr + 1]);
+    }
 
     // dV += P^T dO and dK += dS^T Q: A fragments from registers, dO and Q
     // as B fragments transposed from their [q][d] tiles
@@ -1021,9 +1035,9 @@ ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
       tc::c_to_a(pa, sT[2 * kk], sT[2 * kk + 1]);
       tc::c_to_a(sa, dpT[2 * kk], dpT[2 * kk + 1]);
 #pragma unroll
-      for (int dp = 0; dp < kDTiles / 2; ++dp) {
+      for (int dp = 0; dp < kMyTiles / 2; ++dp) {
         const int brow = kk * 16 + (mat & 1) * 8 + mrow;
-        const int bcol = 2 * dp + (mat >> 1);
+        const int bcol = c_base + 2 * dp + (mat >> 1);
         uint32_t ob[4], qb[4];
         tc::ldmatrix_x4_trans(ob, dOt + tc::swz<HD>(brow, bcol));
         tc::ldmatrix_x4_trans(qb, Qt + tc::swz<HD>(brow, bcol));
@@ -1085,9 +1099,9 @@ ring_bwd_mma_kernel(const __grid_constant__ BwdParams p) {
     const int kj = kw + 8 * rr;
     if (kj >= s.Ck) continue;
 #pragma unroll
-    for (int n = 0; n < kDTiles; ++n) {
-      if (8 * n >= hd) continue;
-      const long long o = kj * kv_rs + 8 * n + 2 * tig;
+    for (int n = 0; n < kMyTiles; ++n) {
+      if (8 * (c_base + n) >= hd) continue;
+      const long long o = kj * kv_rs + 8 * (c_base + n) + 2 * tig;
       float2* pk = reinterpret_cast<float2*>(dkg + o);
       float2* pv = reinterpret_cast<float2*>(dvg + o);
       const float2 ok = *pk, ov = *pv;
@@ -1105,15 +1119,26 @@ constexpr int warps() {
   return HD >= 32 ? 8 : 4;
 }
 
+// At hd 256 a warp's dK and dV over all of hd would take 256 registers a
+// lane, and K, V and the Q/dO ring of 128 keys 272 KB of shared memory:
+// two warps share each strip of 16 keys (64 keys a block, 201 KB) and
+// split dK/dV's columns, each computing the strip's S^T and dP^T (two of
+// the five products done twice)
+template <int HD>
+constexpr int split() {
+  return HD > 128 ? 2 : 1;
+}
+
 template <int HD, bool kCap, bool kGen>
 cudaError_t launch_variant(const BwdParams& p, cudaStream_t stream) {
-  constexpr int W = warps<HD>();
-  constexpr size_t smem = smem_bytes<HD, W>();
-  auto* kernel = ring_bwd_mma_kernel<HD, W, kCap, kGen>;
+  constexpr int W = warps<HD>(), SPLIT = split<HD>();
+  constexpr int kKeys = 16 * W / SPLIT;
+  constexpr size_t smem = smem_bytes<HD, W, SPLIT>();
+  auto* kernel = ring_bwd_mma_kernel<HD, W, SPLIT, kCap, kGen>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(p.s.Hk, p.s.R * p.s.B, (p.s.Ck + 16 * W - 1) / (16 * W));
+  const dim3 grid(p.s.Hk, p.s.R * p.s.B, (p.s.Ck + kKeys - 1) / kKeys);
   if (grid.z > 65535) return cudaErrorInvalidValue;
   kernel<<<grid, 32 * W, smem, stream>>>(p);
   return cudaGetLastError();
@@ -1134,10 +1159,10 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
 // head dim)
 template <int HD, bool kGen>
 cudaError_t attrs(int* out) {
-  constexpr int W = warps<HD>();
-  constexpr size_t smem = smem_bytes<HD, W>();
+  constexpr int W = warps<HD>(), SPLIT = split<HD>();
+  constexpr size_t smem = smem_bytes<HD, W, SPLIT>();
   cudaFuncAttributes a;
-  auto* kernel = ring_bwd_mma_kernel<HD, W, false, kGen>;
+  auto* kernel = ring_bwd_mma_kernel<HD, W, SPLIT, false, kGen>;
   cudaError_t e = cudaFuncGetAttributes(&a, kernel);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(
@@ -1213,6 +1238,7 @@ cudaError_t dispatch_bwd_mma(const BwdParams& p, cudaStream_t stream) {
     case 32: return mma_bwd::launch<32>(p, stream);
     case 64: return mma_bwd::launch<64>(p, stream);
     case 128: return mma_bwd::launch<128>(p, stream);
+    case 256: return mma_bwd::launch<256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1302,10 +1328,11 @@ extern "C" int ring_step_bwd(const void* q, const void* k, const void* v,
 
 // The bf16 backward's registers, spill bytes, dynamic shared memory and
 // resident blocks per SM at head dim hd, into out[0..3]: the variant a
-// windowless call without softcap launches (at a head dim narrower than
-// its tile width, the general one).
-extern "C" int ring_step_bwd_attrs(int hd, int* out) {
-  const bool gen = hd != tile_width(hd);
+// call without softcap launches, windowless unless ``windowed`` (at a
+// head dim narrower than its tile width, or with a window, the general
+// one).
+extern "C" int ring_step_bwd_attrs(int hd, int windowed, int* out) {
+  const bool gen = hd != tile_width(hd) || windowed;
   switch (tile_width(hd)) {
     case 16: return gen ? mma_bwd::attrs<16, true>(out)
                         : mma_bwd::attrs<16, false>(out);
@@ -1315,6 +1342,8 @@ extern "C" int ring_step_bwd_attrs(int hd, int* out) {
                         : mma_bwd::attrs<64, false>(out);
     case 128: return gen ? mma_bwd::attrs<128, true>(out)
                          : mma_bwd::attrs<128, false>(out);
+    case 256: return gen ? mma_bwd::attrs<256, true>(out)
+                         : mma_bwd::attrs<256, false>(out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -11,10 +11,13 @@ tensor cores (``mma.sync`` m16n8k16, Q's fragments held in registers,
 K/V tiles through a 3-stage ``cp.async`` ring, P rounded to bf16 for the
 PV product as SDPA does); fp32 inputs keep the fp32 FMA kernel, since the
 tensor cores would round them to TF32 (PERF.md has both kernels' distance
-from the bound).  Any head dim that is a multiple of 8 up to 128 runs:
+from the bound).  Any head dim that is a multiple of 8 up to 256 runs:
 the tiles are built at ``HEAD_DIMS``' widths, and a narrower head dim
 (h2o-danube-3-4b's 120) takes the next one, its extra columns
-zero-filled on load and never stored.  Asked for it, the kernel also
+zero-filled on load and never stored.  At recurrentgemma-9b's 256 the
+bf16 kernel reads Q's fragments from shared memory at each k-step
+instead of holding them (O alone takes half a lane's registers), over
+32-key tiles in a 2-stage ring.  Asked for it, the kernel also
 writes each row's logsumexp, which the backward
 (``kernels/ops.py::FlashAttentionFn``, through the one-rank
 ``ring_step_bwd``) needs.  Plain version: ``kernels/ref.py::
@@ -29,7 +32,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)   # the tile widths the kernel is built at
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the tile widths the kernel is built at
 launches = 0   # kernel launches since the last reset
 
 
@@ -37,7 +40,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     return_lse: bool = False):
-    """q: (B,Sq,H,hd); k/v: (B,Sk,Hk,hd), hd a multiple of 8 up to 128,
+    """q: (B,Sq,H,hd); k/v: (B,Sk,Hk,hd), hd a multiple of 8 up to 256,
     any strides with unit stride on hd (bf16: 16-byte aligned bases and
     strides, for the tensor-core kernel's 16-byte copies).  Returns a
     contiguous (B,Sq,H,hd) tensor of q's dtype, and with ``return_lse``

@@ -26,8 +26,11 @@ ranks at once, added into fp32 dq (per rank) and dk/dv (per SOURCE rank).
 The JAX package has no backward kernel: it differentiates the jnp fold.
 With one rank it is the flash backward, so it also takes what the flash
 forward takes: a sliding window, a logit softcap, and any head dim that
-is a multiple of 8 up to 128 (run in the next tile width, its extra
-columns zero-filled on load and never stored).  The ring forward
+is a multiple of 8 up to 256 (run in the next tile width, its extra
+columns zero-filled on load and never stored; fp32 up to 128, where the
+FMA kernel's tiles still fit in shared memory).  At hd 256
+(recurrentgemma-9b) two warps share each strip of 16 keys, each keeping
+half of dK's and dV's columns.  The ring forward
 ``ring_step`` keeps the tile widths and neither window nor softcap: the
 cp loss refuses both (as JAX's ``repro/parallel/context.py`` does), and
 h2o-danube-3-4b, the one registry arch at a head dim between the tile
@@ -55,6 +58,8 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)   # the ring forward's head dims, the tiles
+BWD_HEAD_DIM = 256      # the backward's widest head dim (bf16)
+BWD_F32_HEAD_DIM = 128  # ... and the fp32 FMA kernel's
 MAX_RANKS = 64      # hop table entries the kernels' parameter block holds
 launches = 0        # ring_step launches since the last reset
 bwd_launches = 0    # ring_step_bwd launches since the last reset
@@ -134,7 +139,8 @@ def _hop_array(hops: Sequence[Hop]):
 
 def _check_qkv(q, k, v, *, any_hd: bool = False):
     """The shapes of q, k, v; ``any_hd``: any head dim that is a multiple
-    of 8 up to 128 (the backward), else one of ``HEAD_DIMS``."""
+    of 8 up to ``BWD_HEAD_DIM`` (the backward; fp32 up to
+    ``BWD_F32_HEAD_DIM``), else one of ``HEAD_DIMS``."""
     if q.dim() != 5 or k.dim() != 5 or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: want (R,B,C,H,hd), k == v")
@@ -146,9 +152,10 @@ def _check_qkv(q, k, v, *, any_hd: bool = False):
     if Hk == 0 or H % Hk:
         raise ValueError(f"n_heads {H} not a multiple of n_kv_heads {Hk}")
     if any_hd:
-        if hd % 8 or not 8 <= hd <= HEAD_DIMS[-1]:
-            raise ValueError(f"head dim {hd}: the backward takes multiples "
-                             f"of 8 up to {HEAD_DIMS[-1]}")
+        top = BWD_HEAD_DIM if q.dtype == torch.bfloat16 else BWD_F32_HEAD_DIM
+        if hd % 8 or not 8 <= hd <= top:
+            raise ValueError(f"head dim {hd}: the {q.dtype} backward takes "
+                             f"multiples of 8 up to {top}")
     elif hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -213,7 +220,8 @@ def ring_step_bwd(q, k, v, dout, lse, delta, dq, dk, dv,
     (Rk,B,Ck,Hk,hd), fp32 and contiguous, in place; return them.
 
     q, dout: (R,B,Cq,H,hd) and k/v: (Rk,B,Ck,Hk,hd) of one dtype, hd a
-    multiple of 8 up to 128; lse and delta (R,B,Cq,H) fp32.  ``window``:
+    multiple of 8 up to 256 (bf16) or 128 (fp32); lse and delta
+    (R,B,Cq,H) fp32.  ``window``:
     a key is seen only while its global position is past the query's
     minus the window; ``softcap``: the forward's scores were
     cap * tanh(s / cap), and lse is theirs.  The sources of the hops must differ (one ring

@@ -2,9 +2,9 @@
 
 The dense family (``llama3-8b``, ``qwen3-14b``, ``nemotron-4-15b``,
 ``h2o-danube-3-4b``), the MoE family (``mixtral-8x7b``,
-``phi3.5-moe-42b-a6.6b``) and ``falcon-mamba-7b`` are ported; every other
-arch id of the JAX registry raises ``NotImplementedError`` naming its
-ROADMAP item.
+``phi3.5-moe-42b-a6.6b``), ``falcon-mamba-7b`` and the hybrid
+``recurrentgemma-9b`` are ported; every other arch id of the JAX
+registry raises ``NotImplementedError`` naming its ROADMAP item.
 
 Unified batch dict keys: ``tokens`` (B, S) int.
 """
@@ -24,11 +24,11 @@ ARCH_IDS = (
     "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b", "whisper-tiny",
 )
 PORTED = ("llama3-8b", "qwen3-14b", "nemotron-4-15b", "h2o-danube-3-4b",
-          "falcon-mamba-7b", "mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
+          "falcon-mamba-7b", "mixtral-8x7b", "phi3.5-moe-42b-a6.6b",
+          "recurrentgemma-9b")
 # the archs still to port, by family (``transformer.UNPORTED`` names the
 # ROADMAP item that ports each family)
-UNPORTED = {"phi-3-vision-4.2b": "vlm", "recurrentgemma-9b": "hybrid",
-            "whisper-tiny": "encdec"}
+UNPORTED = {"phi-3-vision-4.2b": "vlm", "whisper-tiny": "encdec"}
 
 
 def check_last_logits(logits, batch: int, vocab: int,

@@ -1,5 +1,5 @@
-"""Decoder-only LM, uniform stacks (port of ``repro/models/transformer.py``,
-dense, MoE and ssm families).
+"""Decoder-only LM (port of ``repro/models/transformer.py``: the dense,
+MoE and ssm families' uniform stacks and the hybrid family's groups).
 
 Public entry points:
   init_lm(cfg, seed=, device=)                   -> params
@@ -14,7 +14,18 @@ Blocks are stacked on a leading layer dim as in the JAX package; its
 dense block is ``{ln1, attn, ln2, mlp}`` and caches K/V; a MoE block is
 ``{ln1, attn, ln2, moe}`` (``models/moe.py``) and caches K/V; an ssm
 block (Mamba-1) is ``{ln1, ssm}`` and caches the scan state ``h`` and the
-conv tail, whose size does not grow with the sequence.  Every block
+conv tail, whose size does not grow with the sequence.
+
+The hybrid stack (recurrentgemma-9b) has JAX's scanned layout, so that
+``convert.from_jax`` is the identity: ``params["groups"]`` holds one
+block a slot of the pattern (``{"b0", "b1", "b2"}`` for (rec, rec,
+attn)), each leaf stacked on the number of whole pattern cycles, and
+``params["tail"]`` is a list of the ``num_layers % len(pattern)``
+trailing blocks (38 = 12 x 3 + 2 rec).  A rec block is ``{ln1, rec, ln2,
+mlp}`` (``models/griffin.py``) and caches its RG-LRU state and conv tail;
+an attn block is the dense block and caches K/V.  Under remat a loss
+checkpoints each group and each tail block whole, as JAX remats
+``group_fwd`` and each tail block.  Every block
 returns its auxiliary loss beside its output (the MoE router's Switch
 loss; None where a block has none), which the forward sums over the
 layers as JAX's ``lax.scan`` does.  The
@@ -30,7 +41,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.iccl.communicator import Communicator
-from repro_torch.models import mamba, moe
+from repro_torch.models import griffin, mamba, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_he, attention, decode_attention,
                                        init_attention, init_kv_cache,
@@ -42,19 +53,27 @@ from repro_torch.utils.device import DeviceLike, resolve_device
 
 # the families of the JAX registry that the port does not run yet, by
 # the ROADMAP item that ports each (the registry's archs name them too)
-UNPORTED = {"hybrid": "A9d (Griffin)", "encdec": "A9e (enc-dec)",
-            "vlm": "A9f (the VLM prepend)"}
+UNPORTED = {"encdec": "A9e (enc-dec)", "vlm": "A9f (the VLM prepend)"}
+HYBRID_KINDS = ("rec", "attn")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port runs the uniform dense attention stack (qk_norm, SWA,
-    every MLP activation of the registry), the uniform MoE stack and the
-    uniform Mamba-1 stack."""
-    if cfg.family not in ("dense", "moe", "ssm"):
+    every MLP activation of the registry), the uniform MoE stack, the
+    uniform Mamba-1 stack and the hybrid stack of RG-LRU and attention
+    blocks in JAX's scanned layout."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         item = UNPORTED.get(cfg.family, "A9")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             f"(ROADMAP.md queue A, item {item})")
+    if cfg.family == "hybrid" and (
+            not cfg.scan_layers
+            or not set(cfg.layer_kinds()) <= set(HYBRID_KINDS)):
+        raise ValueError(
+            f"{cfg.name}: the hybrid stack takes the blocks {HYBRID_KINDS} "
+            f"in JAX's scanned layout (kinds {sorted(set(cfg.layer_kinds()))}"
+            f", scan_layers {cfg.scan_layers})")
     if (cfg.family == "moe") != bool(cfg.n_experts) or (
             cfg.n_experts and not 1 <= cfg.top_k <= cfg.n_experts):
         raise ValueError(
@@ -82,6 +101,13 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
         params["blocks"] = {"ln1": init_rmsnorm(D, cfg.pdtype, dev, L),
                             "ssm": mamba.init_mamba(gen, cfg, L)}
         return params
+    if cfg.family == "hybrid":
+        pat, n_groups, tail = hybrid_layout(cfg)
+        params["groups"] = {f"b{i}": _init_hybrid(gen, cfg, kind, n_groups)
+                            for i, kind in enumerate(pat)}
+        params["tail"] = [layer(_init_hybrid(gen, cfg, kind, 1), 0)
+                          for kind in tail]
+        return params
     params["blocks"] = {
         "ln1": init_rmsnorm(D, cfg.pdtype, dev, L),
         "attn": init_attention(gen, cfg, L),
@@ -94,10 +120,43 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
     return params
 
 
+def hybrid_layout(cfg: ModelConfig):
+    """(pattern, whole pattern cycles, the tail's kinds): JAX's
+    ``_hybrid_layout``."""
+    pat = cfg.block_pattern or ("rec", "rec", "attn")
+    n_groups = cfg.num_layers // len(pat)
+    return pat, n_groups, cfg.layer_kinds()[n_groups * len(pat):]
+
+
+def _init_hybrid(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                 n: int) -> dict:
+    """n stacked hybrid blocks of ``kind``: ``{ln1, attn | rec, ln2,
+    mlp}``."""
+    D, dev = cfg.d_model, gen.device
+    p: Dict[str, Any] = {"ln1": init_rmsnorm(D, cfg.pdtype, dev, n)}
+    if kind == "attn":
+        p["attn"] = init_attention(gen, cfg, n)
+    else:
+        p["rec"] = griffin.init_rglru_block(gen, cfg, n)
+    p["ln2"] = init_rmsnorm(D, cfg.pdtype, dev, n)
+    p["mlp"] = init_mlp(gen, cfg, n)
+    return p
+
+
 def layer(blocks: dict, i: int) -> dict:
     """Views of layer ``i`` of the stacked blocks."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in blocks.items()}
+
+
+def hybrid_layers(params: dict, cfg: ModelConfig):
+    """The hybrid stack's (kind, block) pairs in layer order: the groups'
+    slots in group order (views), then the tail."""
+    pat, n_groups, tail = hybrid_layout(cfg)
+    for g in range(n_groups):
+        for i, kind in enumerate(pat):
+            yield kind, layer(params["groups"][f"b{i}"], g)
+    yield from zip(tail, params["tail"])
 
 
 # --------------------------------------------------------------- forward ---
@@ -164,6 +223,43 @@ def _ssm_block(p: dict, x: torch.Tensor, cfg: ModelConfig):
                                  cfg), None
 
 
+def _rec_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+               return_state: bool = False):
+    """An RG-LRU block and its MLP: (x, aux = None); with
+    ``return_state`` (x, h, conv tail), its decode state."""
+    y = griffin.rglru_block(p["rec"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                            cfg, return_state=return_state)
+    y, state = (y[0], y[1:]) if return_state else (y, None)
+    x = x + y
+    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    return (x, *state) if return_state else (x, None)
+
+
+def _hybrid_fn(cfg: ModelConfig, kind: str):
+    """A hybrid block of ``kind``, ``(p, x) -> (x, aux = None)``."""
+    return functools.partial(_rec_block if kind == "rec" else _block,
+                             cfg=cfg)
+
+
+def _group(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """One whole cycle of the hybrid pattern, ``p`` its ``{"b0", ...}``
+    slots (JAX's ``group_fwd``): (x, aux = None)."""
+    pat = hybrid_layout(cfg)[0]
+    for i, kind in enumerate(pat):
+        x, _ = _hybrid_fn(cfg, kind)(p[f"b{i}"], x)
+    return x, None
+
+
+def hybrid_units(params: dict, cfg: ModelConfig):
+    """The hybrid stack's remat units in order, (block fn, params): each
+    group, then each tail block."""
+    pat, n_groups, tail = hybrid_layout(cfg)
+    group = functools.partial(_group, cfg=cfg)
+    units = [(group, layer(params["groups"], g)) for g in range(n_groups)]
+    return units + [(_hybrid_fn(cfg, kind), p)
+                    for kind, p in zip(tail, params["tail"])]
+
+
 def block_fn(cfg: ModelConfig, model: Optional[Communicator] = None):
     """The stack's block, ``(p, x) -> (x, aux)``."""
     if cfg.family == "ssm":
@@ -187,6 +283,8 @@ def run_blocks(layers, x: torch.Tensor, block, remat: bool):
 def _requires_grad(tree) -> bool:
     if isinstance(tree, dict):
         return any(_requires_grad(v) for v in tree.values())
+    if isinstance(tree, list):
+        return any(_requires_grad(v) for v in tree)
     return tree.requires_grad
 
 
@@ -202,6 +300,11 @@ def remat_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor) -> bool:
 def check_tp_supported(cfg: ModelConfig) -> None:
     """Tensor parallelism splits the dense stack; the others raise,
     naming their ROADMAP item."""
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over the hybrid stack (the "
+            "RG-LRU width split over the model ranks, JAX's shard_lru "
+            "rules) is not ported yet (ROADMAP.md queue A, item A9g)")
     if cfg.family == "ssm":
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over the ssm stack (d_inner "
@@ -233,10 +336,17 @@ def lm_features(params: dict, tokens, cfg: ModelConfig,
     if model is not None:
         check_tp_supported(cfg)
     x = _embed(params, tokens, cfg, model)
-    remat = remat_blocks(cfg, params["blocks"], x)
-    x, aux = run_blocks((layer(params["blocks"], i)
-                         for i in range(cfg.num_layers)), x,
-                        block_fn(cfg, model), remat)
+    # the block stack: ``blocks``, or the hybrid stack's groups and tail
+    remat = remat_blocks(cfg, {k: params[k] for k in ("blocks", "groups",
+                                                      "tail") if k in params},
+                         x)
+    if cfg.family == "hybrid":
+        for fn, p in hybrid_units(params, cfg):
+            x, aux = run_blocks((p,), x, fn, remat)
+    else:
+        x, aux = run_blocks((layer(params["blocks"], i)
+                             for i in range(cfg.num_layers)), x,
+                            block_fn(cfg, model), remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -255,11 +365,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     check_supported(cfg)
     dev = resolve_device(device)
     cache = {"pos": torch.zeros((), dtype=torch.int64, device=dev)}
+    kinds = cfg.layer_kinds()
+    n_attn, n_rec = kinds.count("attn"), kinds.count("rec")
     if cfg.family == "ssm":   # fixed size: max_len does not apply
         cache["ssm"] = mamba.init_mamba_state(cfg, batch, cfg.num_layers,
                                               dev)
-    else:
-        cache["kv"] = init_kv_cache(cfg, batch, max_len, cfg.num_layers, dev)
+    if n_attn:
+        cache["kv"] = init_kv_cache(cfg, batch, max_len, n_attn, dev)
+    if n_rec:   # the hybrid stack's rec layers, in layer order
+        cache["rec"] = griffin.init_rglru_state(cfg, batch, n_rec, dev)
     return cache
 
 
@@ -271,7 +385,9 @@ def lm_prefill(params: dict, tokens, cfg: ModelConfig, max_len: int):
     ``decode_attention`` reads it: JAX's layout where S <= Sw or S is a
     multiple of Sw; otherwise JAX writes them at the front, which its own
     decode misreads (ROADMAP.md, reference behaviours).  An ssm cache
-    holds each layer's scan state and conv tail after position S."""
+    holds each layer's scan state and conv tail after position S, and so
+    does a hybrid cache for each rec layer (JAX's
+    ``_rglru_prefill_state``), beside the attn layers' K/V."""
     dev = params["embed"].device
     x = _embed(params, tokens, cfg)
     B, S = x.shape[0], x.shape[1]
@@ -289,16 +405,28 @@ def lm_prefill(params: dict, tokens, cfg: ModelConfig, max_len: int):
         keep = min(S, Sw)
         # the rolling buffer's kept positions S-Sw..S-1 sit at a mod Sw
         shift = S % Sw if cfg.window and keep == Sw else 0
-        ck, cv = cache["kv"]["k"], cache["kv"]["v"]
-        for i in range(cfg.num_layers):
-            x, _, k, v = _block(layer(params["blocks"], i), x, cfg,
-                                return_kv=True)
+        ck, cv = (cache["kv"]["k"], cache["kv"]["v"]) if "kv" in cache \
+            else (None, None)
+        if cfg.family == "hybrid":
+            hs, cs = cache["rec"]["h"], cache["rec"]["conv"]
+            blocks = hybrid_layers(params, cfg)
+        else:
+            blocks = (("attn", layer(params["blocks"], i))
+                      for i in range(cfg.num_layers))
+        ai = ri = 0
+        for kind, p in blocks:
+            if kind == "rec":
+                x, hs[ri], cs[ri] = _rec_block(p, x, cfg, return_state=True)
+                ri += 1
+                continue
+            x, _, k, v = _block(p, x, cfg, return_kv=True)
             if shift:
-                ck[i] = torch.roll(k[:, S - keep:], shift, dims=1)
-                cv[i] = torch.roll(v[:, S - keep:], shift, dims=1)
+                ck[ai] = torch.roll(k[:, S - keep:], shift, dims=1)
+                cv[ai] = torch.roll(v[:, S - keep:], shift, dims=1)
             else:
-                ck[i, :, :keep] = k[:, S - keep:]
-                cv[i, :, :keep] = v[:, S - keep:]
+                ck[ai, :, :keep] = k[:, S - keep:]
+                cv[ai, :, :keep] = v[:, S - keep:]
+            ai += 1
     # the final norm is per row: normalize only the row the logits need
     x = rmsnorm(params["final_norm"], x[:, -1:].contiguous(), cfg.norm_eps)
     cache["pos"].fill_(S)
@@ -321,11 +449,24 @@ def lm_decode_step(params: dict, token, cache: dict, cfg: ModelConfig):
             h = rmsnorm(p["ln1"], x, cfg.norm_eps)
             x = x + mamba.mamba_decode(p["ssm"], h, hs[i], cs[i], cfg)
     else:
-        ck, cv = cache["kv"]["k"], cache["kv"]["v"]
-        for i in range(cfg.num_layers):
-            p = layer(params["blocks"], i)
+        ck, cv = (cache["kv"]["k"], cache["kv"]["v"]) if "kv" in cache \
+            else (None, None)
+        if cfg.family == "hybrid":
+            hs, cs = cache["rec"]["h"], cache["rec"]["conv"]
+            blocks = hybrid_layers(params, cfg)
+        else:
+            blocks = (("attn", layer(params["blocks"], i))
+                      for i in range(cfg.num_layers))
+        ai = ri = 0
+        for kind, p in blocks:
             h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-            x = x + decode_attention(p["attn"], h, ck[i], cv[i], pos, cfg)
+            if kind == "rec":
+                x = x + griffin.rglru_decode(p["rec"], h, hs[ri], cs[ri], cfg)
+                ri += 1
+            else:
+                x = x + decode_attention(p["attn"], h, ck[ai], cv[ai], pos,
+                                         cfg)
+                ai += 1
             x = x + _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)[0]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     cache["pos"] = pos + 1

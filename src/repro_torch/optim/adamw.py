@@ -1,7 +1,7 @@
 """AdamW with fp32 master weights (port of ``repro/optim/adamw.py``).
 
 The state is ``{master?, m, v, count}`` over the parameter tree (nested
-dicts of tensors): master weights exist only when the parameters are low
+dicts, and lists, of tensors): master weights exist only when the parameters are low
 precision (bf16); the moments are always fp32.  The arithmetic is the JAX
 package's, term for term, in fp32: global-norm clipping, linear warmup,
 bias correction, decoupled weight decay on the master.  Unlike JAX the
@@ -30,16 +30,22 @@ class AdamWConfig:
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """``fn`` over the leaves of nested dicts of tensors (same keys)."""
+    """``fn`` over the leaves of nested dicts and lists of tensors (same
+    keys; a list is the hybrid stack's ``tail``)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 

@@ -294,7 +294,12 @@ def check_rank_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
     ``interleaved-1f1b`` with vpp > 1 a microbatch count that Megatron's
     order matches every message of (m <= pp, or m a multiple of pp), and
     cp > 1 only at pp 1 on a model in the cp loss's scope; tp > 1 on the
-    dense stack only; MoE on one replica."""
+    dense stack only; MoE on one replica; not the hybrid stack (A9g)."""
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: the rank routes (tp, dp, ZeRO-1) over the hybrid "
+            "stack wait for JAX's shard_lru rules (ROADMAP.md queue A, item "
+            "A9g)")
     check_pp_supported(cfg)
     m, pp = plan.micro_batches, plan.pp
     if max(plan.tps) > 1:

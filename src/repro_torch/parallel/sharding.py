@@ -134,10 +134,14 @@ class ShardingRules:
 
 
 def map_with_path(fn, tree: Any, prefix: Tuple[str, ...] = ()) -> Any:
-    """``fn(path, leaf)`` over nested dicts of tensors."""
+    """``fn(path, leaf)`` over nested dicts and lists of tensors; list
+    element i is ``"[i]"`` on the path, as JAX names a sequence key."""
     if isinstance(tree, dict):
         return {k: map_with_path(fn, v, prefix + (k,))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_path(fn, v, prefix + (f"[{i}]",))
+                for i, v in enumerate(tree)]
     return fn(prefix, tree)
 
 
@@ -201,5 +205,5 @@ def zero_gather_trees(trees: Sequence[Dict[str, Any]],
 
 def _at(tree: Dict[str, Any], path: Tuple[str, ...]) -> Any:
     for k in path:
-        tree = tree[k]
+        tree = tree[int(k[1:-1])] if isinstance(tree, list) else tree[k]
     return tree

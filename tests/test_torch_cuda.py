@@ -212,10 +212,78 @@ def test_flash_attention_any_head_dim(dev, hd, dtype, B, Sq, Sk, H, Hk, kw):
 
 
 def test_flash_attention_refuses_other_head_dims(dev):
-    x = _randn(dev, 1, 8, 2, 136, dtype=torch.bfloat16)
-    for t in (x[..., :20], x):        # not a multiple of 8; past 128
+    x = _randn(dev, 1, 8, 2, 264, dtype=torch.bfloat16)
+    for t in (x[..., :20], x):        # not a multiple of 8; past 256
         with pytest.raises(ValueError, match="multiples of 8"):
             tfa.flash_attention(t, t, t)
+
+
+# recurrentgemma-9b's attention: head dim 256 over one KV head (MQA),
+# window 2048; 136 and 192 run in the 256 tile
+HD256_CASES = [
+    (1, 1000, 1000, 16, 1, 256, {"window": 300}),
+    (1, 257, 257, 4, 2, 256, {}),               # GQA, ragged S
+    (2, 100, 300, 8, 1, 256, {"window": 64}),   # Sq < Sk, the band
+    (1, 300, 200, 4, 1, 256, {}),               # Sq > Sk: masked rows
+    (1, 333, 333, 4, 1, 192, {"window": 100, "softcap": 30.0}),
+    (1, 130, 130, 4, 1, 136, {"causal": False}),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk,hd,kw", HD256_CASES)
+def test_flash_attention_head_dim_256_on_card(dev, dtype, B, Sq, Sk, H, Hk,
+                                              hd, kw):
+    """The forward in the 256 tile (bf16: Q's fragments read from shared
+    memory a k-step, 32-key tiles; fp32: the FMA kernel), with and
+    without lse, against the plain version; masked rows exactly 0."""
+    q = _randn(dev, B, Sq, H, hd, dtype=dtype)
+    k = _randn(dev, B, Sk, Hk, hd, dtype=dtype, seed=1)
+    v = _randn(dev, B, Sk, Hk, hd, dtype=dtype, seed=2)
+    kw = {"causal": True, **kw}
+    n = tfa.launches
+    plain = tfa.flash_attention(q, k, v, **kw)
+    got, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches == n + 2
+    want, want_lse = ref.flash_attention(q, k, v, return_lse=True, **kw)
+    _close_attention(got, want, dtype)
+    assert torch.equal(plain, got)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    if Sq > Sk and kw["causal"]:
+        assert got[:, :Sq - Sk].abs().max().item() == 0.0
+        assert torch.isinf(lse[:, :Sq - Sk]).all()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk,hd,kw", HD256_CASES)
+def test_flash_backward_head_dim_256_on_card(dev, B, Sq, Sk, H, Hk, hd, kw):
+    """The bf16 flash backward in the 256 tile (two warps a strip of 16
+    keys, each with half of dK's and dV's columns) against autograd
+    through the plain flash."""
+    bf = torch.bfloat16
+    q = _randn(dev, B, Sq, H, hd, dtype=bf).requires_grad_()
+    k = _randn(dev, B, Sk, Hk, hd, dtype=bf, seed=1).requires_grad_()
+    v = _randn(dev, B, Sk, Hk, hd, dtype=bf, seed=2).requires_grad_()
+    do = _randn(dev, B, Sq, H, hd, dtype=bf, seed=3)
+    kw = {"causal": True, **kw}
+    n = tra.bwd_launches
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, **kw), (q, k, v),
+                              do)
+    assert tra.bwd_launches == n + 1
+    want = torch.autograd.grad(ref.flash_attention(q, k, v, **kw),
+                               (q, k, v), do)
+    for g, w in zip(got, want):
+        _close_attention(g, w, bf)
+
+
+def test_flash_backward_fp32_refuses_head_dim_256(dev):
+    """The fp32 backward's tiles stop at 128: hd 256 raises, naming it."""
+    q = _randn(dev, 1, 16, 2, 256, dtype=torch.float32)
+    z = torch.zeros(1, 1, 16, 2, 256, device=dev)
+    lse = torch.zeros(1, 1, 16, 2, device=dev)
+    with pytest.raises(ValueError, match="head dim 256"):
+        tra.ring_step_bwd(q[None], q[None], q[None], q[None], lse, lse, z,
+                          z.clone(), z.clone(), [(0, 0, 0, 16, 16)])
 
 
 def _scan_inputs(dev, B, S, di, ds, u_dtype, seed=0):
@@ -342,8 +410,11 @@ def test_ssm_scan_bwd_kernel(dev, u_dtype, B, S, di, ds):
 
 
 def _to(node, dev):
-    return {k: _to(v, dev) for k, v in node.items()} \
-        if isinstance(node, dict) else node.to(dev)
+    if isinstance(node, dict):
+        return {k: _to(v, dev) for k, v in node.items()}
+    if isinstance(node, list):      # the hybrid stack's tail
+        return [_to(v, dev) for v in node]
+    return node.to(dev)
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "falcon-mamba-7b",
@@ -380,6 +451,64 @@ def test_smoke_mamba_prefill_and_decode_on_card_match_cpu(dev):
         out[tag] = res + [cache["ssm"]["h"], cache["ssm"]["conv"]]
     for want, got in zip(out["cpu"], out["gpu"]):
         torch.testing.assert_close(got.cpu(), want, **MODEL_TOL)
+
+
+def test_smoke_griffin_on_card_matches_cpu(dev):
+    """recurrentgemma-9b SMOKE at 5 layers (a group and a tail of two rec
+    blocks), fp32: forward, the prefill of 40 tokens (past the window of
+    32), its cache and 4 decode steps on the card against the CPU."""
+    b = registry.get_bundle("recurrentgemma-9b", smoke=True, num_layers=5)
+    cpu = b.init(b.cfg, seed=0, device="cpu")
+    gpu = _to(cpu, dev)
+    tokens = torch.randint(0, 256, (2, 40),
+                           generator=torch.Generator().manual_seed(2))
+    want, _ = b.forward(cpu, {"tokens": tokens}, b.cfg)
+    got, _ = b.forward(gpu, {"tokens": tokens.to(dev)}, b.cfg)
+    torch.testing.assert_close(got.cpu(), want, **MODEL_TOL)
+    out = {}
+    for tag, p, d in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+        last, cache = b.prefill(p, {"tokens": tokens.to(d)}, b.cfg, 64)
+        res = [last]
+        tok = torch.argmax(last, -1, keepdim=True)
+        for _ in range(4):
+            lg, cache = b.decode_step(p, tok, cache, b.cfg)
+            res.append(lg)
+            tok = torch.argmax(lg, -1, keepdim=True)
+        out[tag] = res + [cache["rec"]["h"], cache["rec"]["conv"],
+                          cache["kv"]["k"], cache["kv"]["v"]]
+    for want, got in zip(out["cpu"], out["gpu"]):
+        torch.testing.assert_close(got.cpu(), want, **MODEL_TOL)
+
+
+def test_griffin_bf16_prefill_and_decode_on_card(dev):
+    """A 5-layer bf16 Griffin at recurrentgemma-9b's attention shape (head
+    dim 256, one KV head, window 32 here): the prefill of 70 tokens and 4
+    decode steps across the wrapped buffer against ``lm_forward`` of the
+    same tokens, by the logits' norm (bf16: 2e-2), with exact launches
+    (two norms a block and the final one; flash once an attn layer in the
+    prefill, never in a decode step)."""
+    b = registry.get_bundle(
+        "recurrentgemma-9b", smoke=True, num_layers=5, d_model=512,
+        n_heads=2, lru_width=512, d_ff=1024, param_dtype="bfloat16",
+        dtype="bfloat16")
+    assert b.cfg.hd == 256 and b.cfg.n_kv_heads == 1
+    params = b.init(b.cfg, seed=0, device=dev)
+    tokens = torch.randint(0, 256, (1, 74), device=dev,
+                           generator=torch.Generator(dev).manual_seed(3))
+    full, _ = b.forward(params, {"tokens": tokens}, b.cfg)
+    ops.reset_launch_counts()
+    last, cache = b.prefill(params, {"tokens": tokens[:, :70]}, b.cfg, 96)
+    got = [last]
+    for i in range(4):
+        lg, cache = b.decode_step(params, tokens[:, 70 + i:71 + i], cache,
+                                  b.cfg)
+        got.append(lg)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["rmsnorm"] == 5 * (2 * 5 + 1)
+    for i, g in enumerate(got):
+        assert torch.isfinite(g).all()
+        assert _rel(g.float(), full[:, 69 + i].float()) <= 2e-2
 
 
 def test_engine_on_card_matches_sequential(dev):
@@ -955,7 +1084,7 @@ def test_smoke_pp_loss_and_grads_on_card_match_cpu(dev, vpp, layers):
     assert ops.launch_counts() == dict(
         rmsnorm=m * (4 * L + 1), rmsnorm_bwd=m * (2 * L + 1),
         swiglu=2 * m * L, swiglu_bwd=m * L, flash_attention=2 * m * L,
-        ssm_scan=0, ring_step=0, ring_step_bwd=m * L)
+        ssm_scan=0, ssm_scan_bwd=0, ring_step=0, ring_step_bwd=m * L)
     (cpu_loss, cpu_grads), (card_loss, card_grads) = out
     torch.testing.assert_close(card_loss, cpu_loss, **MODEL_TOL)
     for g, w in zip(card_grads, cpu_grads):

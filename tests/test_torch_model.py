@@ -137,14 +137,15 @@ def test_lm_decode_steps_match_jax(models, per_row):
 
 
 def test_unported_options_raise():
-    """What the port still refuses: the families of queue A items A9d-A9f
-    (Griffin, enc-dec, the VLM prepend), each by its item, and a config
-    whose family and experts disagree.  The dense family's window, qk_norm
-    and activations (tests/test_torch_archs.py) and the MoE family
-    (tests/test_torch_moe.py) are ported."""
-    with pytest.raises(NotImplementedError, match="queue A, item A9d"):
+    """What the port still refuses: the families of queue A items A9e and
+    A9f (enc-dec, the VLM prepend), each by its item, and a config whose
+    family and experts disagree.  The dense family's window, qk_norm and
+    activations (tests/test_torch_archs.py), the MoE family
+    (tests/test_torch_moe.py) and the hybrid stack
+    (tests/test_torch_griffin.py) are ported."""
+    with pytest.raises(NotImplementedError, match="queue A, item A9f"):
         transformer.init_lm(
-            treg.get_config("llama3-8b", smoke=True, family="hybrid"),
+            treg.get_config("llama3-8b", smoke=True, family="vlm"),
             device="cpu")
     with pytest.raises(NotImplementedError, match="queue A, item A9e"):
         transformer.init_cache(
@@ -154,7 +155,7 @@ def test_unported_options_raise():
         transformer.init_lm(
             treg.get_config("llama3-8b", smoke=True, family="moe"),
             device="cpu")
-    for arch, item in (("recurrentgemma-9b", "A9d"), ("whisper-tiny", "A9e"),
+    for arch, item in (("whisper-tiny", "A9e"),
                        ("phi-3-vision-4.2b", "A9f")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             treg.get_bundle(arch, smoke=True)

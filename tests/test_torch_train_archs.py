@@ -49,7 +49,8 @@ from repro_torch.train import steps  # noqa: E402
 TOL = 2e-5
 OPT = dict(lr=1e-2, warmup_steps=2)
 GB = 2
-SEQ = {"h2o-danube-3-4b": 64}      # past the SMOKE window of 32
+# past the SMOKE window of 32
+SEQ = {"h2o-danube-3-4b": 64, "recurrentgemma-9b": 64}
 NEW_ARCHS = ("qwen3-14b", "nemotron-4-15b", "h2o-danube-3-4b")
 
 
@@ -72,6 +73,9 @@ def _flat(tree, prefix=""):
     if isinstance(tree, dict):
         return {p: x for k, v in tree.items() if k != "_stacked"
                 for p, x in _flat(v, f"{prefix}/{k}").items()}
+    if isinstance(tree, list):      # the hybrid stack's tail
+        return {p: x for i, v in enumerate(tree)
+                for p, x in _flat(v, f"{prefix}/[{i}]").items()}
     return {prefix: tree}
 
 
@@ -188,10 +192,12 @@ def _bit_for_bit(a, b):
         assert torch.equal(fa[k], fb[k]), k
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "h2o-danube-3-4b",
+                                  "recurrentgemma-9b"])
 def test_reference_loss_under_remat_is_bit_for_bit(arch):
-    """Each block under ``torch.utils.checkpoint`` recomputes the same
-    forward: the loss and every gradient equal the kept forward's."""
+    """Each block (the hybrid stack: each group and tail block) under
+    ``torch.utils.checkpoint`` recomputes the same forward: the loss and
+    every gradient equal the kept forward's."""
     jb, tb = _bundles(arch)
     params = convert.from_jax(_np(jb.init(jax.random.PRNGKey(1), jb.cfg)),
                               device="cpu")

@@ -50,14 +50,26 @@ Phases, each raising on failure so the script exits non-zero:
               heads; and, timed only, the RG-LRU's plain torch (the scan
               at a prefill and a training step, a rec block's decode step
               at batch 8, a gate product's fp32-upcast and bf16-in,
-              fp32-out routes).  bf16 attention (the tensor cores take P and
-              dS as bf16 operands, P of the ring hop as a hi + lo pair; the
-              plain versions keep them in fp32) is also held by each
-              output's norm-relative error (REL_TOL), read beside SDPA's
+              fp32-out routes).  whisper-tiny's attention without
+              causality at hd 64 (phase_encdec_kernels): the forward at
+              Sq < Sk, Sq > Sk and Sq 1 in bf16 and fp32, the backward at
+              Sq < Sk and Sq > Sk, then its encoder (B16 S1500), cross
+              (Sq 448 against 1500), decode-step cross (Sq 1, B8) and
+              cross-backward rows, each held at the shape it is timed at.
+              phi-3-vision-4.2b's at hd 96 in the 128 tile, 32 heads over
+              32 (phase_vlm_kernels): the forward at its longest prefill
+              (S1576) and with lse at S4096, the backward at S4096 against
+              the plain version in groups of 4 heads, each held and timed
+              at that shape, fp32 at S300.  bf16 attention (the tensor
+              cores take P and dS as bf16 operands, P of the ring hop as a
+              hi + lo pair; the plain versions keep them in fp32) is also
+              held by each output's norm-relative error (REL_TOL), read
+              beside SDPA's
               and the controls'
   4. model    llama3-8b, falcon-mamba-7b, qwen3-14b, nemotron-4-15b,
               h2o-danube-3-4b, mixtral-8x7b, phi3.5-moe-42b-a6.6b and
-              recurrentgemma-9b (5 layers: a group and a tail) SMOKE in
+              recurrentgemma-9b (5 layers: a group and a tail),
+              whisper-tiny and phi-3-vision-4.2b SMOKE in
               fp32: the kernels on the card
               against the plain versions on the CPU through forward/
               prefill/the cache/decode (danube's and recurrentgemma's
@@ -89,6 +101,10 @@ Phases, each raising on failure so the script exits non-zero:
               control decoding from JAX's front-written layout must miss;
               recurrentgemma-9b the same at a prompt of 3000, its fp32
               check on its first group and its tail (5 layers).
+              whisper-tiny (1500 frames, batch 8, 128 greedy tokens,
+              max_len 448) and phi-3-vision-4.2b (32 layers, 8 requests
+              of 576 image positions) through their bundles, the engine
+              refusing both families as JAX's does.
               Then the serve CLI (h2o-danube-3-4b, full width) with
               --plan --metrics-out --prom-out in a child process, its
               artifacts through tools/validate_serve.py
@@ -197,7 +213,10 @@ Phases, each raising on failure so the script exits non-zero:
               step's gradient norm and each leaf's fp32 master move from
               the initial parameters (the replicas' slices together)
               within 1e-2 of reference b2's, relative, and the replicas'
-              parameters equal bit for bit
+              parameters equal bit for bit; whisper-tiny (B16, S_enc
+              1500, S_dec 448) and phi-3-vision-4.2b (32 layers, S 4096)
+              on the reference route, the latter also through a
+              one-process pp 2 plan of 4 layers
   6c. control the train CLI's autonomous controller, elastic membership
               and observability on the pp cell (llama3-8b at full width,
               4 layers, batch 2: a plan the controller moves to pp 1 runs
@@ -245,7 +264,11 @@ and ring_step_bwd one at danube's training shape, which takes that
 run's launches; at head dim 256 the flash forward has a row at
 recurrentgemma-9b's prefill shape (that serve cell's launches) and one
 at its training forward with lse (its train run's), ring_step_bwd one
-at its training shape (its train run's); the scan's row is its S1000
+at its training shape (its train run's); at head dim 96
+phi-3-vision-4.2b's prefill row (its serve cell's launches), its
+training forward with lse and its backward (its reference train run's);
+whisper-tiny's non-causal rows (its encoder's, cross and decode-step
+cross launches and its cross backward's); the scan's row is its S1000
 timing; each row with its library call's device time and the floor), the
 card line, and the last line
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes every
@@ -255,6 +278,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
@@ -434,6 +458,36 @@ GRIFFIN_ARCH, GRIFFIN_TRAIN_LAYERS = "recurrentgemma-9b", 5
 # against the plain version on GRIFFIN_BWD_HEADS of its 16 heads
 GRIFFIN_H, GRIFFIN_WINDOW, GRIFFIN_PREFILL = 16, 2048, 3000
 GRIFFIN_BWD_HEADS = 4
+# whisper-tiny (the enc-dec stack) at its real sizes, full width and
+# depth: 1500 frames (Whisper's 30 s window) into the encoder, the
+# decoder's context of 448 (its max_len).  Served as the JAX package
+# serves it, through the bundle's prefill and decode_step over a batch of
+# ED_SERVE_B (the engine refuses the family): a prompt of ED_PROMPT tokens,
+# ED_NEW greedy tokens, then each row again at batch 1 for its first
+# ED_SEQ_TOKENS tokens; trained on the reference route at ED_TRAIN_B
+# sequences of ED_TRAIN_DEC decoder tokens.  Its attention, timed in
+# phase_encdec_kernels, is ED_H heads of ED_HD
+ED_ARCH, ED_S_ENC, ED_MAX_LEN = "whisper-tiny", 1500, 448
+ED_SERVE_B, ED_PROMPT, ED_NEW, ED_SEQ_TOKENS = 8, 4, 128, 8
+ED_TRAIN_B, ED_TRAIN_DEC = 16, 448
+ED_H, ED_HD = 6, 64
+# phi-3-vision-4.2b (the VLM prepend) at full width and VLM_LAYERS layers
+# (all 32): VLM_REQS requests of its 576 image positions ahead of text
+# prompts of VLM_PROMPTS tokens, generating VLM_GENS, driven through the
+# bundle one request at a time (the engine refuses the family) against
+# the TTFT / TPOT limits; trained on the reference route at VLM_TRAIN_SEQ
+# positions (576 image + 3520 text) at full depth; and through a
+# one-process pp 2 plan at VLM_PP_LAYERS layers
+VLM_ARCH, VLM_LAYERS = "phi-3-vision-4.2b", 32
+VLM_PROMPTS, VLM_GENS, VLM_REQS = (128, 500, 1000), (16, 32), 8
+VLM_TRAIN_SEQ = 4096
+# its attention (phase_vlm_kernels): the backward's plain version runs in
+# groups of VLM_BWD_HEADS of its 32 heads
+VLM_BWD_HEADS = 4
+VLM_PP_LAYERS, VLM_PP_SEQ, VLM_PP_BATCH = 4, 1024, 2
+TTFT_LIMIT_S, TPOT_LIMIT_S = 0.5, 0.05
+# phase 4's archs beyond the serve cells'
+MODEL_ARCHS = (ED_ARCH, VLM_ARCH)
 # the pipeline route: the planner's pp 2 plan on the train CLI's two-kind
 # cluster for 4 sequences of TRAIN_SEQ; the SMOKE parity phase also runs
 # an interleaved plan (vpp 2, a zero-layer chunk) at 4 SMOKE layers
@@ -1406,7 +1460,7 @@ def phase_train_kernels(torch, dev, name, device_only=False):
             library=lambda: torch.autograd.grad(
                 sdpa_out, (qt, kt, vt), do_t, retain_graph=True),
             bytes=(2 * S * H * hd + 2 * S * Hk * hd) * el + 2 * S * H * f4
-            + 2 * (S * H * hd + 2 * S * Hk * hd) * f4,
+            + (S * H * hd + 2 * S * Hk * hd) * f4,
             ops=[(10 * pairs * H * hd, bf16_peak)],
             err=flash_in["err"]),
         # the same kernel at h2o-danube-3-4b's training shape: hd 120 in
@@ -1425,7 +1479,7 @@ def phase_train_kernels(torch, dev, name, device_only=False):
             library=lambda: torch.autograd.grad(
                 sw_out, sw_t, sw_do, retain_graph=True),
             bytes=(2 * Sw * 32 * 120 + 2 * Sw * 8 * 120) * el
-            + 2 * Sw * 32 * f4 + 2 * (Sw * 32 * 120 + 2 * Sw * 8 * 120) * f4,
+            + 2 * Sw * 32 * f4 + (Sw * 32 * 120 + 2 * Sw * 8 * 120) * f4,
             ops=[(10 * band_pairs * 32 * 120, bf16_peak)],
             err=err_w),
         "rmsnorm_bwd": dict(
@@ -1567,7 +1621,7 @@ def phase_train_kernels(torch, dev, name, device_only=False):
                                         dot_.transpose(1, 2),
                                         retain_graph=True),
             (2 * S * Ht * 128 + 2 * S * Hkt * 128) * el + 2 * S * Ht * f4
-            + 2 * (S * Ht * 128 + 2 * S * Hkt * 128) * f4,
+            + (S * Ht * 128 + 2 * S * Hkt * 128) * f4,
             10 * pairs_tp * Ht * 128),
         "swiglu": (lambda: sg.swiglu(gt_, ut_), None, 3 * S * Ft * el, 0),
         "swiglu_bwd": (lambda: sg.swiglu_bwd(gt_, ut_, dht_), None,
@@ -1797,7 +1851,7 @@ def phase_griffin_kernels(torch, dev, name, device_only=False):
             library=lambda: torch.autograd.grad(b_out, bt, b_do,
                                                 retain_graph=True),
             bytes=(2 * S_tr * H * hd + 2 * S_tr * hd) * el
-            + 2 * S_tr * H * f4 + 2 * (S_tr * H * hd + 2 * S_tr * hd) * f4,
+            + 2 * S_tr * H * f4 + (S_tr * H * hd + 2 * S_tr * hd) * f4,
             ops=[(10 * band_pairs(S_tr) * H * hd, bf16_peak)],
             err=errs.get("bwd")),
     }
@@ -1874,6 +1928,378 @@ def phase_griffin_kernels(torch, dev, name, device_only=False):
     return checks, timed, {"rel_readings": readings, "rglru": rg}
 
 
+def phase_encdec_kernels(torch, dev, name, device_only=False):
+    """whisper-tiny's attention without causality at head dim 64, where
+    the decoder's queries meet the encoder's keys at Sq != Sk, against
+    the plain versions on the card (bf16 at 2e-2 and REL_TOL by norm,
+    beside SDPA; fp32 at FP32_TOL): the flash forward at Sq < Sk, Sq > Sk
+    and Sq 1, with and without lse, and its backward (the one-rank
+    ``ring_step_bwd`` at the hop ``(Sk - Sq, 0, 0, Sk, Sq)`` that
+    ``ops.FlashAttentionFn`` passes, negative at Sq > Sk) at Sq < Sk and
+    Sq > Sk.  Then timed at whisper's shapes beside the plain version and
+    SDPA: the encoder (B ED_TRAIN_B, S ED_S_ENC), the cross-attention (Sq
+    ED_TRAIN_DEC against ED_S_ENC), the decode step's cross-attention (Sq
+    1 at B ED_SERVE_B), and the cross-attention's backward, each row
+    held against its plain version at the shape it is timed at.
+    ``device_only``: as in phase_kernels."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ring_attention as ra
+    from repro_torch.utils.timing import device_ms, event_ms
+
+    bw, bf16_peak, _ = peaks(name)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    checks, readings = [], []
+    bf, f32 = torch.bfloat16, torch.float32
+    H, hd, el, f4 = ED_H, ED_HD, 2, 4
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def compare(kernel, label, got, want, tol_, rel=False):
+        err = _max_err(got, want)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), **tol_)
+        checks.append({"kernel": kernel, "case": label, "max_abs_err": err})
+        msg = ""
+        if rel:
+            r = checks[-1]["rel_err"] = _rel_err(got, want)
+            msg = f", rel_err {r:.3e} (limit {REL_TOL})"
+            assert r <= REL_TOL, (kernel, label, r)
+        log(f"[kernels] {kernel:15s} {label:42s} max_abs_err {err:.3e}"
+            f"{msg} ok")
+        return err
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
+
+    def qkv(B, sq, sk, dtype=bf):
+        return (randn(B, sq, H, hd, dtype=dtype),
+                randn(B, sk, H, hd, dtype=dtype),
+                randn(B, sk, H, hd, dtype=dtype))
+
+    def hop(sq, sk):
+        return [(sk - sq, 0, 0, sk, sq)]
+
+    def bwd_inputs(B, sq, sk, dtype=bf):
+        """q, k, v, dO with a rank axis of 1, and the forward kernel's lse
+        and delta, as ``FlashAttentionFn`` saves and makes them."""
+        q_, k_, v_ = (t[None] for t in qkv(B, sq, sk, dtype))
+        do_ = randn(1, B, sq, H, hd, dtype=dtype)
+        with torch.no_grad():
+            o_, lse_ = fa.flash_attention(q_[0], k_[0], v_[0], causal=False,
+                                          return_lse=True)
+        dl_ = (do_.float() * o_[None].float()).sum(-1)
+        return q_, k_, v_, do_, lse_[None], dl_
+
+    def acc_of(ins):
+        return (torch.zeros(ins[0].shape, device=dev),
+                torch.zeros(ins[1].shape, device=dev),
+                torch.zeros(ins[1].shape, device=dev))
+
+    S_e, S_d, Bt, Bs = ED_S_ENC, ED_TRAIN_DEC, ED_TRAIN_B, ED_SERVE_B
+    if not device_only:
+        # the forward: bf16 at whisper's lengths (2 rows), fp32 shorter
+        for B, sq, sk, dtype in ((2, S_d, S_e, bf), (2, S_e, S_d, bf),
+                                 (Bs, 1, S_e, bf), (1, 200, 520, f32),
+                                 (1, 520, 200, f32), (2, 1, 520, f32)):
+            case = (f"B{B} Sq{sq} Sk{sk} H{H} hd{hd} non-causal "
+                    f"{'bf16' if dtype == bf else 'fp32'}")
+            q, k, v = qkv(B, sq, sk, dtype)
+            want, want_lse = ref.flash_attention(q, k, v, causal=False,
+                                                 return_lse=True)
+            tol_ = BF16_TOL if dtype == bf else FP32_TOL
+            got, lse = fa.flash_attention(q, k, v, causal=False,
+                                          return_lse=True)
+            compare("flash_attention", case, (got,), (want,), tol_,
+                    rel=dtype == bf)
+            compare("flash_attention", case + " its lse", (lse,),
+                    (want_lse,), FP32_TOL)
+            compare("flash_attention", case + " no lse",
+                    (fa.flash_attention(q, k, v, causal=False),), (want,),
+                    tol_, rel=dtype == bf)
+            if dtype == bf:
+                _reading(readings, "flash_attention", case, "SDPA",
+                         sdpa(q, k, v), want)
+            del q, k, v, want, want_lse, got, lse
+        # the backward at the cross shapes, both ways round
+        for B, sq, sk, dtype in ((2, S_d, S_e, bf), (2, S_e, S_d, bf),
+                                 (1, 200, 520, f32), (1, 520, 200, f32)):
+            case = (f"flash backward B{B} Sq{sq} Sk{sk} H{H} hd{hd} "
+                    f"non-causal {'bf16' if dtype == bf else 'fp32'}")
+            ins = bwd_inputs(B, sq, sk, dtype)
+            want = ref.ring_step_bwd(*ins, *acc_of(ins), hop(sq, sk),
+                                     causal=False)
+            compare("ring_step_bwd", case,
+                    ra.ring_step_bwd(*ins, *acc_of(ins), hop(sq, sk),
+                                     causal=False), want,
+                    BF16_TOL if dtype == bf else FP32_TOL, rel=dtype == bf)
+            if dtype == bf:
+                ts = [t[0].transpose(1, 2).detach().requires_grad_()
+                      for t in ins[:3]]
+                sd = torch.autograd.grad(F.scaled_dot_product_attention(*ts),
+                                         ts, ins[3][0].transpose(1, 2))
+                _reading(readings, "ring_step_bwd", case, "SDPA",
+                         tuple(t.transpose(1, 2)[None] for t in sd), want)
+                del ts, sd
+            del ins, want
+
+    # ---- timings at whisper's shapes
+    enc, cross = qkv(Bt, S_e, S_e), qkv(Bt, S_d, S_e)
+    dec = qkv(Bs, 1, S_e)
+    bq = bwd_inputs(Bt, S_d, S_e)
+    bacc = acc_of(bq)
+    bt = [t[0].transpose(1, 2).detach().requires_grad_() for t in bq[:3]]
+    b_out = F.scaled_dot_product_attention(*bt)
+    b_do = bq[3][0].transpose(1, 2)
+
+    def fwd_bytes(B, sq, sk):
+        return (2 * B * sq * H * hd + 2 * B * sk * H * hd) * el
+
+    src = "src/repro_torch/kernels/csrc/"
+    rows = {}
+    for key, (B, sq, (q, k, v), what) in {
+            "flash_attention whisper enc": (
+                Bt, S_e, enc, "whisper-tiny's encoder self-attention"),
+            "flash_attention whisper cross": (
+                Bt, S_d, cross, "whisper-tiny's cross-attention, training"),
+            "flash_attention whisper decode": (
+                Bs, 1, dec, "whisper-tiny's decode-step cross-attention")
+            }.items():
+        sk = k.shape[1]
+        rows[key] = dict(
+            name="flash_attention", source=src + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:91",
+            shape=f"B{B} Sq{sq} Sk{sk} H{H} hd{hd} non-causal bf16 ({what})",
+            fn=functools.partial(fa.flash_attention, q, k, v, causal=False),
+            plain=functools.partial(ref.flash_attention, q, k, v,
+                                    causal=False),
+            library=functools.partial(sdpa, q, k, v),
+            kernels=("flash_fwd",), bytes=fwd_bytes(B, sq, sk),
+            ops=[(4 * B * H * sq * sk * hd, bf16_peak)])
+    rows["ring_step_bwd whisper cross"] = dict(
+        name="ring_step_bwd", source=src + "ring_attention.cu",
+        replaces="src/repro/kernels/ring_attention.py:169 (its VJP; no TPU "
+                 "backward kernel)",
+        shape=f"one rank B{Bt} Sq{S_d} Sk{S_e} H{H} hd{hd} non-causal bf16 "
+              "(whisper-tiny's cross-attention backward), fp32 dq/dk/dv",
+        fn=lambda: ra.ring_step_bwd(*bq, *bacc, hop(S_d, S_e), causal=False),
+        plain=lambda: ref.ring_step_bwd(*bq, *bacc, hop(S_d, S_e),
+                                        causal=False),
+        library=lambda: torch.autograd.grad(b_out, bt, b_do,
+                                            retain_graph=True),
+        kernels=("ring_bwd",),
+        # q, k, v, dO in, lse and delta, the gradients written once (the
+        # one-rank VJP zero-fills them, so none is read)
+        bytes=fwd_bytes(Bt, S_d, S_e) + 2 * Bt * S_d * H * f4
+        + (Bt * S_d * H * hd + 2 * Bt * S_e * H * hd) * f4,
+        ops=[(10 * Bt * H * S_d * S_e * hd, bf16_peak)],
+        check=lambda: (ra.ring_step_bwd(*bq, *acc_of(bq), hop(S_d, S_e),
+                                        causal=False),
+                       ref.ring_step_bwd(*bq, *acc_of(bq), hop(S_d, S_e),
+                                         causal=False)))
+    timed = {}
+    for kname, r in rows.items():
+        if device_only:
+            timed[kname] = _device_row(device_ms, r)
+            continue
+        # each row's error is its own, at the shape it is timed at
+        got, want = (r["check"]() if "check" in r
+                     else ((r["fn"](),), (r["plain"](),)))
+        r["err"] = compare(r["name"], r["shape"], got, want, BF16_TOL,
+                           rel=True)
+        del got, want
+        bytes_ms = r["bytes"] / bw * 1e3
+        ops_ms = max(n / peak for n, peak in r["ops"]) * 1e3
+        timed[kname] = {
+            "name": r["name"], "line": True, "route": "cuda",
+            "source": r["source"], "replaces": r["replaces"],
+            "shape": r["shape"], "max_abs_err": r["err"],
+            "ms": event_ms(r["fn"]),
+            "plain_ms": event_ms(r["plain"], iters=3, warmup=1),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": event_ms(r["library"]),
+        }
+        t = timed[kname]
+        log(f"[kernels] time {kname:15s} {r['shape']}: kernel {t['ms']:.4f} "
+            f"ms, plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f}"
+            f" ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    del bq, bacc, bt, b_out, enc, cross, dec
+    return checks, timed, {"rel_readings": readings}
+
+
+def phase_vlm_kernels(torch, dev, name, device_only=False):
+    """phi-3-vision-4.2b's attention: head dim 96 in the kernels' 128 tile,
+    32 heads over 32 KV heads, causal, the image positions first.  Each
+    row is held against its plain version at the shape it is timed at
+    (bf16 at 2e-2 and REL_TOL by norm) and timed beside it and SDPA: the
+    forward at the serve cell's longest prompt (576 image positions and
+    max(VLM_PROMPTS) tokens), with lse at the training length
+    VLM_TRAIN_SEQ, and its backward (the one-rank ring_step_bwd) there,
+    whose plain version runs in groups of VLM_BWD_HEADS heads; fp32 at a
+    small shape.  ``device_only``: as in phase_kernels."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ring_attention as ra
+    from repro_torch.models import registry
+    from repro_torch.utils.timing import device_ms, event_ms
+
+    bw, bf16_peak, _ = peaks(name)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    checks = []
+    bf, f32 = torch.bfloat16, torch.float32
+    cfg = registry.get_config(VLM_ARCH)
+    H, hd, el, f4 = cfg.n_heads, cfg.hd, 2, 4
+    assert (H, cfg.n_kv_heads, hd) == (32, 32, 96), (H, cfg.n_kv_heads, hd)
+    S_pf, S_tr, G = cfg.n_vision_tokens + max(VLM_PROMPTS), VLM_TRAIN_SEQ, \
+        VLM_BWD_HEADS
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def compare(kernel, label, got, want, tol_, rel=False):
+        err = _max_err(got, want)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), **tol_)
+        checks.append({"kernel": kernel, "case": label, "max_abs_err": err})
+        msg = ""
+        if rel:
+            r = checks[-1]["rel_err"] = _rel_err(got, want)
+            msg = f", rel_err {r:.3e} (limit {REL_TOL})"
+            assert r <= REL_TOL, (kernel, label, r)
+        log(f"[kernels] {kernel:15s} {label:42s} max_abs_err {err:.3e}"
+            f"{msg} ok")
+        return err
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in (q, k, v)),
+            is_causal=True).transpose(1, 2)
+
+    def qkv(S, heads=H, dtype=bf):
+        return tuple(randn(1, S, heads, hd, dtype=dtype) for _ in range(3))
+
+    if not device_only:
+        qs, ks, vs = qkv(300, 4, f32)
+        want, want_lse = ref.flash_attention(qs, ks, vs, return_lse=True)
+        got, lse = fa.flash_attention(qs, ks, vs, return_lse=True)
+        compare("flash_attention", "B1 S300 H4 hd96 causal fp32", (got, lse),
+                (want, want_lse), FP32_TOL)
+        del qs, ks, vs, want, want_lse, got, lse
+
+    pf, tr = qkv(S_pf), qkv(S_tr)
+    # the backward's inputs, a rank axis of 1, with o and lse from the
+    # forward kernel as FlashAttentionFn saves them
+    q_, k_, v_ = (t[None] for t in tr)
+    do_ = randn(1, 1, S_tr, H, hd)
+    with torch.no_grad():
+        o_, lse_ = fa.flash_attention(*tr, return_lse=True)
+    bq = (q_, k_, v_, do_, lse_[None],
+          (do_.float() * o_[None].float()).sum(-1))
+    del o_, lse_
+    hop = [(0, 0, 0, S_tr, S_tr)]
+
+    def zeros_of(ins):
+        return (torch.zeros(ins[0].shape, device=dev),
+                torch.zeros(ins[1].shape, device=dev),
+                torch.zeros(ins[2].shape, device=dev))
+
+    bacc = zeros_of(bq)
+
+    def bwd_plain(acc=bacc):
+        """The plain backward in groups of G heads (MHA: each group's q
+        heads with their own K/V heads), into ``acc``."""
+        for g_ in range(H // G):
+            h_ = slice(G * g_, G * g_ + G)
+            ref.ring_step_bwd(*(t[:, :, :, h_] for t in bq[:4]),
+                              *(t[..., h_] for t in bq[4:]),
+                              *(t[:, :, :, h_] for t in acc), hop)
+        return acc
+
+    bt = [t.transpose(1, 2).detach().requires_grad_() for t in tr]
+    b_out = F.scaled_dot_product_attention(*bt, is_causal=True)
+    b_do = do_[0].transpose(1, 2)
+    pairs_pf, pairs_tr = S_pf * (S_pf + 1) // 2, S_tr * (S_tr + 1) // 2
+    src = "src/repro_torch/kernels/csrc/"
+    rows = {
+        "flash_attention hd96": dict(
+            name="flash_attention", source=src + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:91",
+            shape=f"B1 S{S_pf} H{H} Hk{H} hd{hd} causal bf16 "
+                  "(phi-3-vision-4.2b's longest prefill)",
+            fn=functools.partial(fa.flash_attention, *pf),
+            plain=functools.partial(ref.flash_attention, *pf),
+            library=functools.partial(sdpa, *pf), kernels=("flash_fwd",),
+            bytes=4 * S_pf * H * hd * el,
+            ops=[(4 * pairs_pf * H * hd, bf16_peak)]),
+        "flash_attention hd96 lse": dict(
+            name="flash_attention", source=src + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:91",
+            shape=f"B1 S{S_tr} H{H} Hk{H} hd{hd} causal bf16, with lse "
+                  "(phi-3-vision-4.2b's training forward)",
+            fn=functools.partial(fa.flash_attention, *tr, return_lse=True),
+            plain=functools.partial(ref.flash_attention, *tr,
+                                    return_lse=True),
+            library=functools.partial(sdpa, *tr), kernels=("flash_fwd",),
+            bytes=4 * S_tr * H * hd * el + S_tr * H * f4,
+            ops=[(4 * pairs_tr * H * hd, bf16_peak)],
+            check=lambda: (fa.flash_attention(*tr, return_lse=True),
+                           ref.flash_attention(*tr, return_lse=True))),
+        "ring_step_bwd hd96": dict(
+            name="ring_step_bwd", source=src + "ring_attention.cu",
+            replaces="src/repro/kernels/ring_attention.py:169 (its VJP; no "
+                     "TPU backward kernel)",
+            shape=f"one rank B1 S{S_tr} H{H} Hk{H} hd{hd} causal bf16 "
+                  "(phi-3-vision-4.2b's flash backward), fp32 dq/dk/dv; "
+                  f"plain in {H // G} groups of {G} heads",
+            fn=lambda: ra.ring_step_bwd(*bq, *bacc, hop),
+            plain=bwd_plain, kernels=("ring_bwd",),
+            library=lambda: torch.autograd.grad(b_out, bt, b_do,
+                                                retain_graph=True),
+            # q, k, v, dO in, lse and delta, the gradients written once
+            bytes=4 * S_tr * H * hd * el + 2 * S_tr * H * f4
+            + 3 * S_tr * H * hd * f4,
+            ops=[(10 * pairs_tr * H * hd, bf16_peak)],
+            check=lambda: (ra.ring_step_bwd(*bq, *zeros_of(bq), hop),
+                           bwd_plain(zeros_of(bq)))),
+    }
+    timed = {}
+    for kname, r in rows.items():
+        if device_only:
+            timed[kname] = _device_row(device_ms, r)
+            continue
+        got, want = (r["check"]() if "check" in r
+                     else ((r["fn"](),), (r["plain"](),)))
+        err = compare(r["name"], r["shape"], got, want, BF16_TOL, rel=True)
+        del got, want
+        bytes_ms = r["bytes"] / bw * 1e3
+        ops_ms = max(n / peak for n, peak in r["ops"]) * 1e3
+        timed[kname] = {
+            "name": r["name"], "line": True, "route": "cuda",
+            "source": r["source"], "replaces": r["replaces"],
+            "shape": r["shape"], "max_abs_err": err,
+            "ms": event_ms(r["fn"]),
+            "plain_ms": event_ms(r["plain"], iters=3, warmup=1),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": event_ms(r["library"]),
+        }
+        t = timed[kname]
+        log(f"[kernels] time {kname:15s} {r['shape']}: kernel {t['ms']:.4f} "
+            f"ms, plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f}"
+            f" ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    del pf, tr, bq, bacc, bt, b_out
+    return checks, timed, {}
+
+
 def _device_row(device_ms, r, per_call: int = 1) -> dict:
     """A timed row's profiler readings: its kernels' device time a launch,
     and its library call's (everything that call runs on the card)."""
@@ -1900,13 +2326,21 @@ def phase_model(torch, dev, arch):
     p_cpu = b.init(cfg, seed=0, device="cpu")
     p_gpu = _tree(p_cpu, lambda t: t.to(dev))
     gen = torch.Generator().manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 37), generator=gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 37),
+                                     generator=gen)}
+    S = 37 + cfg.n_vision_tokens     # the VLM's image positions first
+    if cfg.family == "encdec":       # the frontend stubs' embeddings
+        batch["frames"] = torch.randn((2, 45, cfg.d_model), generator=gen)
+    elif cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(
+            (2, cfg.n_vision_tokens, cfg.d_model), generator=gen)
     out = {}
     for tag, p, d in (("cpu", p_cpu, "cpu"), ("gpu", p_gpu, dev)):
-        logits, _ = b.forward(p, {"tokens": tokens.to(d)}, cfg)
-        last, cache = b.prefill(p, {"tokens": tokens.to(d)}, cfg, 48)
+        bd = {k: v.to(d) for k, v in batch.items()}
+        logits, _ = b.forward(p, bd, cfg)
+        last, cache = b.prefill(p, bd, cfg, S + 11)
         steps = []
-        cache["pos"] = torch.tensor([37, 37], device=d)  # per-row path
+        cache["pos"] = torch.tensor([S, S], device=d)  # per-row path
         tok = torch.argmax(last, -1, keepdim=True)
         for _ in range(4):
             lg, cache = b.decode_step(p, tok, cache, cfg)
@@ -2148,6 +2582,360 @@ def phase_swa(torch, dev, b, params):
             "fp32_layers": cfg32.num_layers,
             "fp32_rel_err": rel32, "fp32_max_abs_err": err32,
             "fp32_control_rel_err": ctl32}
+
+
+def _encdec_counts(cfg, encodes: int, decoder_passes: int,
+                   decode_steps: int, bwd_steps: int = 0,
+                   remat: bool = True) -> tuple:
+    """whisper-tiny's exact launches, and its flash launches by row: over
+    ``encodes`` encoder passes and as many decoder passes over a whole
+    sequence (a prefill or a training forward), ``decode_steps`` decode
+    steps (one token each row) and ``bwd_steps`` training steps, whose
+    forwards run under remat (``remat``: each layer's forward kernels
+    twice).  A pass: the encoder's two norms and flash a layer and its
+    final norm; the decoder's three norms, causal flash and cross flash a
+    layer and its final norm; a decode step: the decoder's norms, its
+    cross flash (the self-attention reads the cache in plain torch).  The
+    rows (phase_encdec_kernels): the encoder's flash, the cross flash at
+    Sq > 1, the decode step's at Sq 1, the cross backward; the decoder's
+    causal flash and the other backwards stay in the general rows."""
+    Le, L = cfg.n_encoder_layers, cfg.num_layers
+    f = 2 if remat and bwd_steps else 1
+    launches = {
+        "rmsnorm": f * 2 * Le * encodes + encodes
+        + (f * 3 * L + 1) * decoder_passes + (3 * L + 1) * decode_steps,
+        "flash_attention": f * Le * encodes + f * 2 * L * decoder_passes
+        + L * decode_steps}
+    rows = {"flash_attention whisper enc": f * Le * encodes,
+            "flash_attention whisper cross": f * L * decoder_passes,
+            "flash_attention whisper decode": L * decode_steps,
+            "ring_step_bwd whisper cross": L * bwd_steps}
+    if bwd_steps:
+        launches.update(rmsnorm_bwd=(2 * Le + 1 + 3 * L + 1) * bwd_steps,
+                        ring_step_bwd=(Le + 2 * L) * bwd_steps)
+    return launches, rows
+
+
+def phase_serve_encdec(torch, dev, smi: str):
+    """whisper-tiny at full width and depth, served as the JAX package
+    serves it: the bundle's prefill (the encoder over ED_S_ENC frames,
+    then the decoder over an ED_PROMPT-token prompt) and ED_NEW - 1 greedy
+    decode steps over a batch of ED_SERVE_B rows, with ``max_len``
+    ED_MAX_LEN; each decode step's cross-attention is the flash kernel at
+    Sq 1.  Exact launch counts, finite logits, then each row alone at
+    batch 1 for ED_SEQ_TOKENS tokens: its first token must equal the
+    batch's.  The encode + prefill time, the decode step time and the
+    peak memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    b = registry.get_bundle(ED_ARCH)
+    cfg = b.cfg
+    params = b.init(cfg, seed=0, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    frames = torch.randn((ED_SERVE_B, ED_S_ENC, cfg.d_model), generator=gen,
+                         device=dev).to(cfg.adtype)
+    prompt = torch.randint(0, cfg.vocab_size, (ED_SERVE_B, ED_PROMPT),
+                           generator=gen, device=dev)
+
+    def greedy(f, p, n):
+        """(the n greedy tokens (B, n), the prefill's seconds, each decode
+        step's seconds)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = b.prefill(params, {"frames": f, "tokens": p}, cfg,
+                                  ED_MAX_LEN)
+        assert bool(torch.isfinite(logits).all()), "non-finite prefill"
+        tok = torch.argmax(logits, -1, keepdim=True)
+        pre = time.perf_counter() - t0
+        toks, step_s = [tok], []
+        for _ in range(n - 1):
+            t0 = time.perf_counter()
+            logits, cache = b.decode_step(params, tok, cache, cfg)
+            tok = torch.argmax(logits, -1, keepdim=True)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            toks.append(tok)
+            assert bool(torch.isfinite(logits).all()), "non-finite decode"
+        return torch.cat(toks, 1), pre, step_s
+
+    with torch.no_grad():
+        greedy(frames, prompt, 3)       # warm-up: cuBLAS handles, kernels
+        ops.reset_launch_counts()
+        toks, pre_s, step_s = greedy(frames, prompt, ED_NEW)
+        launches = ops.launch_counts()
+        alone = [greedy(frames[r:r + 1], prompt[r:r + 1], ED_SEQ_TOKENS)[0]
+                 for r in range(ED_SERVE_B)]
+        all_launches = ops.launch_counts()
+    expect = dict.fromkeys(launches, 0)
+    counts, _ = _encdec_counts(cfg, 1, 1, ED_NEW - 1)
+    expect.update(counts)
+    log(f"[serve] {ED_ARCH} launches {launches} expected {expect}")
+    assert launches == expect, (launches, expect)
+    total = dict.fromkeys(launches, 0)
+    counts, rows = _encdec_counts(cfg, 1 + ED_SERVE_B, 1 + ED_SERVE_B,
+                                  ED_NEW - 1 + ED_SERVE_B
+                                  * (ED_SEQ_TOKENS - 1))
+    total.update(counts)
+    assert all_launches == total, (all_launches, total)
+    first_equal = all(int(a[0, 0]) == int(toks[r, 0])
+                      for r, a in enumerate(alone))
+    agree = sum(int((a[0] == toks[r, :ED_SEQ_TOKENS]).sum())
+                for r, a in enumerate(alone))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    dec_ms = 1e3 * sum(step_s) / len(step_s)
+    log(f"[serve] {ED_ARCH} on {smi}: B{ED_SERVE_B} frames {ED_S_ENC}, "
+        f"prompt {ED_PROMPT}, {ED_NEW} new tokens, max_len {ED_MAX_LEN}: "
+        f"encode + prefill {1e3 * pre_s:.3f} ms, decode step {dec_ms:.4f} "
+        f"ms (median {1e3 * sorted(step_s)[len(step_s) // 2]:.4f}), "
+        f"{ED_SERVE_B * (ED_NEW - 1) / sum(step_s):.1f} decoded tok/s, "
+        f"peak {peak:.3f} GB; first tokens equal batch 1: {first_equal}; "
+        f"tokens agreeing over the first {ED_SEQ_TOKENS}: "
+        f"{agree}/{ED_SERVE_B * ED_SEQ_TOKENS}")
+    assert first_equal, "first tokens differ from batch-1 passes"
+    n_steps = ED_NEW - 1 + ED_SERVE_B * (ED_SEQ_TOKENS - 1)
+    summary = {"arch": ED_ARCH, "params": n_params, "batch": ED_SERVE_B,
+               "decode_launches": {
+                   "rmsnorm": (3 * cfg.num_layers + 1) * n_steps,
+                   "swiglu": 0},
+               "s_enc": ED_S_ENC, "prompt": ED_PROMPT, "new": ED_NEW,
+               "max_len": ED_MAX_LEN, "prefill_ms": 1e3 * pre_s,
+               "decode_step_ms": dec_ms,
+               "decode_step_ms_all": [1e3 * x for x in step_s],
+               "first_equal": first_equal,
+               "agree": [agree, ED_SERVE_B * ED_SEQ_TOKENS],
+               "launches": launches, "expected_launches": expect,
+               "peak_mem_gb": peak}
+    del params, frames
+    return summary, all_launches, rows
+
+
+def phase_train_encdec(torch, dev, smi: str):
+    """whisper-tiny at full width and depth on the reference route, bf16:
+    TRAIN_STEPS steps of ED_TRAIN_B sequences of ED_S_ENC frames and
+    ED_TRAIN_DEC decoder tokens (its own batches: the synthetic pipeline
+    gives the encoder and the decoder one length), exact launch counts
+    (each layer's forward kernels twice under remat: the cross-attention
+    through the flash kernel at Sq ED_TRAIN_DEC against ED_S_ENC, its
+    backward through ring_step_bwd at the negative-offset hop), step 0's
+    loss held to a forward of the same weights and batch."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.train import steps
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    b = registry.get_bundle(ED_ARCH)
+    cfg = b.cfg
+    state = steps.init_train_state(b, seed=0, device=dev)
+    step = steps.make_train_step(b)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def batch():
+        toks = torch.randint(0, cfg.vocab_size, (ED_TRAIN_B,
+                                                 ED_TRAIN_DEC + 1),
+                             generator=gen, device=dev)
+        return {"frames": torch.randn((ED_TRAIN_B, ED_S_ENC, cfg.d_model),
+                                      generator=gen, device=dev).to(
+                                          cfg.adtype),
+                "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    batches = [batch() for _ in range(TRAIN_STEPS)]
+    with torch.no_grad():
+        loss0 = float(steps.make_loss_fn(b)(state["params"], batches[0])[0])
+    ops.reset_launch_counts()
+    losses, step_s = [], []
+    for bt in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, bt)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    launches = ops.launch_counts()
+    expect = dict.fromkeys(launches, 0)
+    counts, rows = _encdec_counts(cfg, TRAIN_STEPS, TRAIN_STEPS, 0,
+                                  TRAIN_STEPS)
+    expect.update(counts)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"[train] {ED_ARCH} reference route on {smi}: B{ED_TRAIN_B} frames "
+        f"{ED_S_ENC} decoder {ED_TRAIN_DEC}: losses {losses}, step s "
+        f"{step_s}, peak {peak:.3f} GB; step-0 loss vs the forward's "
+        f"{loss0}: diff {abs(losses[0] - loss0):.3e} (tol {TRAIN_LOSS_TOL})")
+    log(f"[train] {ED_ARCH} launches {launches} expected {expect}")
+    assert all(map(math.isfinite, losses)), losses
+    assert launches == expect, (launches, expect)
+    assert abs(losses[0] - loss0) < TRAIN_LOSS_TOL, (losses, loss0)
+    n_tok = ED_TRAIN_B * ED_TRAIN_DEC
+    summary = {"arch": ED_ARCH, "route": "reference", "batch": ED_TRAIN_B,
+               "s_enc": ED_S_ENC, "s_dec": ED_TRAIN_DEC, "losses": losses,
+               "forward_loss_step0": loss0, "step_s": step_s,
+               "dec_tok_s_steady": n_tok * (len(step_s) - 1)
+               / sum(step_s[1:]), "peak_mem_gb": peak,
+               "launches": launches, "expected_launches": expect}
+    del state, batches
+    return summary, launches, rows
+
+
+def phase_serve_vlm(torch, dev, smi: str):
+    """phi-3-vision-4.2b at full width and VLM_LAYERS layers, bf16,
+    driven through the bundle (the engine refuses the family): VLM_REQS
+    requests, each its image positions (random embeddings from a
+    seed, the CLIP stub's output) ahead of a text prompt of VLM_PROMPTS
+    tokens, generating VLM_GENS tokens greedily, one request at a time at
+    batch 1.  TTFT is a request's prefill and first sample, TPOT the mean
+    of its decode steps; exact launch counts (the image positions through
+    the causal flash band of every layer's prefill), finite logits."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    b = registry.get_bundle(VLM_ARCH, num_layers=VLM_LAYERS)
+    cfg = b.cfg
+    t0 = time.perf_counter()
+    params = b.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_img = cfg.n_vision_tokens
+    gen = torch.Generator(device=dev).manual_seed(8)
+    reqs = [(VLM_PROMPTS[i % len(VLM_PROMPTS)], VLM_GENS[i % len(VLM_GENS)])
+            for i in range(VLM_REQS)]
+
+    def one(n_text, n_new):
+        img = torch.randn((1, n_img, cfg.d_model), generator=gen,
+                          device=dev).to(cfg.adtype)
+        toks = torch.randint(0, cfg.vocab_size, (1, n_text), generator=gen,
+                             device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = b.prefill(params, {"image_embeds": img,
+                                           "tokens": toks}, cfg,
+                                  n_img + n_text + n_new)
+        tok = torch.argmax(logits, -1, keepdim=True)
+        ok = bool(torch.isfinite(logits).all())
+        ttft = time.perf_counter() - t0
+        assert int(cache["pos"]) == n_img + n_text
+        step_s = []
+        for _ in range(n_new - 1):
+            t0 = time.perf_counter()
+            logits, cache = b.decode_step(params, tok, cache, cfg)
+            tok = torch.argmax(logits, -1, keepdim=True)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            ok = ok and bool(torch.isfinite(logits).all())
+        assert ok, "non-finite logits"
+        return ttft, step_s
+
+    with torch.no_grad():
+        one(64, 2)                  # warm-up
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = [one(n, g) for n, g in reqs]
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    L = cfg.num_layers
+    n_dec = sum(g - 1 for _, g in reqs)
+    expect = dict.fromkeys(launches, 0)
+    expect.update(rmsnorm=(2 * L + 1) * (len(reqs) + n_dec),
+                  swiglu=L * (len(reqs) + n_dec),
+                  flash_attention=L * len(reqs))
+    log(f"[serve] {VLM_ARCH} launches {launches} expected {expect}")
+    assert launches == expect, (launches, expect)
+    ttft = [t for t, _ in out]
+    tpot = [sum(s) / len(s) for _, s in out]
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"[serve] {VLM_ARCH} ({L} layers, {n_params / 1e9:.3f} B params) on "
+        f"{smi}: {len(reqs)} requests of {n_img} image positions + "
+        f"{VLM_PROMPTS} text tokens, {VLM_GENS} new: TTFT s mean "
+        f"{sum(ttft) / len(ttft):.4f} max {max(ttft):.4f} (limit "
+        f"{TTFT_LIMIT_S}), TPOT s mean {sum(tpot) / len(tpot):.5f} max "
+        f"{max(tpot):.5f} (limit {TPOT_LIMIT_S}), peak {peak:.3f} GB, "
+        f"wall {wall:.2f} s")
+    summary = {"arch": VLM_ARCH, "layers": L, "params": n_params,
+               "requests": reqs, "image_positions": n_img,
+               "ttft_s": ttft, "tpot_s": tpot, "init_s": init_s,
+               "ttft_limit_s": TTFT_LIMIT_S, "tpot_limit_s": TPOT_LIMIT_S,
+               "decode_launches": {"rmsnorm": (2 * L + 1) * n_dec,
+                                   "swiglu": L * n_dec},
+               "peak_mem_gb": peak, "wall_s": wall, "launches": launches,
+               "expected_launches": expect}
+    del params
+    return summary, launches
+
+
+def phase_train_vlm(torch, dev, smi: str):
+    """phi-3-vision-4.2b on the reference route at full width and
+    VLM_LAYERS layers, VLM_TRAIN_SEQ positions (576 of them image
+    embeddings), bf16 (phase_train: exact launches, step 0 held to the
+    forward)."""
+    return phase_train(torch, dev, "reference", arch=VLM_ARCH,
+                       seq=VLM_TRAIN_SEQ, layers=VLM_LAYERS,
+                       hold_loss0=True)
+
+
+def phase_train_vlm_pp(torch, dev, smi: str):
+    """phi-3-vision-4.2b at full width and VLM_PP_LAYERS layers through a
+    one-process pp 2 plan (VLM_PP_BATCH sequences of VLM_PP_SEQ positions,
+    one microbatch each): stage 0 prepends each microbatch's image
+    embeddings; exact launch counts, step 0's loss against the reference
+    loss on the same microbatches."""
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.train import steps
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    half = VLM_PP_LAYERS // 2
+    b = registry.get_bundle(VLM_ARCH, num_layers=VLM_PP_LAYERS)
+    plan = ParallelPlan(stages=(StagePlacement(0, half, 1, 1),
+                                StagePlacement(1, half, 1, 1, True)),
+                        micro_bs=1, global_batch=VLM_PP_BATCH,
+                        seq_len=VLM_PP_SEQ)
+    t = Trainer(b, TrainerConfig(global_batch=VLM_PP_BATCH,
+                                 seq_len=VLM_PP_SEQ), plan=plan, device=dev)
+    assert t._pipeline_active()
+    m = plan.micro_batches
+    batch = t._device_batch(t.data.batch_at(t.step))
+    assert batch["image_embeds"].shape[:3] == (m, 1,
+                                               b.cfg.n_vision_tokens)
+    with torch.no_grad():
+        ref = sum(float(steps.make_loss_fn(b)(
+            t.state["params"], {k: v[j] for k, v in batch.items()})[0])
+            for j in range(m)) / m
+    del batch
+    ops.reset_launch_counts()
+    out = t.run(TRAIN_STEPS)
+    launches = ops.launch_counts()
+    expect = dict.fromkeys(launches, 0)
+    expect.update(_pp_launches(m, VLM_PP_LAYERS, TRAIN_STEPS))
+    losses = out["losses"]
+    log(f"[train] {VLM_ARCH} pp 2 ({VLM_PP_LAYERS} layers, S {VLM_PP_SEQ}) "
+        f"on {smi}: losses {losses}, step s {out['step_s']}; step-0 loss vs "
+        f"reference {ref}: diff {abs(losses[0] - ref):.3e} (tol "
+        f"{TRAIN_LOSS_TOL})")
+    log(f"[train] {VLM_ARCH} pp launches {launches} expected {expect}")
+    assert all(map(math.isfinite, losses)), losses
+    assert launches == expect, (launches, expect)
+    assert abs(losses[0] - ref) < TRAIN_LOSS_TOL, (losses[0], ref)
+    summary = {"route": "pp", "arch": VLM_ARCH, "layers": VLM_PP_LAYERS,
+               "seq": VLM_PP_SEQ, "global_batch": VLM_PP_BATCH,
+               "losses": losses, "reference_loss_step0": ref,
+               "step_s": out["step_s"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "launches": launches, "expected_launches": expect,
+               "plan": plan.describe()}
+    del t
+    return summary, launches
 
 
 def phase_serve_cli(torch):
@@ -3809,6 +4597,9 @@ def device_times_main(torch, dev) -> int:
     timed.update(train_timed)
     timed.update(phase_griffin_kernels(torch, dev, name,
                                        device_only=True)[1])
+    timed.update(phase_encdec_kernels(torch, dev, name,
+                                      device_only=True)[1])
+    timed.update(phase_vlm_kernels(torch, dev, name, device_only=True)[1])
     times = dict(timed, flash_attention_S4096=extra["flash_attention_S4096"],
                  **train_extra)
     one = torch.zeros(1, device=dev)
@@ -3886,7 +4677,24 @@ def main(argv=None) -> int:
     extra.update(g_extra)
     log(f"[kernels] recurrentgemma-9b's kernels and the RG-LRU: "
         f"{time.perf_counter() - t_griffin:.1f} s")
-    model_err = {arch: phase_model(torch, dev, arch) for arch in SERVE_ARCHS}
+    t_new = time.perf_counter()
+    e_checks, e_timed, e_extra = phase_encdec_kernels(torch, dev, name)
+    checks += e_checks
+    timed.update(e_timed)
+    extra["rel_readings"] += e_extra.pop("rel_readings")
+    log(f"[kernels] whisper-tiny's attention without causality: "
+        f"{time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    v_checks, v_timed, _ = phase_vlm_kernels(torch, dev, name)
+    checks += v_checks
+    timed.update(v_timed)
+    log(f"[kernels] phi-3-vision-4.2b's attention at hd 96: "
+        f"{time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    model_err = {arch: phase_model(torch, dev, arch)
+                 for arch in SERVE_ARCHS + MODEL_ARCHS}
+    log(f"[model] phase 4 ({len(model_err)} archs): "
+        f"{time.perf_counter() - t_new:.1f} s")
     serve, launches = {}, dict.fromkeys(LAUNCH_COUNTERS, 0)
     for arch in SERVE_ARCHS:
         t_cell = time.perf_counter()
@@ -3899,9 +4707,21 @@ def main(argv=None) -> int:
                 f"{r['ttft_s']}, TPOT s {r['tpot_s']}, decode tok/s "
                 f"{r['decode_tok_per_s']:.1f}, peak {r['peak_mem_gb']:.2f} "
                 f"GB; cell {time.perf_counter() - t_cell:.1f} s")
+    # the enc-dec and VLM cells, driven through their bundles
+    t_new = time.perf_counter()
+    serve[ED_ARCH], counts, ed_rows = phase_serve_encdec(torch, dev, smi)
+    for kname, n in counts.items():
+        launches[kname] += n
+    log(f"[serve] {ED_ARCH} cell: {time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    serve[VLM_ARCH], counts = phase_serve_vlm(torch, dev, smi)
+    for kname, n in counts.items():
+        launches[kname] += n
+    log(f"[serve] {VLM_ARCH} cell: {time.perf_counter() - t_new:.1f} s")
     # rmsnorm's and swiglu's two rows: their launches inside decode steps
     # (8 rows or fewer), and the rest (prefills and training)
-    decode = {k: sum(serve[a]["decode_launches"][k] for a in SERVE_ARCHS)
+    decode = {k: sum(serve[a]["decode_launches"][k]
+                     for a in SERVE_ARCHS + MODEL_ARCHS)
               for k in ("rmsnorm", "swiglu")}
     # flash's row at danube's prefill shape takes that cell's launches,
     # its hd-256 row at recurrentgemma-9b's prefill shape that cell's
@@ -3966,6 +4786,22 @@ def main(argv=None) -> int:
     log(f"[train] recurrentgemma-9b cell: {time.perf_counter() - t_new:.1f}"
         f" s")
     griffin_train = train[GRIFFIN_ARCH]["launches"]
+    # the enc-dec stack and the VLM: whisper-tiny at full depth, then
+    # phi-3-vision at full depth and through a pp 2 plan
+    t_new = time.perf_counter()
+    train[ED_ARCH], counts, rows = phase_train_encdec(torch, dev, smi)
+    for kname, n in counts.items():
+        launches[kname] += n
+    ed_rows = {k: n + rows[k] for k, n in ed_rows.items()}
+    log(f"[train] {ED_ARCH} cell: {time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    train[VLM_ARCH], counts = phase_train_vlm(torch, dev, smi)
+    for kname, n in counts.items():
+        launches[kname] += n
+    train[f"{VLM_ARCH} pp"], counts = phase_train_vlm_pp(torch, dev, smi)
+    for kname, n in counts.items():
+        launches[kname] += n
+    log(f"[train] {VLM_ARCH} cells: {time.perf_counter() - t_new:.1f} s")
     # danube's flash forward and backward run at hd 120: their rows
     swa_train = train["h2o-danube-3-4b"]["launches"]
     train["pp"], counts = phase_train_pp(torch, dev, smi)
@@ -4058,6 +4894,21 @@ def main(argv=None) -> int:
                           - griffin_train["ring_step_bwd"]),
         "ring_step_bwd hd120": swa_train["ring_step_bwd"],
         "ring_step_bwd hd256": griffin_train["ring_step_bwd"]}
+    # whisper-tiny's non-causal rows (its causal self-attention and its
+    # other backwards stay in the general rows)
+    for kname, n in ed_rows.items():
+        row_launches[kname.split()[0]] -= n
+    row_launches.update(ed_rows)
+    # phi-3-vision-4.2b's hd-96 rows: its serve cell's prefills, its
+    # reference train run (its pp route's S1024 stays in the general rows)
+    vlm_train = train[VLM_ARCH]["launches"]
+    vlm_rows = {
+        "flash_attention hd96": serve[VLM_ARCH]["launches"]["flash_attention"],
+        "flash_attention hd96 lse": vlm_train["flash_attention"],
+        "ring_step_bwd hd96": vlm_train["ring_step_bwd"]}
+    for kname, n in vlm_rows.items():
+        row_launches[kname.split()[0]] -= n
+    row_launches.update(vlm_rows)
     for k, n in decode.items():
         row_launches[k], row_launches[f"{k} decode"] = launches[k] - n, n
 

@@ -1,13 +1,22 @@
 """Decoder-only LM (port of ``repro/models/transformer.py``: the dense,
-MoE and ssm families' uniform stacks and the hybrid family's groups).
+MoE and ssm families' uniform stacks, the hybrid family's groups, and the
+VLM's dense stack behind its prepended image embeddings).
 
 Public entry points:
   init_lm(cfg, seed=, device=)                   -> params
-  lm_forward(params, tokens, cfg)                -> (logits, aux_loss)
-  lm_features(params, tokens, cfg)               -> (features, w, aux_loss)
+  lm_forward(params, tokens, cfg, extra_embeds=) -> (logits, aux_loss)
+  lm_features(params, tokens, cfg, extra_embeds=)
+                                                 -> (features, w, aux_loss)
   init_cache(cfg, batch, max_len, device=)       -> cache
-  lm_prefill(params, tokens, cfg, max_len)       -> (last_logits, cache)
+  lm_prefill(params, tokens, cfg, max_len, extra_embeds=)
+                                                 -> (last_logits, cache)
   lm_decode_step(params, token, cache, cfg)      -> (logits, cache)
+
+``extra_embeds`` (B, N, D), the VLM frontend stub's image embeddings, are
+cast to the activation dtype and prepended to the token embeddings (JAX's
+``_embed_tokens``): the sequence is then N + S positions, the labels and
+the cache cover all of them.  The enc-dec family has a tree and a forward
+of its own (``models/encdec.py``).
 
 Blocks are stacked on a leading layer dim as in the JAX package; its
 ``lax.scan`` over layers is a Python loop over views of the stacks.  A
@@ -51,22 +60,23 @@ from repro_torch.parallel import tensor
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
-# the families of the JAX registry that the port does not run yet, by
-# the ROADMAP item that ports each (the registry's archs name them too)
-UNPORTED = {"encdec": "A9e (enc-dec)", "vlm": "A9f (the VLM prepend)"}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 HYBRID_KINDS = ("rec", "attn")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the uniform dense attention stack (qk_norm, SWA,
-    every MLP activation of the registry), the uniform MoE stack, the
-    uniform Mamba-1 stack and the hybrid stack of RG-LRU and attention
-    blocks in JAX's scanned layout."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        item = UNPORTED.get(cfg.family, "A9")
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP.md queue A, item {item})")
+    """This stack runs the uniform dense attention stack (qk_norm, SWA,
+    every MLP activation of the registry; the VLM's too), the uniform MoE
+    stack, the uniform Mamba-1 stack and the hybrid stack of RG-LRU and
+    attention blocks in JAX's scanned layout."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name}: the enc-dec family runs models/encdec.py "
+            "(registry.bundle_for routes it there), not the decoder-only "
+            "stack")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; "
+                         f"known: {FAMILIES + ('encdec',)}")
     if cfg.family == "hybrid" and (
             not cfg.scan_layers
             or not set(cfg.layer_kinds()) <= set(HYBRID_KINDS)):
@@ -164,16 +174,25 @@ def hybrid_layers(params: dict, cfg: ModelConfig):
 # holds its share of each leaf the sharding rules split
 # (``parallel/sharding.py``); None leaves every path as it is.
 def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-           model: Optional[Communicator] = None) -> torch.Tensor:
-    """The rows of ``tokens``.  A lookup, not indexing: on the card its
-    gradient sums a token's positions in fp32 and rounds once, where
-    indexing's adds them one at a time into the bf16 gradient, which
-    loses a frequent token's later terms."""
+           model: Optional[Communicator] = None,
+           extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The rows of ``tokens``, after ``extra_embeds`` (B, N, D) when given
+    (cast to the activation dtype; on a tensor-parallel rank prepended to
+    the whole rows the vocab-parallel lookup returns).  A lookup, not
+    indexing: on the card its gradient sums a token's positions in fp32
+    and rounds once, where indexing's adds them one at a time into the
+    bf16 gradient, which loses a frequent token's later terms."""
     table = params["embed"]
     tokens = torch.as_tensor(tokens, device=table.device)
     if model is not None and table.shape[0] != cfg.vocab_size:
-        return tensor.vocab_parallel_embed(table, tokens, cfg.adtype, model)
-    return torch.nn.functional.embedding(tokens.long(), table).to(cfg.adtype)
+        x = tensor.vocab_parallel_embed(table, tokens, cfg.adtype, model)
+    else:
+        x = torch.nn.functional.embedding(tokens.long(), table).to(
+            cfg.adtype)
+    if extra_embeds is None:
+        return x
+    extra = torch.as_tensor(extra_embeds, device=table.device)
+    return torch.cat([extra.to(cfg.adtype), x], dim=1)
 
 
 def _unembed_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -298,8 +317,14 @@ def remat_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor) -> bool:
 
 
 def check_tp_supported(cfg: ModelConfig) -> None:
-    """Tensor parallelism splits the dense stack; the others raise,
-    naming their ROADMAP item."""
+    """Tensor parallelism splits the dense stack (the VLM's too); the
+    others raise, naming their ROADMAP item."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over the enc-dec stack (JAX "
+            "splits its enc_blocks/dec_blocks by _fsdp_spec, where the "
+            "port's rules split the decoder-only blocks) is not ported yet "
+            "(ROADMAP.md queue A, item A9h)")
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over the hybrid stack (the "
@@ -318,7 +343,8 @@ def check_tp_supported(cfg: ModelConfig) -> None:
 
 
 def lm_features(params: dict, tokens, cfg: ModelConfig,
-                model: Optional[Communicator] = None):
+                model: Optional[Communicator] = None,
+                extra_embeds: Optional[torch.Tensor] = None):
     """The forward WITHOUT the unembed: (features (B,S,D) after the final
     norm, unembed weight (D,V), aux_loss), so a loss can run the head over
     sequence chunks (``train.steps.make_loss_fn`` with ``cfg.loss_chunk``).
@@ -331,11 +357,12 @@ def lm_features(params: dict, tokens, cfg: ModelConfig,
     weight is this rank's vocab slice, (D, V / tp), when the rules split
     the vocab; a recomputed block all-reduces again.  ``aux_loss`` is the
     sum of the blocks' auxiliary losses (the MoE router's), under remat
-    too."""
+    too.  ``extra_embeds`` are prepended (``_embed``): the features cover
+    N + S positions."""
     check_supported(cfg)
     if model is not None:
         check_tp_supported(cfg)
-    x = _embed(params, tokens, cfg, model)
+    x = _embed(params, tokens, cfg, model, extra_embeds)
     # the block stack: ``blocks``, or the hybrid stack's groups and tail
     remat = remat_blocks(cfg, {k: params[k] for k in ("blocks", "groups",
                                                       "tail") if k in params},
@@ -353,9 +380,11 @@ def lm_features(params: dict, tokens, cfg: ModelConfig,
     return x, _unembed_weight(params, cfg), aux
 
 
-def lm_forward(params: dict, tokens, cfg: ModelConfig):
-    """tokens: (B,S) int -> (logits (B,S,V) fp32, aux_loss)."""
-    x, w, aux = lm_features(params, tokens, cfg)
+def lm_forward(params: dict, tokens, cfg: ModelConfig,
+               extra_embeds: Optional[torch.Tensor] = None):
+    """tokens: (B,S) int -> (logits (B,N+S,V) fp32, aux_loss), N the
+    prepended ``extra_embeds``' rows (0 without)."""
+    x, w, aux = lm_features(params, tokens, cfg, extra_embeds=extra_embeds)
     return (x @ w).float(), aux
 
 
@@ -377,7 +406,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def lm_prefill(params: dict, tokens, cfg: ModelConfig, max_len: int):
+def lm_prefill(params: dict, tokens, cfg: ModelConfig, max_len: int,
+               extra_embeds: Optional[torch.Tensor] = None):
     """Forward + cache construction.  Returns (last-token logits (B,V)
     fp32, cache).  A KV cache holds the last ``min(S, max_len)`` positions
     at its front, as in the JAX package.  An SWA cache of length Sw holds
@@ -387,9 +417,11 @@ def lm_prefill(params: dict, tokens, cfg: ModelConfig, max_len: int):
     decode misreads (ROADMAP.md, reference behaviours).  An ssm cache
     holds each layer's scan state and conv tail after position S, and so
     does a hybrid cache for each rec layer (JAX's
-    ``_rglru_prefill_state``), beside the attn layers' K/V."""
+    ``_rglru_prefill_state``), beside the attn layers' K/V.  With
+    ``extra_embeds`` (N rows) prepended, S counts them: the cache and
+    ``pos`` cover N + S_text positions."""
     dev = params["embed"].device
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, extra_embeds=extra_embeds)
     B, S = x.shape[0], x.shape[1]
     cache = init_cache(cfg, B, max_len, dev)
     if cfg.family == "ssm":

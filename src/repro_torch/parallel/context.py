@@ -62,9 +62,25 @@ from repro_torch.train.steps import (Z_COEF, LossFn, _ce_sums,
                                      cross_entropy, with_aux)
 
 
+def check_cp_family(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for the families whose loss reads more
+    than tokens and labels: the cp loss, like JAX's, reads those two
+    only, so a cp plan of these has no route (the trainer raises rather
+    than keep the reference loss)."""
+    extra = {"encdec": "frames", "vlm": "image_embeds"}.get(cfg.family)
+    if extra is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the cp loss reads tokens and labels only, as "
+            f"JAX's (repro/parallel/context.py); the {cfg.family} loss "
+            f"also reads {extra}, so a cp > 1 plan has no route")
+
+
 def check_cp_supported(cfg: ModelConfig) -> None:
     """Raise ValueError when ``cfg`` falls outside the cp loss's scope (the
-    trainer calls this before routing a cp > 1 plan here)."""
+    trainer calls this before routing a cp > 1 plan here), and
+    NotImplementedError for a family that reads more than tokens
+    (``check_cp_family``)."""
+    check_cp_family(cfg)
     kinds = cfg.layer_kinds()
     if set(kinds) != {"attn"} or not cfg.scan_layers:
         raise ValueError(

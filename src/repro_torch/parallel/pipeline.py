@@ -103,7 +103,13 @@ from repro_torch.train.steps import (AUX_COEF, LossFn, cross_entropy,
 
 def check_pp_supported(cfg: ModelConfig) -> None:
     """Raise ValueError when ``cfg`` falls outside the pipeline loss's
-    scope (a uniform stack: dense, MoE or Mamba-1), as JAX's assert."""
+    scope (a uniform stack: dense, VLM, MoE or Mamba-1), as JAX's
+    assert."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name}: pp execution runs params['blocks'], as JAX's "
+            "make_pp_loss_fn does; the enc-dec tree holds enc_blocks and "
+            "dec_blocks and trains on the reference route only")
     kinds = set(cfg.layer_kinds())
     if len(kinds) != 1:
         raise ValueError("pp execution needs a uniform scanned stack "
@@ -198,6 +204,13 @@ def _layer_views(blocks: Dict[str, Any], n_layers: int) -> List[Dict]:
             for i in range(n_layers)]
 
 
+def _seq_total(tokens: torch.Tensor,
+               extra: Optional[torch.Tensor]) -> int:
+    """The positions a stage runs: the text's, after the prepended image
+    embeddings' (microbatched, ``(m, B_tick, ...)``)."""
+    return tokens.shape[2] + (0 if extra is None else extra.shape[2])
+
+
 def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
                     layers_per_stage: Optional[Sequence[int]] = None,
                     vpp: int = 1,
@@ -206,7 +219,9 @@ def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
     """loss_fn(params, batch) running the pipeline's ticks on one device.
 
     ``params``: the canonical tree (blocks stacked ``(L, ...)``);
-    ``batch``: tokens and labels microbatched ``(m, B_tick, S)``.
+    ``batch``: tokens and labels microbatched ``(m, B_tick, S)``, and a
+    VLM's ``image_embeds`` ``(m, B_tick, N, D)``, which stage 0 prepends
+    (its labels cover N + S positions).
     ``layers_per_stage`` is per virtual stage in virtual order
     (``ParallelPlan.virtual_layers``); ``stage_tp`` the per-stage tensor
     widths (``ParallelPlan.tps``).  Each block runs under
@@ -243,11 +258,12 @@ def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
 
     def loss_fn(params, batch):
         tokens, labels = batch["tokens"], batch["labels"]
+        extra = batch.get("image_embeds")
         if tokens.shape[0] != m:
             raise ValueError(f"the batch holds {tokens.shape[0]} "
                              f"microbatches, the pipeline {m}")
         layers = _layer_views(params["blocks"], cfg.num_layers)
-        Bt, S = tokens.shape[1], tokens.shape[2]
+        Bt, S = tokens.shape[1], _seq_total(tokens, extra)
         # the stage buffer the SPMD program rolls each tick: noted, not made
         slots = (n_stages,) if vpp == 1 else (n_stages, vpp)
         hop = torch.empty(slots + (Bt, S, cfg.d_model), dtype=cfg.adtype,
@@ -258,7 +274,8 @@ def make_pp_loss_fn(cfg: ModelConfig, n_stages: int, n_microbatches: int,
         aux_sum = torch.zeros_like(loss_sum)
         for t in range(m + V - 1):
             if t < m:
-                acts[t] = _embed(params, tokens[t], cfg)
+                acts[t] = _embed(params, tokens[t], cfg, extra_embeds=(
+                    None if extra is None else extra[t]))
             # the valid slots: virtual stage vs holds microbatch t - vs
             for vs in range(max(0, t - m + 1), min(t, V - 1) + 1):
                 acts[t - vs], aux = run_stage(layers, vs, acts[t - vs])
@@ -294,7 +311,14 @@ def check_rank_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
     ``interleaved-1f1b`` with vpp > 1 a microbatch count that Megatron's
     order matches every message of (m <= pp, or m a multiple of pp), and
     cp > 1 only at pp 1 on a model in the cp loss's scope; tp > 1 on the
-    dense stack only; MoE on one replica; not the hybrid stack (A9g)."""
+    dense stack only; MoE on one replica; not the hybrid stack (A9g) nor
+    the enc-dec stack (A9h)."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the rank routes (pp, dp, tp, ZeRO-1) over the "
+            "enc-dec stack are not ported yet: JAX trains it over its data "
+            "mesh axis (ROADMAP.md queue A, item A9h) and never through its "
+            "pp or cp loss")
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: the rank routes (tp, dp, ZeRO-1) over the hybrid "
@@ -893,6 +917,7 @@ class PPRankStep:
         cfg, s, m, pp = self.cfg, self.stage, self.m, self.plan.pp
         V = pp * self.plan.vpp
         tokens, labels = batch["tokens"], batch["labels"]
+        extra = batch.get("image_embeds")    # stage 0 prepends them
         if tokens.shape[0] != m:
             raise ValueError(f"the batch holds {tokens.shape[0]} "
                              f"microbatches, the plan {m}")
@@ -901,8 +926,9 @@ class PPRankStep:
         layers = [views[a:a + n] for a, n in self.chunks]
         vocab = (vocab_model(_unembed_weight(p, cfg), cfg, self.model)
                  if s == pp - 1 else None)
-        like = torch.empty(tokens.shape[1:] + (cfg.d_model,),
-                           dtype=cfg.adtype, device=leaves[0].device)
+        like = torch.empty((tokens.shape[1], _seq_total(tokens, extra),
+                            cfg.d_model), dtype=cfg.adtype,
+                           device=leaves[0].device)
         ce_sum = torch.zeros((), dtype=torch.float32, device=like.device)
         aux_sum = torch.zeros_like(ce_sum)
         saved: Dict[Tuple[int, int], Tuple[torch.Tensor, ...]] = {}
@@ -912,8 +938,9 @@ class PPRankStep:
             embedding): the activation to send on, or None at V - 1."""
             nonlocal ce_sum, aux_sum
             vs = c * pp + s
-            x = _embed(p, tokens[j], cfg, self.model) if vs == 0 else \
-                x.requires_grad_()
+            x = _embed(p, tokens[j], cfg, self.model,
+                       None if extra is None else extra[j]) if vs == 0 \
+                else x.requires_grad_()
             y, aux = self._run_layers(layers[c], x)
             if aux is not None:
                 aux_sum = aux_sum + aux.detach()

@@ -173,8 +173,12 @@ def _loss_fns(arch: str, n_layers: int, smoke: bool, device: torch.device,
 
 
 def _batch(cfg, mbs: int, seq: int, device: torch.device):
+    """The family's batch, as JAX's runner takes ``make_batch``'s: the
+    enc-dec frames and the VLM's image embeddings too."""
     data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=seq,
-                           global_batch=mbs, seed=0).batch_at(0)
+                           global_batch=mbs, seed=0, family=cfg.family,
+                           d_model=cfg.d_model,
+                           n_vision_tokens=cfg.n_vision_tokens).batch_at(0)
     return {k: torch.as_tensor(v, device=device) for k, v in data.items()}
 
 
@@ -372,9 +376,9 @@ def main(argv=None) -> int:
                     help="cuda (default; raises without a CUDA device) or "
                          "cpu")
     args = ap.parse_args(argv)
-    if args.arch not in registry.PORTED:
-        ap.error(f"unknown or unported --arch {args.arch!r}; "
-                 f"choose from {', '.join(registry.PORTED)}")
+    if args.arch not in registry.ARCH_IDS:
+        ap.error(f"unknown --arch {args.arch!r}; "
+                 f"choose from {', '.join(registry.ARCH_IDS)}")
     run(arch=args.arch, quick=args.quick, out=args.out,
         tp_options=args.tp, device=args.device)
     return 0

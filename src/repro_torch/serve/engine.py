@@ -30,6 +30,10 @@ occupancy gauges and TTFT/TPOT observations, flushed once per engine
 step.  ``replanner`` (``DriftReplanner``) is consulted after every
 ``replan_check_every``-th completion with the observed traffic profile,
 as in the JAX engine.
+
+The enc-dec and VLM families are refused, with JAX's reason: they are
+served through their bundle's ``prefill`` and ``decode_step`` over a
+batch, as the JAX package serves them.
 """
 from __future__ import annotations
 
@@ -45,6 +49,8 @@ import torch
 from repro_torch.core.plan import TrafficProfile
 from repro_torch.models import registry
 from repro_torch.utils.device import DeviceLike, resolve_device, synchronize
+
+SERVABLE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,6 +210,13 @@ class ServeEngine:
                  seed: int = 0, eos_id: Optional[int] = None,
                  metrics=None, replanner: Optional["DriftReplanner"] = None,
                  replan_check_every: int = 4, device: DeviceLike = None):
+        cfg = bundle.cfg
+        if cfg.family not in SERVABLE_FAMILIES:
+            raise ValueError(
+                f"ServeEngine serves token-in/token-out families "
+                f"{SERVABLE_FAMILIES}; {cfg.name} is {cfg.family!r} "
+                "(enc-dec needs a cross-attention cache and the VLM stub "
+                "an image-embed prompt — neither fits per-slot admission)")
         self.device = resolve_device(device)
         if max_batch < 1:
             raise ValueError(f"max_batch >= 1 required, got {max_batch}")

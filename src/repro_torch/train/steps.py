@@ -74,12 +74,25 @@ def make_loss_fn(bundle: ArchBundle,
                  model: Optional[Communicator] = None) -> LossFn:
     """The reference loss; ``model``: this rank's tensor-parallel
     communicator, its ``params`` the rank's shard
-    (``parallel/sharding.shard_tree``)."""
+    (``parallel/sharding.shard_tree``).  The enc-dec family takes its
+    whole forward (``frames`` and ``tokens``) and no ``loss_chunk``, as
+    in JAX; the VLM's ``image_embeds`` are prepended and its labels cover
+    the image positions too."""
     cfg = bundle.cfg
+    if cfg.family == "encdec":
+        if model is not None:
+            transformer.check_tp_supported(cfg)
+
+        def encdec_loss(params, batch):
+            logits, aux = bundle.forward(params, batch, cfg)
+            return with_aux(cross_entropy(logits, batch["labels"]), aux)
+
+        return encdec_loss
 
     def loss_fn(params, batch):
-        feats, w, aux = transformer.lm_features(params, batch["tokens"], cfg,
-                                                model)
+        feats, w, aux = transformer.lm_features(
+            params, batch["tokens"], cfg, model,
+            extra_embeds=batch.get("image_embeds"))
         vocab = transformer.vocab_model(w, cfg, model)
         feats = tensor.copy_to_model(feats, vocab)
         if cfg.loss_chunk:

@@ -430,7 +430,7 @@ class Trainer:
                 or plan.global_batch != self.cfg.global_batch
                 or plan.seq_len != self.cfg.seq_len):
             return False
-        try:
+        try:    # enc-dec and VLM raise NotImplementedError: no fall back
             context.check_cp_supported(self.bundle.cfg)
         except ValueError:
             return False
@@ -536,11 +536,15 @@ class Trainer:
 
     # ------------------------------------------------------------- run ----
     def _device_batch(self, np_batch: Dict[str, np.ndarray]):
+        """The step's batch on the device: the frontend stubs' float
+        inputs (``frames``, ``image_embeds``) in the activation dtype, as
+        JAX's ``_device_batch`` casts them."""
         m = None
         if self._pipeline_active():
             m = self.run_plan.micro_batches
+        adtype = self.bundle.cfg.adtype
 
-        def put(v):
+        def put(k, v):
             if m is not None:   # the pipeline consumes (m, B_tick, ...)
                 v = v.reshape(m, v.shape[0] // m, *v.shape[1:])
             if self.grid is not None:   # this replica's rows (of each)
@@ -549,9 +553,10 @@ class Trainer:
                 r = self.grid.replica
                 rows = rows[r * b:(r + 1) * b]
                 v = rows if m is None else rows.swapaxes(0, 1)
-            return torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+            t = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+            return t.to(adtype) if k in ("frames", "image_embeds") else t
 
-        return {k: put(v) for k, v in np_batch.items()}
+        return {k: put(k, v) for k, v in np_batch.items()}
 
     def run(self, n_steps: int,
             on_straggler: Optional[Callable[["Trainer"], None]] = None
@@ -1415,10 +1420,16 @@ class Trainer:
         if migrate == "checkpoint" and self.ckpt is None:
             raise ValueError("migrate='checkpoint' restores the checkpoint "
                              "of this step: set TrainerConfig.ckpt_dir")
-        ranks = self._ranks_active()
+        ranks, cfg = self._ranks_active(), self.bundle.cfg
+        # before anything moves: a plan whose route the model has not (the
+        # checks of the route _build takes)
         if ranks and result.plan.cp > 1:
-            # before anything moves: a cp plan the ranks cannot run (A8b)
-            pipeline.check_rank_plan(self.bundle.cfg, result.plan)
+            pipeline.check_rank_plan(cfg, result.plan)  # cp on ranks: A8b
+        elif not ranks:
+            if result.plan.pp > 1:          # the enc-dec stack has no pp
+                pipeline.check_pp_supported(cfg)
+            if result.plan.cp > 1:          # nor enc-dec and VLM a cp loss
+                context.check_cp_family(cfg)
         t0 = time.perf_counter()
         if self.ckpt is not None:
             self.ckpt.wait()

@@ -179,7 +179,7 @@ def test_flash_attention_reads_strided_inputs(dev):
     _close_attention(got, want, torch.bfloat16)
 
 
-@pytest.mark.parametrize("hd", [24, 40, 120, 128])
+@pytest.mark.parametrize("hd", [24, 40, 96, 120, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,Sq,Sk,H,Hk,kw", [
     (1, 257, 257, 4, 2, {}),                    # GQA, ragged S
@@ -190,7 +190,7 @@ def test_flash_attention_reads_strided_inputs(dev):
 ])
 def test_flash_attention_any_head_dim(dev, hd, dtype, B, Sq, Sk, H, Hk, kw):
     """Head dims that are multiples of 8 but not tile widths (24, 40,
-    h2o-danube-3-4b's 120) run in the next tile, their extra columns
+    phi-3-vision-4.2b's 96, h2o-danube-3-4b's 120) run in the next tile, their extra columns
     zero-filled; 128 is the tile itself.  Forward and lse against the
     plain version, and q/k/v read as strided slices of one projection."""
     qkv = _randn(dev, B, max(Sq, Sk), H + 2 * Hk, hd, dtype=dtype)
@@ -952,11 +952,14 @@ def test_flash_backward_tensor_cores(dev, B, Sq, Sk, H, Hk, hd):
     (1, 300, 300, 8, 2, 64, 70, 20.0),          # window and softcap
     (1, 100, 300, 4, 2, 120, 150, None),        # Sq < Sk, the band
     (2, 200, 200, 4, 4, 40, 64, 5.0),
+    (1, 700, 700, 8, 8, 96, None, None),        # phi-3-vision's, MHA
+    (1, 100, 300, 4, 4, 96, None, None),        # Sq < Sk, causal
 ])
 def test_flash_backward_window_softcap_any_head_dim_on_card(
         dev, dtype, B, Sq, Sk, H, Hk, hd, window, softcap):
     """The flash backward (one-rank ``ring_step_bwd``) with a window, a
-    softcap, both, at head dims between the tile widths (24, 40, 120), GQA
+    softcap, both, or neither at head dims between the tile widths (24,
+    40, 96, 120), MHA, GQA
     and MQA, ragged and with the queries at the end of the keys, against
     autograd through the plain flash."""
     q = _randn(dev, B, Sq, H, hd, dtype=dtype).requires_grad_()
@@ -1012,6 +1015,147 @@ def test_smoke_train_steps_of_the_dense_family_on_card_match_cpu(dev, arch):
     gated = b.cfg.act == "swiglu"
     assert counts["swiglu"] == 3 * 2 * L * gated
     assert counts["swiglu_bwd"] == 3 * L * gated
+    torch.testing.assert_close(torch.tensor(losses[1]),
+                               torch.tensor(losses[0]), **MODEL_TOL)
+
+
+# ----------------------- whisper-tiny's cross-attention, phi-3-vision --
+# the flash kernels without causality where the queries and the keys have
+# other lengths: whisper-tiny's cross-attention (decoder rows against the
+# encoder's, at training, prefill and Sq 1 at decode; hd 64, the 64 tile)
+NON_CAUSAL_CASES = [
+    (2, 48, 150, 6, 6, 64),     # Sq < Sk: every q tile sees all keys
+    (2, 150, 48, 6, 6, 64),     # Sq > Sk: the hop's offset Sk - Sq < 0
+    (8, 1, 150, 6, 6, 64),      # Sq 1: the decode step
+    (2, 1, 1500, 6, 6, 64),     # Sq 1 against whisper's 1500 frames
+    (1, 448, 1500, 6, 6, 64),   # whisper's training cross shape
+    (1, 37, 100, 4, 2, 32),     # GQA, ragged tiles
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk,hd", NON_CAUSAL_CASES)
+def test_flash_attention_without_causality_at_other_lengths(
+        dev, dtype, B, Sq, Sk, H, Hk, hd):
+    """The forward with and without lse against the plain version: every
+    q tile covers all Sk keys, whatever Sq."""
+    q = _randn(dev, B, Sq, H, hd, dtype=dtype)
+    k = _randn(dev, B, Sk, Hk, hd, dtype=dtype, seed=1)
+    v = _randn(dev, B, Sk, Hk, hd, dtype=dtype, seed=2)
+    want, want_lse = ref.flash_attention(q, k, v, causal=False,
+                                         return_lse=True)
+    n = tfa.launches
+    got, lse = tfa.flash_attention(q, k, v, causal=False, return_lse=True)
+    _close_attention(got, want, dtype)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    _close_attention(tfa.flash_attention(q, k, v, causal=False), want, dtype)
+    assert tfa.launches == n + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk,hd", [
+    c for c in NON_CAUSAL_CASES if c[1] > 1])
+def test_flash_backward_without_causality_at_other_lengths(
+        dev, dtype, B, Sq, Sk, H, Hk, hd):
+    """``FlashAttentionFn``'s backward (the one-rank ``ring_step_bwd`` at
+    the hop ``(Sk - Sq, 0, 0, Sk, Sq)``, whose offset is negative at Sq >
+    Sk) against autograd through the plain flash."""
+    q = _randn(dev, B, Sq, H, hd, dtype=dtype).requires_grad_()
+    k = _randn(dev, B, Sk, Hk, hd, dtype=dtype, seed=1).requires_grad_()
+    v = _randn(dev, B, Sk, Hk, hd, dtype=dtype, seed=2).requires_grad_()
+    do = _randn(dev, B, Sq, H, hd, dtype=dtype, seed=3)
+    n = (tfa.launches, tra.bwd_launches)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, causal=False),
+                              (q, k, v), do)
+    assert (tfa.launches, tra.bwd_launches) == (n[0] + 1, n[1] + 1)
+    want = torch.autograd.grad(ref.flash_attention(q, k, v, causal=False),
+                               (q, k, v), do)
+    for g, w in zip(got, want):
+        _close_attention(g, w, dtype)
+
+
+def _smoke_batch(cfg, gen, S):
+    """tokens (2, S), and the frontend stub's input of the family."""
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, S),
+                                     generator=gen)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, 45, cfg.d_model), generator=gen)
+    else:
+        batch["image_embeds"] = torch.randn(
+            (2, cfg.n_vision_tokens, cfg.d_model), generator=gen)
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "phi-3-vision-4.2b"])
+def test_smoke_encdec_and_vlm_on_card_match_cpu(dev, arch):
+    """whisper-tiny and phi-3-vision-4.2b SMOKE, fp32: the forward, the
+    prefill (the VLM's cache over its image positions too), every cache
+    leaf and 4 decode steps on the card against the CPU; the card's
+    launches exact (whisper's cross-attention through the flash kernel at
+    prefill and at every decode step)."""
+    b = registry.get_bundle(arch, smoke=True)
+    cfg = b.cfg
+    cpu = b.init(cfg, seed=0, device="cpu")
+    gpu = _to(cpu, dev)
+    batch = _smoke_batch(cfg, torch.Generator().manual_seed(3), 21)
+    S = 21 + cfg.n_vision_tokens
+    out = {}
+    for tag, p, d in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+        bd = {k: v.to(d) for k, v in batch.items()}
+        ops.reset_launch_counts()
+        res = [b.forward(p, bd, cfg)[0]]
+        last, cache = b.prefill(p, bd, cfg, S + 8)
+        res.append(last)
+        cache["pos"] = torch.tensor([S, S], device=d)
+        tok = torch.argmax(last, -1, keepdim=True)
+        for _ in range(4):
+            lg, cache = b.decode_step(p, tok, cache, cfg)
+            res.append(lg)
+            tok = torch.argmax(lg, -1, keepdim=True)
+        out[tag] = res + [cache[part][kv] for part in ("kv", "xkv")
+                          if part in cache for kv in ("k", "v")]
+    for want, got in zip(out["cpu"], out["gpu"]):
+        torch.testing.assert_close(got.cpu(), want, **MODEL_TOL)
+    counts, L = ops.launch_counts(), cfg.num_layers
+    if cfg.family == "encdec":      # 2 passes (forward, prefill), 4 steps
+        Le = cfg.n_encoder_layers
+        assert counts["flash_attention"] == 2 * (Le + 2 * L) + 4 * L
+        assert counts["rmsnorm"] == 2 * (2 * Le + 1 + 3 * L + 1) \
+            + 4 * (3 * L + 1)
+    else:
+        assert counts["flash_attention"] == 2 * L
+        assert counts["rmsnorm"] == 6 * (2 * L + 1)
+        assert counts["swiglu"] == 6 * L
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "phi-3-vision-4.2b"])
+def test_smoke_encdec_and_vlm_train_steps_on_card_match_cpu(dev, arch):
+    """Three SMOKE reference-route Trainer steps (fp32; the batch's frames
+    or image embeddings cast by the trainer) on the card against the CPU
+    from one state, each layer's forward twice under remat."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    b = registry.get_bundle(arch, smoke=True)
+    state = init_train_state(b, seed=0, device="cpu")
+    losses = []
+    for d in ("cpu", dev):
+        t = Trainer(b, TrainerConfig(global_batch=2, seq_len=48),
+                    opt_cfg=AdamWConfig(lr=1e-2, warmup_steps=2),
+                    state=state, device=d)
+        ops.reset_launch_counts()
+        losses.append(t.run(3)["losses"])
+    counts, cfg = ops.launch_counts(), b.cfg
+    L, Le = cfg.num_layers, cfg.n_encoder_layers
+    if cfg.family == "encdec":
+        assert counts["flash_attention"] == 3 * 2 * (Le + 2 * L)
+        assert counts["ring_step_bwd"] == 3 * (Le + 2 * L)
+        assert counts["rmsnorm_bwd"] == 3 * (2 * Le + 1 + 3 * L + 1)
+    else:
+        assert counts["flash_attention"] == 3 * 2 * L
+        assert counts["ring_step_bwd"] == 3 * L
+        assert counts["swiglu_bwd"] == 3 * L
     torch.testing.assert_close(torch.tensor(losses[1]),
                                torch.tensor(losses[0]), **MODEL_TOL)
 

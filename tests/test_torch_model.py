@@ -7,6 +7,9 @@ libm code; over two layers and the 64-wide unembed that leaves a few
 1e-6 on logits of magnitude ~4 (2.4e-6 measured for lm_forward), so 1e-4
 holds with margin while a wrong mask, position or layout misses it.
 """
+import dataclasses
+import types
+
 import numpy as np
 import pytest
 
@@ -137,17 +140,28 @@ def test_lm_decode_steps_match_jax(models, per_row):
 
 
 def test_unported_options_raise():
-    """What the port still refuses: the families of queue A items A9e and
-    A9f (enc-dec, the VLM prepend), each by its item, and a config whose
-    family and experts disagree.  The dense family's window, qk_norm and
-    activations (tests/test_torch_archs.py), the MoE family
-    (tests/test_torch_moe.py) and the hybrid stack
-    (tests/test_torch_griffin.py) are ported."""
-    with pytest.raises(NotImplementedError, match="queue A, item A9f"):
-        transformer.init_lm(
-            treg.get_config("llama3-8b", smoke=True, family="vlm"),
-            device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A, item A9e"):
+    """What the port still refuses, each by its reason.  The enc-dec stack
+    (A9e) trains on one process's reference route only: a pp plan (JAX's
+    pp loss reads ``params["blocks"]``), a cp plan (JAX's cp loss takes
+    tokens only), tp and the rank routes (A9h) raise before anything
+    runs, and the decoder-only stack does not admit it.  The VLM (A9f)
+    has no cp route.  The serving engine refuses both families with
+    JAX's reason (``tests/test_serve.py:180-187``).  A config whose family
+    and experts disagree raises.  Every arch id of the registry loads:
+    the dense family's window, qk_norm and activations
+    (tests/test_torch_archs.py), the MoE family (tests/test_torch_moe.py),
+    the hybrid stack (tests/test_torch_griffin.py), the enc-dec stack
+    (tests/test_torch_encdec.py) and the VLM (tests/test_torch_vlm.py)."""
+    from repro_torch.core.plan import ParallelPlan, StagePlacement
+    from repro_torch.parallel import context
+    from repro_torch.parallel import pipeline as tpp
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import steps as tsteps
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    wb = treg.get_bundle("whisper-tiny", smoke=True)
+    vb = treg.get_bundle("phi-3-vision-4.2b", smoke=True)
+    ed = wb.cfg
+    with pytest.raises(ValueError, match="runs models/encdec.py"):
         transformer.init_cache(
             treg.get_config("llama3-8b", smoke=True, family="encdec"), 1, 16,
             "cpu")
@@ -155,7 +169,49 @@ def test_unported_options_raise():
         transformer.init_lm(
             treg.get_config("llama3-8b", smoke=True, family="moe"),
             device="cpu")
-    for arch, item in (("whisper-tiny", "A9e"),
-                       ("phi-3-vision-4.2b", "A9f")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            treg.get_bundle(arch, smoke=True)
+    cfg = TrainerConfig(global_batch=4, seq_len=32)
+    pp2 = ParallelPlan(stages=(StagePlacement(0, 1, 1, 1),
+                               StagePlacement(1, 1, 1, 1, True)),
+                       micro_bs=1, global_batch=4, seq_len=32)
+    with pytest.raises(ValueError, match=r"params\['blocks'\]"):
+        tpp.make_pp_loss_fn(ed, 2, 4)
+    with pytest.raises(ValueError, match=r"params\['blocks'\]"):
+        Trainer(wb, cfg, plan=pp2, device="cpu")
+    cp2 = ParallelPlan(stages=(StagePlacement(0, 2, 2, 1, True),),
+                       micro_bs=4, global_batch=4, seq_len=32, cp=2,
+                       cp_chunks=(20, 12))
+    with pytest.raises(NotImplementedError, match="also reads frames"):
+        context.make_cp_loss_fn(ed, (20, 12))
+    with pytest.raises(NotImplementedError, match="also reads frames"):
+        Trainer(wb, cfg, plan=cp2, device="cpu")
+    with pytest.raises(NotImplementedError, match="item A9h"):
+        transformer.check_tp_supported(ed)
+    with pytest.raises(NotImplementedError, match="item A9h"):
+        tsteps.make_loss_fn(wb, model=object())
+    dp2 = ParallelPlan(stages=(StagePlacement(0, 2, 2, 1, True),),
+                       micro_bs=2, global_batch=4, seq_len=32)
+    for plan in (dp2, pp2, dataclasses.replace(
+            dp2, stages=(StagePlacement(0, 2, 1, 2, True),))):
+        with pytest.raises(NotImplementedError, match="item A9h"):
+            tpp.check_rank_plan(ed, plan)
+    with pytest.raises(NotImplementedError, match="also reads image_embeds"):
+        context.check_cp_supported(vb.cfg)
+    # a replan to such a plan raises before anything moves: the trainer
+    # keeps its plan and its state
+    for b, plan, err, msg in ((wb, pp2, ValueError, r"params\['blocks'\]"),
+                              (wb, cp2, NotImplementedError, "reads frames"),
+                              (vb, cp2, NotImplementedError,
+                               "reads image_embeds")):
+        t = Trainer(b, cfg, device="cpu")
+        state = t.state
+        with pytest.raises(err, match=msg):
+            t._adopt(types.SimpleNamespace(plan=plan), None)
+        assert t.plan is None and t.replans == 0 and t.state is state
+    for b in (wb, vb):
+        with pytest.raises(ValueError, match="enc-dec needs a cross-"):
+            ServeEngine(b, None, max_batch=2, max_len=16, device="cpu")
+    for arch in treg.ARCH_IDS:
+        assert treg.get_bundle(arch, smoke=True).cfg.family in (
+            "dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+    assert not hasattr(treg, "UNPORTED")
+    assert not hasattr(transformer, "UNPORTED")

@@ -105,7 +105,7 @@ def test_configs_and_tree_match_jax(arch):
         assert dataclasses.asdict(t) == dataclasses.asdict(j)
         assert t.param_count() == j.param_count()
         assert t.param_count(True) == j.param_count(True)
-    assert arch in treg.PORTED
+    assert arch in treg.ARCH_IDS
     jb, jp, tb, tp = _models(arch)
     mine = tb.init(tb.cfg, seed=0, device="cpu")
 

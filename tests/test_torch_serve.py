@@ -107,8 +107,9 @@ def test_engine_rejects_oversized_and_unported():
     eng = _engine(b, params, max_batch=2, max_len=16)
     with pytest.raises(ValueError, match="exceeds the engine max_len"):
         eng.submit(Request(rid=0, prompt=(1,) * 10, max_new_tokens=10))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_bundle("whisper-tiny", smoke=True)
+    wb = registry.get_bundle("whisper-tiny", smoke=True)
+    with pytest.raises(ValueError, match="enc-dec"):
+        ServeEngine(wb, None, max_batch=2, max_len=16, device="cpu")
     with pytest.raises(ValueError, match="max_batch"):
         _engine(b, params, max_batch=0, max_len=16)
 
